@@ -1,0 +1,6 @@
+from repro_torch.kernels.edge_delta_apply.ops import (TILE, bucket_slot_ops,
+                                                      edge_delta_apply)
+from repro_torch.kernels.edge_delta_apply.ref import edge_delta_apply_ref
+
+__all__ = ["TILE", "bucket_slot_ops", "edge_delta_apply",
+           "edge_delta_apply_ref"]

@@ -1,0 +1,73 @@
+"""Wrapper of the edge-slot LWW kernel (``edge_delta_apply.cu``): slot
+tile bucketing in plain PyTorch and the launch.  The node mask goes
+through ``delta_apply.ops.node_mask_lww``, exactly like the dense
+path."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.delta import ADD_EDGE, Delta
+from repro_torch.kernels import build
+from repro_torch.kernels.edge_delta_apply.ref import edge_delta_apply_ref
+
+TILE = 4096   # == TS in edge_delta_apply.cu
+
+
+def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None):
+    """Bucket the delta's edge ops by slot tile: ONE entry per op,
+    i32 ``[local slot, t, key, 0]`` with ``key = 2·rank + (op ==
+    addEdge)``, ordered by tile and by rank within a tile.  No per-tile
+    cap.  Returns (entries i32[E', 4], tile_start i32[T + 1])."""
+    keep = delta.valid_mask() & delta.is_edge_op() & (delta.slot < e)
+    if t_lo is not None:
+        keep &= delta.t > int(t_lo)
+    if t_hi is not None:
+        keep &= delta.t <= int(t_hi)
+    idx = torch.nonzero(keep).flatten()
+    slot = delta.slot[idx].to(torch.int64)
+    key = idx * 2 + (delta.op[idx] == ADD_EDGE).to(torch.int64)
+    tiles = -(-e // TILE)
+    tile_id = slot // TILE
+    order = torch.argsort(tile_id, stable=True)
+    tile_start = torch.searchsorted(
+        tile_id[order], torch.arange(tiles + 1, device=slot.device))
+    entries = torch.stack([slot % TILE, delta.t[idx].to(torch.int64), key,
+                           torch.zeros_like(slot)], 1)
+    return (entries[order].to(torch.int32).contiguous(),
+            tile_start.to(torch.int32))
+
+
+def edge_delta_apply(anchor_emask: torch.Tensor, entries: torch.Tensor,
+                     tile_start: torch.Tensor, t_anchor: torch.Tensor,
+                     t_query: torch.Tensor) -> torch.Tensor:
+    """bool[Q, E]: LWW reconstruction of Q edge masks.  ``anchor_emask``
+    is bool[E] (shared) or bool[Q, E]; ``t_anchor``/``t_query`` i32[Q].
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if anchor_emask.device.type == "cpu":
+        return edge_delta_apply_ref(anchor_emask, entries, tile_start,
+                                    t_anchor, t_query, TILE)
+    e = anchor_emask.shape[-1]
+    q = t_query.numel()
+    build.check_cuda("anchor_emask", anchor_emask, torch.bool)
+    if anchor_emask.dim() not in (1, 2) or (
+            anchor_emask.dim() == 2 and anchor_emask.shape[0] != q):
+        raise ValueError(f"anchor_emask shape {tuple(anchor_emask.shape)} "
+                         f"is not [E] or [{q}, E]")
+    build.check_cuda("entries", entries, torch.int32, 2)
+    build.check_cuda("tile_start", tile_start, torch.int32, 1)
+    build.check_cuda("t_anchor", t_anchor, torch.int32, 1)
+    build.check_cuda("t_query", t_query, torch.int32, 1)
+    if entries.shape[1] != 4 or tile_start.numel() != -(-e // TILE) + 1:
+        raise ValueError("entries/tile_start do not match the tiling")
+    if t_anchor.numel() != q:
+        raise ValueError("t_anchor and t_query differ in length")
+    build.check_same_device(anchor_emask=anchor_emask, entries=entries,
+                            tile_start=tile_start, t_anchor=t_anchor,
+                            t_query=t_query)
+    out = torch.empty((q, e), dtype=torch.bool, device=anchor_emask.device)
+    build.ext().edge_delta_apply(
+        entries, tile_start, anchor_emask,
+        e if anchor_emask.dim() == 2 else 0, out, t_anchor, t_query, e,
+        build.stream_handle(anchor_emask.device))
+    build.LAUNCHES["edge_delta_apply"] += 1
+    return out

@@ -1,0 +1,125 @@
+"""Rules of the port that a reader cannot see from parity alone:
+
+* no file of ``src/repro_torch/`` — nor ``chip_smoke.py`` — imports
+  ``jax`` or anything of ``repro``;
+* the default ``device`` is the card, and without one it raises instead
+  of quietly running on the CPU;
+* a kernel wrapper has no ``try`` around its launch (no fallback), and
+  each CUDA source names the Pallas kernel it replaces;
+* building the kernels happens at first use, never at import.
+"""
+import ast
+import os
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files(ext=".py"):
+    out = []
+    for d, _, files in os.walk(PORT):
+        out += [os.path.join(d, f) for f in files if f.endswith(ext)]
+    return sorted(out)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0:
+                yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files() + [
+    os.path.join(ROOT, "chip_smoke.py")],
+    ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_repro_imports(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_has_every_module_of_the_slice():
+    want = ["obs/clock.py", "obs/trace.py", "obs/metrics.py",
+            "obs/slowlog.py", "core/delta.py", "core/graph.py",
+            "core/reconstruct.py", "core/queries.py", "core/index.py",
+            "core/partial.py", "core/plans.py", "core/materialize.py",
+            "core/segments.py", "core/store.py", "core/generate.py",
+            "core/engine.py", "serving/policy.py", "serving/ingest.py",
+            "serving/frontend.py", "api.py", "convert.py",
+            "kernels/delta_apply/delta_apply.cu",
+            "kernels/edge_delta_apply/edge_delta_apply.cu",
+            "kernels/degree_series/degree_series.cu",
+            "kernels/evolve_sweep/sweep.cu"]
+    missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
+    assert not missing
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.api import GraphSession
+    from repro_torch.core.store import TemporalGraphStore
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphSession(n_cap=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TemporalGraphStore(8)
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["delta_apply", "edge_delta_apply",
+                                  "degree_series", "evolve_sweep"])
+def test_wrappers_have_no_fallback(name):
+    """A CUDA tensor launches the kernel or raises: no ``try`` in the
+    wrapper module, and the CPU branch is taken only on a CPU device."""
+    src = "sweep.py" if name == "evolve_sweep" else "ops.py"
+    path = os.path.join(PORT, "kernels", name, src)
+    tree = ast.parse(open(path).read())
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    text = open(path).read()
+    assert 'device.type == "cpu"' in text
+    assert re.search(r'LAUNCHES\["\w+"\] \+= 1', text)
+
+
+@pytest.mark.parametrize("path", _port_files(".cu"),
+                         ids=os.path.basename)
+def test_cuda_sources_name_what_they_replace(path):
+    text = open(path).read()
+    m = re.search(r"Replaces: (src/)?repro/kernels/(\S+)::\s*(\w+)",
+                  text.replace("\n// ", " "))
+    assert m, path
+    assert os.path.exists(os.path.join(ROOT, "src", "repro", "kernels",
+                                       m.group(2)))
+    assert "bounds it on the H100" in text
+
+
+def test_kernels_are_not_built_at_import():
+    from repro_torch.kernels import build
+    assert build.ext.cache_info().currsize == 0 or \
+        torch.cuda.is_available()
+
+
+def test_wrapper_operand_checks():
+    """The checks every wrapper runs before a launch refuse what the
+    kernel does not take (device, dtype, rank, contiguity, mixed
+    devices)."""
+    from repro_torch.kernels import build
+    x = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        build.check_cuda("x", x, torch.int32, 2)
+    meta = torch.empty((4, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        build.check_cuda("x", meta, torch.int32, 2)
+    with pytest.raises(ValueError, match="different devices"):
+        build.check_same_device(a=x, b=meta)
+    build.check_same_device(a=x, b=x.t())
