@@ -1,29 +1,47 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
-against its plain PyTorch version, and run the in-memory GraphSession
-end to end on both layouts.
+against its plain PyTorch version, run the in-memory GraphSession end
+to end on both layouts, and serve two decoder LMs (prefill + greedy
+decode) at their published width and depth.
 
     python3 chip_smoke.py                 # full size, one card
-    python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096   # quick
+    python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
+        --lm-layers 4                     # quick
 
 Phases, in order (any failure exits non-zero):
 
-1. build — compile the four kernels (``repro_torch.kernels.build``) and
+1. build — compile the six kernels (``repro_torch.kernels.build``) and
    print the card's name and power limit as nvidia-smi reports them;
-2. kernels — call each kernel's wrapper at the shapes the sessions
-   launch, on the sessions' own data, and require bit-equality with the
-   plain version; time both (CUDA events) beside the HBM byte bound;
+2. kernels — call each kernel's wrapper at the shapes the main path
+   launches it with and compare with the plain version: the four graph
+   kernels on the sessions' own data, bit for bit; flash attention (at
+   the smollm-360m prefill shape, plus head dims 128 / 256, a sliding
+   window and a kv_len-padded non-causal case) and the SSD scan (at the
+   mamba2-130m prefill shape, output and final state) on seeded random
+   inputs, within the tolerance printed.  Each is timed (CUDA events)
+   beside its bound, the plain version and, for attention, PyTorch's
+   ``scaled_dot_product_attention`` as the library yardstick;
 3. dense session — ``GraphSession(n_cap=8192, layout="dense")`` ingests
    the paper's Table 3 evolution parameters in several flushed batches,
    then a mixed ``query_many`` (point / diff / agg, node and global,
    degree_distribution and triangles), sweeps and a snapshot;
-4. edge session — the same at ``n_cap=131072``, ``layout="edge"``.
+4. edge session — the same at ``n_cap=131072``, ``layout="edge"``;
+5. smollm-360m and 6. mamba2-130m — bf16 weights from a seeded
+   ``torch.Generator``, prefill of 8 prompts of 2048 seeded tokens
+   (``cache_cap`` 2080), 32 greedy decode steps.
 
 Phases 3 and 4 zero the launch counters before driving the session and
 read them after: each kernel the layout should use must have launched.
 A sample of the answers must equal, bit for bit, those of the same
 session built with ``device="cpu"`` from the same ops; triangle counts
-are checked against a sparse count of the snapshot.
+are checked against a sparse count of the snapshot.  Phases 5 and 6 zero
+the counters before the prefill and the decode and read them after
+each: one launch of the model's kernel per layer in the prefill, none
+of the other kernels, none in decode.  The decode must agree with a
+fresh forward over prompt + generated tokens (bf16 tolerance printed),
+and the same model in float32 on the card and on the CPU (one prompt of
+256 tokens, 4 decode steps) must give close logits and the same greedy
+tokens.
 
 The second-to-last line is ``{"kernels": [...], "phases": {...}}``; the
 last is ``{"ok": true, "device": {...}}``.  Details go to
@@ -45,6 +63,28 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 # compares, atomics and adds, one per in-window entry per query and one
 # per output element.
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_FLOPS = 989e12         # H100 SXM dense bf16, NVIDIA data sheet
+F32_FLOPS = 67e12                  # float32 outside the tensor cores
+LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32
+CHECK_PROMPT, CHECK_DECODE = 256, 4
+# bf16 decode against a fresh bf16 forward over the same tokens, as max
+# |Δ logit| / max |logit| per step.  The two paths round differently (a
+# [B, 1] matmul against a [1, S] one; the SSM's recurrence against its
+# chunked form), and in bf16 each step's differences feed the next
+# step's cache and every later layer, so the gap grows along the decode
+# while the float32 check below stays tight.  The first step, which
+# reads the caches prefill built before any decode rounding feeds back,
+# is held to 2^-4; all 32 steps to 2^-2.  (Set after the first run on
+# the card, which measured up to 1.5e-2 and 0.16.)
+BF16_FIRST_STEP_RTOL = 2.0 ** -4
+BF16_DECODE_RTOL = 2.0 ** -2
+# float32 card against float32 CPU: max |Δ logit| / max |logit|; the
+# sums run in other orders on the two devices (TF32 stays off).  The SSD
+# scan's chunked form takes exp of differences of in-chunk cumsums of
+# a·dt that reach ~10^3 (a down to −16), where the float32 spacing is
+# ~10^-4; the kernel's scan adds in another order than torch.cumsum on
+# the CPU, so the SSM family gets a looser bound than the dense one.
+F32_CARD_CPU_RTOL = {"dense": 1e-4, "ssm": 1e-3}
 PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
                     events_per_unit=8)      # paper Table 3
 
@@ -277,7 +317,32 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q):
     return cases
 
 
+def _max_err(out_k, out_p) -> float:
+    """Max abs difference over the kernel's outputs (a tensor or a tuple
+    of tensors), integers compared exactly."""
+    import torch
+    outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    err = 0.0
+    for a, b in zip(outs_k, outs_p):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"kernel {tuple(a.shape)} {a.dtype} vs "
+                                 f"plain {tuple(b.shape)} {b.dtype}")
+        if not a.numel():
+            continue
+        if a.dtype.is_floating_point:
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        else:
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
 def phase_kernels(cases) -> list[dict]:
+    """Each case: kernel against plain version (``tol``: a function of
+    the plain output giving the allowed max abs error, or None for
+    bit-exact), then timed beside its bound and, where one PyTorch call
+    computes the same function (``library``), that call."""
     import torch
     rows = []
     for c in cases:
@@ -285,32 +350,134 @@ def phase_kernels(cases) -> list[dict]:
         torch.cuda.synchronize()
         out_p = c["plain"]()
         torch.cuda.synchronize()
-        if out_k.shape != out_p.shape or out_k.dtype != out_p.dtype:
-            raise AssertionError(f"{c['name']}: kernel {tuple(out_k.shape)}"
-                                 f" {out_k.dtype} vs plain "
-                                 f"{tuple(out_p.shape)} {out_p.dtype}")
-        err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs()
-                  .max()) if out_k.numel() else 0
+        err = _max_err(out_k, out_p)
+        tol = c["tol"](out_p) if c.get("tol") else 0
+        tol_text = c.get("tol_text", "bit-exact")
+        del out_k, out_p
         ms = cuda_ms(c["kernel"], 20)
         plain_ms = cuda_ms(c["plain"], 3)
+        library_ms = cuda_ms(c["library"], 20) if c.get("library") else None
         bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = c["ops"] / SCALAR_OPS_PER_S * 1e3
+        ops_ms = c["ops"] / c.get("rate", SCALAR_OPS_PER_S) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         rows.append(dict(name=c["name"], route=c["route"],
                          source=c["source"], replaces=c["replaces"],
                          launches=0, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by="bytes" if bytes_ms >= ops_ms
-                         else "operations", library_ms=None,
+                         else "operations", library_ms=library_ms,
                          bytes=c["bytes"], ops=c["ops"],
-                         shape=c["shape"]))
+                         shape=c["shape"], tolerance=tol_text,
+                         max_abs_tol=tol))
+        lib = f"  library {library_ms:.4f} ms" if library_ms else ""
         print(f"kernel {c['name']}: {c['shape']}  {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms  "
-              f"max_abs_err {err} (tolerance: bit-exact)", flush=True)
-        if err:
-            raise AssertionError(f"{c['name']} disagrees with its plain "
-                                 f"version (max abs err {err})")
+              f"{plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
+              f"({rows[-1]['bound_by']})  max_abs_err {err:.3g} "
+              f"(tolerance: {tol_text}, {tol:.3g})", flush=True)
+        if err > tol:
+            raise AssertionError(f"{c['name']} ({c['shape']}) disagrees "
+                                 f"with its plain version (max abs err "
+                                 f"{err} > {tol})")
+        torch.cuda.empty_cache()
     return rows
+
+
+def lm_kernel_cases(seed: int):
+    """Flash attention and the SSD scan on seeded random inputs: the
+    main-path shape of each first (smollm-360m / mamba2-130m prefill),
+    then the other head dims and masks flash attention takes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    cases = []
+    fa = dict(name="flash_attention", route="cuda",
+              source="src/repro_torch/kernels/flash_attention/"
+                     "flash_attention.cu",
+              replaces="src/repro/kernels/flash_attention/"
+                       "flash_attention.py:93")
+    for b, hq, hkv, sq, skv, d, dtype, causal, window, kv_len, lib in (
+            (LM_BATCH, 15, 5, LM_PROMPT, LM_PROMPT, 64, torch.bfloat16,
+             True, None, None, True),                 # smollm-360m prefill
+            (1, 32, 2, 512, 512, 128, torch.bfloat16, True, None, None,
+             False),                                  # glm4-9b heads
+            (1, 8, 1, 512, 512, 256, torch.bfloat16, True, None, None,
+             False),                                  # gemma-2b heads
+            (1, 8, 2, 1000, 1000, 128, torch.float32, True, 256, None,
+             False),                                  # sliding window
+            (2, 4, 2, 300, 512, 64, torch.float32, False, None, 450,
+             False)):                                 # kv_len padding
+        # [B, S, H, D] activations seen through [B, H, S, D] views, as
+        # models/attention.py hands them over
+        q = randn(b, sq, hq, d, dtype=dtype).transpose(1, 2)
+        k = randn(b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+        v = randn(b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+        scale = d ** -0.5
+        i = np.arange(sq)
+        hi = np.full(sq, (kv_len or skv) - 1)
+        if causal:
+            hi = np.minimum(hi, i)
+        lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
+        pairs = int(np.maximum(0, hi - lo + 1).sum()) * b * hq
+        library = None
+        if lib:
+            kr = k.repeat_interleave(hq // hkv, 1)
+            vr = v.repeat_interleave(hq // hkv, 1)
+
+            def library(q=q, kr=kr, vr=vr, scale=scale):
+                return F.scaled_dot_product_attention(q, kr, vr,
+                                                      is_causal=True,
+                                                      scale=scale)
+        bf16 = dtype == torch.bfloat16
+        cases.append(dict(
+            fa,
+            kernel=lambda q=q, k=k, v=v, c=causal, w=window, s=scale,
+            n=kv_len: flash_attention(q, k, v, c, w, s, n),
+            plain=lambda q=q, k=k, v=v, c=causal, w=window, s=scale,
+            n=kv_len: attention_ref(q, k, v, causal=c, window=w, scale=s,
+                                    kv_len=n),
+            library=library,
+            bytes=nbytes(q, k, v, q), ops=4 * d * pairs,
+            rate=BF16_TENSOR_FLOPS if bf16 else F32_FLOPS,
+            tol=lambda out: 3e-2 if out.dtype == torch.bfloat16 else 3e-5,
+            tol_text="3e-2 abs (bf16 output, 1-2 ulps at |o| < 4)" if bf16
+            else "3e-5 abs (f32, sums in another order)",
+            shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+                  f"{str(dtype)[6:]} causal={causal} window={window} "
+                  f"kv_len={kv_len}"))
+
+    # the SSD scan at the mamba2-130m prefill: B 8, S 2048, H 24, P 64,
+    # N 128, chunk 256; a and dt as the model makes them
+    b, s, h, p, n, chunk = LM_BATCH, LM_PROMPT, 24, 64, 128, 256
+    x = randn(b, s, h, p)
+    dt = F.softplus(randn(b, s, h))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bm, cm = randn(b, s, n), randn(b, s, n)
+    nc = s // chunk
+    ops = b * h * nc * (chunk * (chunk + 1) * (n + p) + 4 * chunk * p * n)
+    cases.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:59",
+        kernel=lambda: ssd_scan(x, dt, a, bm, cm, chunk),
+        plain=lambda: ssd_chunked(x, dt, a, bm, cm, chunk),
+        library=None,
+        bytes=nbytes(x, dt, a, bm, cm, x) + b * h * p * n * 4, ops=ops,
+        rate=F32_FLOPS,
+        tol=lambda out: 5e-5 * max(float(t.abs().max()) for t in out),
+        tol_text="5e-5 x max|plain| (f32, sums over a chunk in another "
+                 "order; y and final state)",
+        shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk}"))
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +600,220 @@ def phase_session(name: str, ops, n_cap: int, layout: str, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# Phases 5 and 6: the decoder LMs
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(a, b) -> float:
+    """max |a − b| / max |b| over float32 copies."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def profile_device(fn, top: int = 8) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity only) and
+    return its wall time, the summed device time of the kernels it
+    launched, the device's busy share of the wall time and the kernels
+    that took the most device time.  The profiler's own overhead is in
+    the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = list(prof.key_averages())
+    device_s = sum(dev_us(e) for e in events) / 1e6
+    events.sort(key=dev_us, reverse=True)
+    return dict(wall_s=wall, device_s=device_s,
+                busy=device_s / wall if wall else None,
+                top_ms=[(e.key[:80], dev_us(e) / 1e3, e.count)
+                        for e in events[:top]])
+
+
+def lm_config(arch: str, layers: int):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def greedy(api, model, cfg, tokens, n_steps: int, cache_cap: int):
+    """Prefill ``tokens`` then ``n_steps`` greedy decode steps.  Returns
+    (generated [B, n_steps + 1], logits of every step, caches)."""
+    import torch
+    logits, caches = api.prefill(model, {"tokens": tokens}, cfg,
+                                 cache_cap=cache_cap)
+    out, steps = [logits.argmax(-1)], [logits]
+    for i in range(n_steps):
+        logits, caches = api.decode_step(model, out[-1][:, None],
+                                         tokens.shape[1] + i, caches, cfg)
+        out.append(logits.argmax(-1))
+        steps.append(logits)
+    return torch.stack(out, 1), steps, caches
+
+
+def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
+    """Serve ``arch`` at full width (depth ``layers`` or the published
+    one) in bf16 on the card, then the float32 card-versus-CPU check."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    cfg = lm_config(arch, layers)
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(seed), torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+    cap = LM_PROMPT + LM_DECODE
+
+    # the main path: prefill, then greedy decode, counters read after each
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = api.prefill(model, {"tokens": prompts}, cfg,
+                                 cache_cap=cap)
+    torch.cuda.synchronize()
+    prefill_cold_s = time.perf_counter() - t0
+    prefill_launches = dict(build.LAUNCHES)
+    build.reset_launches()
+    tok = logits.argmax(-1)
+    gen, dec_logits = [tok], []
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        logits, caches = api.decode_step(model, tok[:, None],
+                                         LM_PROMPT + i, caches, cfg)
+        tok = logits.argmax(-1)
+        gen.append(tok)
+        dec_logits.append(logits[0])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_launches = dict(build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k, n in prefill_launches.items():
+        want = cfg.n_layers if k == kernel else 0
+        if n != want:
+            raise AssertionError(f"{arch}: {n} launches of {k} in one "
+                                 f"prefill, want {want}")
+    if any(decode_launches.values()):
+        raise AssertionError(f"{arch}: decode launched {decode_launches}")
+    gen = torch.stack(gen, 1)
+    for t in [logits] + dec_logits:
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{arch}: non-finite logits")
+    del caches
+
+    # a warm prefill for the rate (same inputs, counters not read), then
+    # where the device time goes in one prefill and in 8 decode steps
+    t0 = time.perf_counter()
+    _, caches = api.prefill(model, {"tokens": prompts}, cfg, cache_cap=cap)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prof_prefill = profile_device(
+        lambda: api.prefill(model, {"tokens": prompts}, cfg, cache_cap=cap))
+
+    def decode8():
+        t = gen[:, :1]
+        for i in range(8):
+            logits, _ = api.decode_step(model, t, LM_PROMPT + i, caches, cfg)
+            t = logits.argmax(-1)[:, None]
+    prof_decode = profile_device(decode8)
+    del caches
+    for what, pr in (("prefill", prof_prefill), ("8 decode steps",
+                                                 prof_decode)):
+        print(f"{arch} profile, {what}: wall {pr['wall_s']:.4f} s, device "
+              f"{pr['device_s']:.4f} s, busy {pr['busy']:.3f}; top "
+              + "; ".join(f"{k} {ms:.2f} ms x{n}"
+                          for k, ms, n in pr["top_ms"]), flush=True)
+
+    # decode against a fresh forward over prompt + generated, sequence 0
+    with torch.no_grad():
+        seq = torch.cat([prompts[:1], gen[:1, :LM_DECODE]], 1)
+        full = api.forward(model, {"tokens": seq}, cfg)[0]
+    step_rel = [_rel_err(dl, full[LM_PROMPT + i])
+                for i, dl in enumerate(dec_logits)]
+    decode_rel = max(step_rel)
+    greedy_same = float((full[LM_PROMPT - 1:].argmax(-1)
+                         == gen[0, :LM_DECODE + 1]).float().mean())
+    print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, prefill "
+          f"{LM_BATCH}x{LM_PROMPT} in {prefill_s:.4f} s "
+          f"({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s; cold "
+          f"{prefill_cold_s:.4f} s), decode {1e3 * decode_s / LM_DECODE:.3f}"
+          f" ms/step, peak {peak_gib:.2f} GiB; {kernel} launches per "
+          f"prefill {prefill_launches[kernel]}; decode vs fresh forward "
+          f"rel err first step {step_rel[0]:.3g} (tolerance "
+          f"{BF16_FIRST_STEP_RTOL:.3g}), all steps {decode_rel:.3g} "
+          f"(tolerance {BF16_DECODE_RTOL:.3g}), greedy agreement "
+          f"{greedy_same:.3f}", flush=True)
+    bad = []
+    if not (step_rel[0] <= BF16_FIRST_STEP_RTOL
+            and decode_rel <= BF16_DECODE_RTOL):
+        bad.append(f"bf16 decode disagrees with a fresh forward (rel err "
+                   f"per step {[round(r, 5) for r in step_rel]})")
+    del model, full, logits, dec_logits
+    torch.cuda.empty_cache()
+
+    # float32: the same model on the card and on the CPU
+    t0 = time.perf_counter()
+    cpu = api.init_params(cfg, torch.Generator().manual_seed(seed),
+                          torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, CHECK_PROMPT)))
+    cap = CHECK_PROMPT + CHECK_DECODE
+    build.reset_launches()
+    g_card, s_card, _ = greedy(api, card, cfg, toks.cuda(), CHECK_DECODE,
+                               cap)
+    torch.cuda.synchronize()
+    f32_launches = build.LAUNCHES[kernel]
+    g_cpu, s_cpu, _ = greedy(api, cpu, cfg, toks, CHECK_DECODE, cap)
+    f32_rel = max(_rel_err(a.cpu(), b) for a, b in zip(s_card, s_cpu))
+    f32_tol = F32_CARD_CPU_RTOL[cfg.family]
+    same = bool(torch.equal(g_card.cpu(), g_cpu))
+    f32_s = time.perf_counter() - t0
+    print(f"{arch}: float32 card vs CPU, prompt {CHECK_PROMPT} + "
+          f"{CHECK_DECODE} steps: rel err {f32_rel:.3g} (tolerance "
+          f"{f32_tol:.3g}), greedy tokens identical: {same} "
+          f"({f32_s:.1f} s)", flush=True)
+    if f32_launches != cfg.n_layers:
+        bad.append(f"float32 prefill launched {kernel} {f32_launches} "
+                   "times")
+    if not (f32_rel <= f32_tol and same):
+        bad.append(f"float32 card and CPU disagree (rel err {f32_rel}, "
+                   f"tokens {g_card.tolist()} vs {g_cpu.tolist()})")
+    if bad:
+        raise AssertionError(f"{arch}: " + "; ".join(bad))
+    del card, cpu
+    torch.cuda.empty_cache()
+    return dict(arch=arch, n_layers=cfg.n_layers, init_s=init_s,
+                prefill_s=prefill_s, prefill_cold_s=prefill_cold_s,
+                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / prefill_s,
+                decode_ms_per_step=1e3 * decode_s / LM_DECODE,
+                peak_gib=peak_gib, prefill_launches=prefill_launches,
+                decode_launches=decode_launches, decode_rel_err=decode_rel,
+                decode_rel_err_by_step=step_rel,
+                profile_prefill=prof_prefill, profile_decode8=prof_decode,
+                greedy_agreement=greedy_same, f32_rel_err=f32_rel,
+                f32_greedy_identical=same, f32_check_s=f32_s,
+                generated=gen[0].tolist())
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -440,6 +821,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dense-nodes", type=int, default=8192)
     ap.add_argument("--edge-nodes", type=int, default=131072)
     ap.add_argument("--edge-e-cap", type=int, default=1 << 21)
+    ap.add_argument("--lm-layers", type=int, default=0,
+                    help="cut the LMs' depth (0: the published depth)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
@@ -491,7 +874,17 @@ def main(argv=None) -> int:
     kernels = phase_kernels(cases)
     del cases, stores
     torch.cuda.empty_cache()
+    lm_rows = phase_kernels(lm_kernel_cases(args.seed))
+    torch.cuda.empty_cache()
     phases["kernels_s"] = time.perf_counter() - t0
+    # one row per kernel, at its main-path shape; the other shapes of a
+    # kernel go with it under "cases"
+    for r in lm_rows:
+        first = next((k for k in kernels if k["name"] == r["name"]), None)
+        if first is None:
+            kernels.append(r)
+        else:
+            first.setdefault("cases", []).append(r)
 
     # phases 3 and 4 — the main path, counters zeroed just before each
     dense = phase_session(
@@ -504,24 +897,34 @@ def main(argv=None) -> int:
         expect={"delta_apply": False, "edge_delta_apply": True,
                 "degree_series": True, "sweep_series": True},
         e_cap=args.edge_e_cap)
+    lms = {}
+    profile_device(lambda: torch.zeros(1, device="cuda") + 1)  # CUPTI start-up
+    for arch, kernel in (("smollm-360m", "flash_attention"),
+                         ("mamba2-130m", "ssd_scan")):
+        t0 = time.perf_counter()
+        lms[arch] = phase_lm(arch, kernel, args.lm_layers, args.seed)
+        phases[f"{arch}_s"] = time.perf_counter() - t0
     phases["dense_session_s"] = dense["seconds"]
     phases["dense_cpu_s"] = dense["cpu_seconds"]
     phases["edge_session_s"] = edge["seconds"]
     phases["edge_cpu_s"] = edge["cpu_seconds"]
+    # launches on the main path: the two sessions, and each LM's
+    # prefill + decode
+    runs = {"dense": dense["launches"], "edge": edge["launches"]}
+    for arch, r in lms.items():
+        runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
+                      for k in r["prefill_launches"]}
     for k in kernels:
-        k["launches"] = dense["launches"][k["name"]] + \
-            edge["launches"][k["name"]]
-        k["launches_dense"] = dense["launches"][k["name"]]
-        k["launches_edge"] = edge["launches"][k["name"]]
+        k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
+        k["launches"] = sum(k["launches_by_run"].values())
         print(f"kernel {k['name']}: {k['ms']:.4f} ms  plain "
               f"{k['plain_ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})  launches {k['launches']} (dense "
-              f"{k['launches_dense']}, edge {k['launches_edge']})",
-              flush=True)
+              f"({k['bound_by']})  launches {k['launches']} "
+              f"{k['launches_by_run']}", flush=True)
 
     report = dict(card=smi, torch=torch.__version__,
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
-                  dense=dense, edge=edge, args=vars(args))
+                  dense=dense, edge=edge, lms=lms, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -2,8 +2,10 @@
 
 Mirrors ``repro`` file for file (``repro/core/reconstruct.py`` is
 ``repro_torch/core/reconstruct.py``), imports ``torch`` and ``numpy``
-only, and runs the four graph kernels as hand-written CUDA C++ for
-Hopper (``repro_torch.kernels``).
+only, and runs every kernel as hand-written CUDA C++ for Hopper
+(``repro_torch.kernels``): the four graph kernels of the in-memory
+``GraphSession`` and the two of the decoder LM's serving path
+(``repro_torch.models``).
 
 Every entry point takes an explicit ``device`` that defaults to
 ``"cuda"``; without a CUDA device that default raises instead of
@@ -30,5 +32,4 @@ def not_ported(what: str, step: str):
     """Raise for an argument that leads off the ported slice, naming
     the ROADMAP step that will port it."""
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP step {step}); the port runs "
-        "the in-memory single-device path")
+        f"{what} is not ported yet (ROADMAP step {step})")

@@ -1,4 +1,7 @@
-"""Carry a store's state across from ``repro`` as plain numpy arrays.
+"""Carry state across from ``repro`` as plain numpy arrays.
+
+``lm_from_numpy`` builds the port's LM from a ``repro`` LM param tree
+exported as numpy (see its docstring).
 
 ``store_from_numpy`` builds this package's ``TemporalGraphStore`` from
 what a ``repro`` ``TemporalGraphStore`` holds, exported as numpy (the
@@ -23,12 +26,67 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.delta import ADD_EDGE, REM_EDGE, pow2_capacity
 from repro_torch.core.graph import DenseGraph, EdgeGraph
 from repro_torch.core.segments import Segment, build_merged_nodes
 from repro_torch.core.store import TemporalGraphStore
+from repro_torch.models import lm
 
 _COLS = ("op", "u", "v", "slot", "t")
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor.  bfloat16 arrays (numpy has no such
+    dtype; JAX exports ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses) are recognised by name and item size
+    and carried across bit for bit through an int16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def lm_from_numpy(params: dict, cfg, device="cuda"):
+    """The port's LM (``repro_torch.models.lm.LM``) holding the weights
+    of a ``repro`` LM param tree given as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, params)``).  The leading group axis that
+    the JAX package stacks its group params on is unstacked into the
+    ``ModuleList``; every weight keeps its JAX layout and dtype.  Raises
+    when a name or shape does not match."""
+    dev = resolve_device(device)
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    flat = {}
+    for name, a in _flatten(params):
+        if name.startswith("groups."):
+            rest = name[len("groups."):]
+            for g in range(np.shape(a)[0]):
+                flat[f"groups.{g}.{rest}"] = a[g]
+        else:
+            flat[name] = a
+    own = dict(model.named_parameters())
+    if set(own) != set(flat):
+        raise ValueError(f"param names differ: missing "
+                         f"{sorted(set(own) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(own))}")
+    for name, p in own.items():
+        t = _tensor(flat[name])
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(p.shape)}")
+        p.data = t.to(dev)
+    return model
 
 
 def store_from_numpy(state: dict, device="cuda") -> TemporalGraphStore:

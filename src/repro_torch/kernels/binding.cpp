@@ -1,4 +1,4 @@
-// Python binding of the four graph kernels.  The only file of the
+// Python binding of the graph and LM kernels.  The only file of the
 // extension that includes PyTorch's headers: the .cu sources expose
 // plain C++ launch functions over raw pointers, so nvcc never parses
 // torch.  Shapes, dtypes, devices and contiguity are checked by the
@@ -27,6 +27,15 @@ int sweep_series_launch(const void* deg0, const void* events,
                         const void* tile_start, const void* t_lo,
                         const void* t_last, void* out, void* scratch, int n,
                         int nb, int stride, int n_queries, long long stream);
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* o, const long long* strides, int batch,
+                           int hq, int hkv, int sq, int kv_len, int d,
+                           int dtype, int causal, int window, float scale,
+                           long long stream);
+int ssd_scan_launch(const void* x, const void* dt, const void* a,
+                    const void* bm, const void* cm, const void* state0,
+                    void* y, void* state, int batch, int seqlen, int heads,
+                    int p, int n, int chunk, long long stream);
 const char* repro_cuda_error_string(int err);
 
 namespace {
@@ -89,6 +98,34 @@ void sweep_series(torch::Tensor deg0, torch::Tensor events,
         "sweep_series");
 }
 
+void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
+                     torch::Tensor o, bool causal, int64_t window,
+                     int64_t kv_len, double scale, int64_t stream) {
+  long long strides[12];
+  const torch::Tensor* ts[4] = {&q, &k, &v, &o};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 3; ++j) strides[3 * i + j] = ts[i]->stride(j);
+  check(flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+            (int)q.size(0), (int)q.size(1), (int)k.size(1), (int)q.size(2),
+            (int)kv_len, (int)q.size(3),
+            q.scalar_type() == torch::kBFloat16 ? 1 : 0, causal ? 1 : 0,
+            (int)window, (float)scale, stream),
+        "flash_attention");
+}
+
+void ssd_scan(torch::Tensor x, torch::Tensor dt, torch::Tensor a,
+              torch::Tensor bm, torch::Tensor cm, torch::Tensor state0,
+              torch::Tensor y, torch::Tensor state, int64_t chunk,
+              int64_t stream) {
+  check(ssd_scan_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                        bm.data_ptr(), cm.data_ptr(), ptr_or_null(state0),
+                        y.data_ptr(), state.data_ptr(), (int)x.size(0),
+                        (int)x.size(1), (int)x.size(2), (int)x.size(3),
+                        (int)bm.size(2), (int)chunk, stream),
+        "ssd_scan");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -98,4 +135,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("degree_series_smem_bytes", &degree_series_smem_bytes);
   m.def("sweep_series", &sweep_series);
   m.def("sweep_series_smem_bytes", &sweep_series_smem_bytes);
+  m.def("flash_attention", &flash_attention);
+  m.def("ssd_scan", &ssd_scan);
 }

@@ -28,11 +28,13 @@ SOURCES = (
     "edge_delta_apply/edge_delta_apply.cu",
     "degree_series/degree_series.cu",
     "evolve_sweep/sweep.cu",
+    "flash_attention/flash_attention.cu",
+    "ssd_scan/ssd_scan.cu",
 )
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 KERNELS = ("delta_apply", "edge_delta_apply", "degree_series",
-           "sweep_series")
+           "sweep_series", "flash_attention", "ssd_scan")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 

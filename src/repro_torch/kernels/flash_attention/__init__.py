@@ -1,0 +1,7 @@
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                    flash_attention,
+                                                    flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["HEAD_DIMS", "attention_ref", "flash_attention",
+           "flash_attention_fwd"]

@@ -1,0 +1,97 @@
+"""Wrapper of the flash-attention forward kernel
+(``flash_attention.cu``): operand checks, the launch on the current
+stream, and a ``torch.autograd.Function`` whose backward is the plain
+version through autograd (the JAX package's ``custom_vjp``; there is no
+backward kernel, on the TPU either).
+
+The kernel reads q/k/v through their strides (the head dim must be
+unit-stride) and masks ragged sequence edges itself, so ``[B, S, H, D]``
+activations go in as ``.transpose(1, 2)`` views without copies or
+padding."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+HEAD_DIMS = (64, 128, 256)     # the head dims flash_attention.cu takes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D] → [B, Hq, Sq, D].
+
+    Query row i is position i, key j position j; ``kv_len`` masks keys
+    at and past it.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale, kv_len=kv_len)
+    return _FlashAttention.apply(q, k, v, causal, window, scale, kv_len)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale, kv_len)
+        return flash_attention_fwd(q, k, v, causal, window, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale, kv_len = ctx.args
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = attention_ref(q, k, v, causal=causal, window=window,
+                                scale=scale, kv_len=kv_len)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be 4-D [B, H, S, D], got shape "
+                         f"{tuple(t.shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a unit-stride head dim")
+
+
+def flash_attention_fwd(q, k, v, causal: bool, window: int | None,
+                        scale: float, kv_len: int | None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (no autograd)."""
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{hq} query heads are not a multiple of {hkv} "
+                         "kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    build.check_same_device(q=q, k=k, v=v)
+    out = torch.empty_like(q)           # keeps q's (transposed) strides
+    if out.numel() == 0:
+        return out
+    n_keys = skv if kv_len is None else max(0, min(int(kv_len), skv))
+    build.ext().flash_attention(q, k, v, out, bool(causal), int(window or 0),
+                                n_keys, float(scale),
+                                build.stream_handle(q.device))
+    build.LAUNCHES["flash_attention"] += 1
+    return out

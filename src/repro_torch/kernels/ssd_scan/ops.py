@@ -1,0 +1,57 @@
+"""Wrapper of the chunked SSD scan kernel (``ssd_scan.cu``): operand
+checks and the launch on the current stream.  Takes the model's own
+layout — the kernel forms dt·x and a·dt itself and reads B/C once per
+batch, so nothing is transposed, broadcast to heads or padded here (the
+caller pads the sequence to a chunk multiple with dt = 0, as
+``models/ssm.py::apply_ssm`` does)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+MAX_HEADDIM = 64     # == PMAX in ssd_scan.cu
+MAX_STATE = 128      # == NMAX in ssd_scan.cu
+
+
+def ssd_scan(x, dt, a, b, c, chunk: int, state0=None):
+    """``ssd_chunked``'s contract: x [B, S, H, P], dt [B, S, H], a [H],
+    b/c [B, S, N], state0 [B, H, P, N] or None (zeros) → (y [B, S, H,
+    P], final state [B, H, P, N]), all float32, S a multiple of
+    ``chunk``.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel."""
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, a, b, c, chunk, state0)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    build.check_cuda("x", x, torch.float32, 4)
+    build.check_cuda("dt", dt, torch.float32, 3)
+    build.check_cuda("a", a, torch.float32, 1)
+    build.check_cuda("b", b, torch.float32, 3)
+    build.check_cuda("c", c, torch.float32, 3)
+    if (tuple(dt.shape) != (bsz, s, h) or tuple(a.shape) != (h,)
+            or tuple(b.shape) != (bsz, s, n) or c.shape != b.shape):
+        raise ValueError(f"ssd_scan shapes do not match: x {tuple(x.shape)}"
+                         f" dt {tuple(dt.shape)} a {tuple(a.shape)} b "
+                         f"{tuple(b.shape)} c {tuple(c.shape)}")
+    if p > MAX_HEADDIM or n > MAX_STATE:
+        raise ValueError(f"ssd_scan.cu takes head dim <= {MAX_HEADDIM} and "
+                         f"state <= {MAX_STATE}, got {p} and {n}")
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    if state0 is None:
+        s0 = torch.empty(0, dtype=torch.float32, device=x.device)
+    else:
+        build.check_cuda("state0", state0, torch.float32, 4)
+        if tuple(state0.shape) != (bsz, h, p, n):
+            raise ValueError(f"state0 must be [{bsz}, {h}, {p}, {n}]")
+        s0 = state0
+    build.check_same_device(x=x, dt=dt, a=a, b=b, c=c, state0=s0)
+    y = torch.empty_like(x)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32,
+                        device=x.device)
+    build.ext().ssd_scan(x, dt, a, b, c, s0, y, state, int(chunk),
+                         build.stream_handle(x.device))
+    build.LAUNCHES["ssd_scan"] += 1
+    return y, state

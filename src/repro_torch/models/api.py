@@ -1,0 +1,41 @@
+"""Unified model API — counterpart of ``repro/models/api.py`` for the
+families the port runs (dense, ssm):
+
+  init_params(cfg, generator, dtype, device)    → params (an ``LM``)
+  forward(params, batch, cfg)                   → logits [B, S, V]
+  prefill(params, batch, cfg, cache_cap)        → (logits [B, V], caches)
+  decode_step(params, token, pos, caches, cfg)  → (logits [B, V], caches)
+  init_decode_caches(cfg, batch, cache_len, dtype, device) → caches
+
+Batches are dicts holding ``tokens``.  The other families raise
+``NotImplementedError``; training (``loss_fn``) comes with a later
+slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import lm
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device="cuda"):
+    return lm.init_params(cfg, generator, dtype, device)
+
+
+def forward(params, batch, cfg: ModelConfig):
+    return lm.forward(params, batch["tokens"], cfg)
+
+
+def prefill(params, batch, cfg: ModelConfig, cache_cap=None):
+    return lm.prefill(params, batch["tokens"], cfg, cache_cap=cache_cap)
+
+
+def decode_step(params, token, pos, caches, cfg: ModelConfig):
+    return lm.decode_step(params, token, pos, caches, cfg)
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                       dtype=torch.bfloat16, device="cuda"):
+    return lm.init_decode_caches(cfg, batch, cache_len, dtype, device)

@@ -1,0 +1,161 @@
+"""Attention: GQA/MQA, causal/sliding-window self-attention with KV
+caches for decode (ring buffer under SWA) — counterpart of
+``repro/models/attention.py``.
+
+Full-sequence attention goes through ``kernels.flash_attention``: on
+the card the hand-written kernel, on the CPU its plain version.  There
+is no ``impl`` switch; the device decides.  The one-token decode step
+is plain PyTorch (``_sdpa``), as it is XLA in the JAX package.  The JAX
+package's ``_sdpa_flash_xla`` exists only so that JAX lowers on the CPU;
+the kernel computes the same function and it is not ported.
+
+Decode writes the new key/value row into the cache tensors in place
+(PyTorch's idiom; the JAX package returns fresh arrays) and returns the
+same cache object.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import _normal, params_module, rope
+
+
+def init_attention(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    s = d ** -0.5
+    return params_module(
+        wq=_normal(gen, (d, hq, hd), s, dtype, device),
+        wk=_normal(gen, (d, hkv, hd), s, dtype, device),
+        wv=_normal(gen, (d, hkv, hd), s, dtype, device),
+        wo=_normal(gen, (hq, hd, d), (hq * hd) ** -0.5, dtype, device))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """k/v: [B, S_cap, Hkv, hd]; pos_map: absolute position of each cache
+    row (−1 = empty) — ring-buffer SWA caches and full caches share one
+    masking rule."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos_map: torch.Tensor  # i32[S_cap]
+
+    @property
+    def cap(self) -> int:
+        return self.k.shape[1]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device) -> KVCache:
+    cap = max_len if cfg.window is None else min(max_len, cfg.window)
+    shape = (batch, cap, cfg.n_kv_heads, cfg.hd())
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos_map=torch.full((cap,), -1, dtype=torch.int32, device=device))
+
+
+def _mask(qpos, kpos, causal: bool, window: int | None):
+    """qpos: [Sq], kpos: [Skv] (−1 = invalid) → bool [Sq, Skv]."""
+    m = kpos[None, :] >= 0
+    if causal:
+        m = m & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        m = m & (kpos[None, :] > qpos[:, None] - window)
+    return m
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: [B,Sq,Hq,hd], k/v: [B,Skv,Hkv,hd], mask: [Sq,Skv]."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    m = mask[None, None, None]
+    p = torch.where(m, torch.softmax(torch.where(m, s, float("-inf")),
+                                     dim=-1), 0.0)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def _project(x, w):
+    """[B, S, d] @ [d, H, hd] → [B, S, H, hd] (contiguous)."""
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).view(*x.shape[:-1], h, hd)
+
+
+def _out(o, wo):
+    """[B, S, H, hd] @ [H, hd, d] → [B, S, d]."""
+    h, hd, d = wo.shape
+    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+
+
+def attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
+              causal: bool = True, positions: torch.Tensor | None = None,
+              make_cache: bool = False, cache_cap: int | None = None):
+    """Full-sequence self-attention (train / prefill).  ``positions``
+    (default ``arange(S)``) feed rope; the attention itself sees token i
+    at position i.  Returns (out, cache | None)."""
+    b, s, _ = x.shape
+    hd = cfg.hd()
+    q = _project(x, p.wq)
+    k = _project(x, p.wk)
+    v = _project(x, p.wv)
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    if cfg.pos_kind == "rope":
+        q = rope(q, positions[None, :], cfg.rope_theta)
+        k = rope(k, positions[None, :], cfg.rope_theta)
+
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal, cfg.window, hd ** -0.5)
+    out = _out(o.transpose(1, 2), p.wo)
+
+    cache = None
+    if make_cache:
+        cache = init_cache(cfg, b, cache_cap or s, k.dtype, x.device)
+        ccap = cache.cap
+        slots = torch.arange(ccap, dtype=torch.int32, device=x.device)
+        if cfg.window is None or s <= ccap:
+            take = min(s, ccap)
+            cache.k[:, :take] = k[:, :take]
+            cache.v[:, :take] = v[:, :take]
+            cache.pos_map = torch.where(slots < take, slots, -1)
+        else:
+            # SWA ring buffer: keep the last `ccap` keys at slot pos % cap
+            last = int(positions[-1])
+            idx = ((slots + (last + 1)) % ccap).long()  # absolute order
+            src = torch.arange(s - ccap, s, device=x.device)
+            cache.k[:, idx] = k[:, src]
+            cache.v[:, idx] = v[:, src]
+            cache.pos_map = torch.zeros_like(cache.pos_map)
+            cache.pos_map[idx] = positions[src].to(torch.int32)
+    return out, cache
+
+
+def decode_attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+                     cache: KVCache, pos: int):
+    """One-token self-attention step.  x: [B, 1, d]; pos: absolute
+    position of the new token.  Writes the new row into ``cache`` and
+    returns (out, cache)."""
+    hd = cfg.hd()
+    q = _project(x, p.wq)
+    k_new = _project(x, p.wk)
+    v_new = _project(x, p.wv)
+    if cfg.pos_kind == "rope":
+        at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+        q = rope(q, at, cfg.rope_theta)
+        k_new = rope(k_new, at, cfg.rope_theta)
+    slot = pos % cache.cap
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    cache.pos_map[slot] = pos
+
+    qpos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    mask = _mask(qpos, cache.pos_map, True, cfg.window)
+    o = _sdpa(q, cache.k, cache.v, mask, hd ** -0.5)
+    return _out(o, p.wo), cache

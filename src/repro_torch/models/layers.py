@@ -1,0 +1,159 @@
+"""Shared NN layers: norms, positional encodings, MLP variants,
+embedding (counterpart of ``repro/models/layers.py``).
+
+Parameters live in ``nn.Module``s whose attribute names are the JAX
+param dict's keys (``repro_torch.convert`` relies on that); every init
+function takes an explicit ``torch.Generator``, a dtype and a device.
+Compute dtype is the input dtype; norms and rope compute in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ModelConfig
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype,
+            device) -> torch.Tensor:
+    """``scale · N(0, 1)`` drawn in float32 on the generator's device,
+    then cast (the JAX package's ``_normal``)."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
+    return x.to(device=device, dtype=dtype)
+
+
+def params_module(**tensors: torch.Tensor) -> nn.Module:
+    """An ``nn.Module`` holding ``tensors`` as parameters by name."""
+    m = nn.Module()
+    for k, v in tensors.items():
+        m.register_parameter(k, nn.Parameter(v))
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ModelConfig, dtype, device) -> nn.Module:
+    if cfg.norm_kind == "ln_nonparam":      # OLMo: non-parametric LN
+        return params_module()
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm_kind == "ln":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return params_module(**p)
+
+
+def apply_norm(p: nn.Module, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rms":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p.scale.float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if kind == "ln":
+        y = y * p.scale.float() + p.bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Positional encodings
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: [..., S, H, D] (D even, halves rotated, not interleaved);
+    positions: [..., S].  Computed in float32."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., :, None].float() * freq           # [..., S, half]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def sinusoidal(seq: int, d: int, dtype=torch.float32,
+               device="cpu") -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU / GELU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
+    d, f = cfg.d_model, cfg.d_ff
+    scale_in, scale_out = d ** -0.5, f ** -0.5
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        return params_module(
+            w_gate=_normal(gen, (d, f), scale_in, dtype, device),
+            w_up=_normal(gen, (d, f), scale_in, dtype, device),
+            w_down=_normal(gen, (f, d), scale_out, dtype, device))
+    return params_module(w_up=_normal(gen, (d, f), scale_in, dtype, device),
+                         w_down=_normal(gen, (f, d), scale_out, dtype,
+                                        device))
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(p: nn.Module, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind in ("swiglu", "geglu"):
+        g = x @ p.w_gate
+        act = F.silu(g) if kind == "swiglu" else _gelu(g)
+        return (act * (x @ p.w_up)) @ p.w_down
+    return _gelu(x @ p.w_up) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def init_embed(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
+    p = {"tok": _normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype, device)}
+    if cfg.pos_kind == "learned":
+        p["pos"] = _normal(gen, (cfg.max_seq, cfg.d_model), 0.02, dtype,
+                           device)
+    if not cfg.tie_embeddings:
+        p["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab),
+                               cfg.d_model ** -0.5, dtype, device)
+    return params_module(**p)
+
+
+def embed(p: nn.Module, tokens: torch.Tensor, cfg: ModelConfig,
+          positions: torch.Tensor | None = None) -> torch.Tensor:
+    x = p.tok[tokens]
+    if cfg.pos_kind == "learned":
+        x = x + p.pos[positions]
+    elif cfg.pos_kind == "sinusoidal":
+        x = x + sinusoidal(cfg.max_seq, cfg.d_model, x.dtype,
+                           x.device)[positions]
+    return x
+
+
+def unembed(p: nn.Module, x: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Logits in float32: the product runs in the param dtype and is
+    cast afterwards, as in the JAX package."""
+    w = p.unembed if hasattr(p, "unembed") else p.tok.T
+    logits = (x @ w).float()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+

@@ -1,0 +1,112 @@
+"""Decoder-only LM (dense / SSM) with KV/SSM caches and the three step
+entry points (forward, prefill, decode) — counterpart of
+``repro/models/lm.py``.
+
+The model is an ``nn.Module`` tree: ``LM`` holds ``embed``, a
+``ModuleList`` of groups and ``final_norm``; the JAX package's scan over
+stacked group params is a Python loop here.  ``prefill`` and
+``decode_step`` run without autograd.  The MoE, hybrid, encoder-decoder
+and VLM families are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import not_ported, resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models.layers import apply_norm, embed, init_embed, \
+    init_norm, unembed
+
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        not_ported(f"the {cfg.family!r} model family ({cfg.name})", "A14")
+
+
+class LM(nn.Module):
+    """Parameters of one decoder-only LM (names as the JAX param tree:
+    ``embed.tok``, ``groups.<g>.l<i>.attn.wq``, ``final_norm.scale``)."""
+
+    def __init__(self, cfg: ModelConfig, embed: nn.Module,
+                 groups: list[nn.Module], final_norm: nn.Module):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = embed
+        self.groups = nn.ModuleList(groups)
+        self.final_norm = final_norm
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self, tokens, self.cfg)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device="cuda") -> LM:
+    """Random weights drawn from ``generator``: ``dtype`` for the weights,
+    float32 for the SSM's ``A_log``, ``D`` and ``dt_bias``."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    emb = init_embed(generator, cfg, dtype, dev)
+    groups = [B.init_group(generator, cfg, dtype, dev)
+              for _ in range(B.n_groups(cfg))]
+    return LM(cfg, emb, groups, init_norm(cfg, dtype, dev))
+
+
+def _embed(params: LM, tokens: torch.Tensor, cfg: ModelConfig, pos0: int):
+    positions = torch.arange(pos0, pos0 + tokens.shape[1],
+                             device=tokens.device)
+    return embed(params.embed, tokens.long(), cfg, positions=positions)
+
+
+def forward(params: LM, tokens: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Training/eval forward: tokens [B, S] → logits [B, S, V] (f32)."""
+    x = _embed(params, tokens, cfg, 0)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for g in params.groups:
+        x, _ = B.apply_group(g, x, cfg, positions=positions)
+    x = apply_norm(params.final_norm, x, cfg.norm_kind)
+    return unembed(params.embed, x, cfg)
+
+
+@torch.no_grad()
+def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+            cache_cap: int | None = None):
+    """Build caches for decode.  Returns (last_logits [B, V], caches: one
+    dict per group)."""
+    x = _embed(params, tokens, cfg, 0)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    cap = cache_cap or x.shape[1]
+    caches = []
+    for g in params.groups:
+        x, c = B.apply_group(g, x, cfg, positions=positions,
+                             make_cache=True, cache_cap=cap)
+        caches.append(c)
+    x = apply_norm(params.final_norm, x[:, -1], cfg.norm_kind)
+    return unembed(params.embed, x, cfg), caches
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                       dtype=torch.bfloat16, device="cuda") -> list[dict]:
+    """Empty caches, one dict per group."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    return [B.init_group_cache(cfg, batch, cache_len, dtype, dev)
+            for _ in range(B.n_groups(cfg))]
+
+
+@torch.no_grad()
+def decode_step(params: LM, token: torch.Tensor, pos: int, caches,
+                cfg: ModelConfig):
+    """One decode step.  token: [B, 1]; pos: absolute position of the
+    token; caches: as ``prefill`` returns them, updated in place.
+    → (logits [B, V], caches)."""
+    pos = int(pos)
+    x = _embed(params, token, cfg, pos)
+    for g, c in zip(params.groups, caches):
+        x, _ = B.decode_group(g, x, cfg, c, pos)
+    x = apply_norm(params.final_norm, x[:, -1], cfg.norm_kind)
+    return unembed(params.embed, x, cfg), caches

@@ -1,0 +1,164 @@
+"""Mamba2 (SSD — state-space duality) blocks, attention-free sequence
+mixing — counterpart of ``repro/models/ssm.py``.
+
+The SSD recurrence per head (state N = cfg.ssm_state, headdim P):
+
+    h_t = exp(a·dt_t) · h_{t-1} + dt_t · B_t ⊗ x_t        (h: [P, N])
+    y_t = C_t · h_t + D · x_t
+
+Prefill runs the chunked dual form through ``kernels.ssd_scan``: on the
+card the hand-written kernel, on the CPU ``ssd_chunked``.  Decode is the
+O(1) recurrence on a carried (conv_state, ssm_state) cache, plain
+PyTorch.  ``ssd_sequential`` (per-step) is the oracle for
+``ssd_chunked``; both are plain and live beside the kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_sequential
+from repro_torch.models.layers import _normal, params_module
+
+__all__ = ["SSMCache", "apply_ssm", "decode_ssm", "init_ssm",
+           "init_ssm_cache", "ssd_chunked", "ssd_sequential"]
+
+
+def init_ssm(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
+    d = cfg.d_model
+    d_in = cfg.d_inner()
+    nh = cfg.ssm_nheads()
+    n = cfg.ssm_state
+    conv_dim = d_in + 2 * n  # x, B, C go through the causal conv
+    # in_proj emits [z (d_in), x (d_in), B (n), C (n), dt (nh)]
+    d_proj = 2 * d_in + 2 * n + nh
+    f32 = dict(dtype=torch.float32, device=device)
+    return params_module(
+        in_proj=_normal(gen, (d, d_proj), d ** -0.5, dtype, device),
+        conv=_normal(gen, (cfg.ssm_conv, conv_dim), cfg.ssm_conv ** -0.5,
+                     dtype, device),
+        A_log=torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        D=torch.ones((nh,), **f32),
+        dt_bias=torch.zeros((nh,), **f32),
+        norm_scale=torch.ones((d_in,), dtype=dtype, device=device),
+        out_proj=_normal(gen, (d_in, d), d_in ** -0.5, dtype, device))
+
+
+@dataclasses.dataclass
+class SSMCache:
+    conv: torch.Tensor   # [B, conv_w − 1, conv_dim]
+    state: torch.Tensor  # [B, nh, P, N] (float32)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype,
+                   device) -> SSMCache:
+    conv_dim = cfg.d_inner() + 2 * cfg.ssm_state
+    return SSMCache(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                         device=device),
+        state=torch.zeros((batch, cfg.ssm_nheads(), cfg.ssm_headdim,
+                           cfg.ssm_state), dtype=torch.float32,
+                          device=device))
+
+
+def _split_proj(proj, cfg: ModelConfig):
+    d_in = cfg.d_inner()
+    n = cfg.ssm_state
+    z = proj[..., :d_in]
+    xbc = proj[..., d_in:d_in + d_in + 2 * n]
+    dt = proj[..., d_in + d_in + 2 * n:]
+    assert dt.shape[-1] == cfg.ssm_nheads()
+    return z, xbc, dt
+
+
+def _causal_conv(xbc, conv_w, prev=None):
+    """Depthwise causal conv over [B, S, C] with kernel [W, C].  The taps
+    are summed in the input dtype, left to right, as in the JAX
+    package."""
+    w = conv_w.shape[0]
+    pad = xbc.new_zeros((xbc.shape[0], w - 1, xbc.shape[2])) \
+        if prev is None else prev
+    xp = torch.cat([pad, xbc], dim=1)
+    out = sum(xp[:, i:i + xbc.shape[1]] * conv_w[i][None, None]
+              for i in range(w))
+    new_prev = xp[:, xp.shape[1] - (w - 1):]
+    return F.silu(out), new_prev
+
+
+def _gated_norm(y, z, scale, dtype):
+    """Mamba2's gated RMSNorm: norm(y · silu(z)) · scale."""
+    y = y * F.silu(z)
+    yf = y.float()
+    return (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
+            ).to(dtype) * scale
+
+
+def apply_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+              cache: SSMCache | None = None, return_cache: bool = False):
+    """Full-sequence Mamba2 block. x: [B, S, d] → [B, S, d]."""
+    b, s, _ = x.shape
+    d_in = cfg.d_inner()
+    nh, pd, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state
+    proj = x @ p.in_proj
+    z, xbc, dt = _split_proj(proj, cfg)
+    conv_out, conv_state = _causal_conv(
+        xbc, p.conv, None if cache is None else cache.conv)
+    xs = conv_out[..., :d_in].reshape(b, s, nh, pd)
+    Bs = conv_out[..., d_in:d_in + n]
+    Cs = conv_out[..., d_in + n:]
+    dt = F.softplus(dt.float() + p.dt_bias[None, None])
+    a = -torch.exp(p.A_log)
+
+    state0 = None if cache is None else cache.state
+    # pad the sequence to a chunk multiple; padded steps carry dt = 0 so
+    # they leave the SSM state untouched (exp(0·a) = 1, update = 0)
+    q = min(cfg.ssm_chunk, s) if s % min(cfg.ssm_chunk, s) == 0 \
+        else cfg.ssm_chunk
+    pad = (-s) % q
+    xsf = F.pad(xs.float(), (0, 0, 0, 0, 0, pad))
+    dtp = F.pad(dt, (0, 0, 0, pad))
+    Bp = F.pad(Bs.float(), (0, 0, 0, pad))
+    Cp = F.pad(Cs.float(), (0, 0, 0, pad))
+    y, h = ssd_scan(*(t.contiguous() for t in (xsf, dtp, a, Bp, Cp)), q,
+                    state0)
+    y = y[:, :s]
+    y = y + p.D[None, None, :, None] * xs.float()
+    y = _gated_norm(y.reshape(b, s, d_in).to(x.dtype), z, p.norm_scale,
+                    x.dtype)
+    out = y @ p.out_proj
+    if return_cache:
+        return out, SSMCache(conv=conv_state, state=h)
+    return out, None
+
+
+def decode_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+               cache: SSMCache):
+    """One-token step. x: [B, 1, d]. O(1) in context length.  Returns
+    (out, cache) with the cache's tensors replaced."""
+    b = x.shape[0]
+    d_in = cfg.d_inner()
+    nh, pd, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state
+    proj = x @ p.in_proj
+    z, xbc, dt = _split_proj(proj, cfg)
+    conv_out, conv_state = _causal_conv(xbc, p.conv, cache.conv)
+    xs = conv_out[..., :d_in].reshape(b, 1, nh, pd)[:, 0]
+    Bs = conv_out[:, 0, d_in:d_in + n]
+    Cs = conv_out[:, 0, d_in + n:]
+    dt = F.softplus(dt.float() + p.dt_bias[None, None])[:, 0]   # [b, nh]
+    a = -torch.exp(p.A_log)
+
+    decay = torch.exp(dt * a[None, :])[..., None, None]
+    upd = (dt[..., None, None] * xs.float()[..., None]
+           * Bs.float()[:, None, None, :])
+    h = cache.state * decay + upd
+    y = torch.einsum("bhpn,bn->bhp", h, Cs.float())
+    y = y + p.D[None, :, None] * xs.float()
+    y = _gated_norm(y.reshape(b, 1, d_in).to(x.dtype), z, p.norm_scale,
+                    x.dtype)
+    cache.conv, cache.state = conv_state, h
+    return y @ p.out_proj, cache
+

@@ -1,0 +1,173 @@
+"""The port's flash-attention (plain version on the CPU, the autograd
+wrapper, the operand checks) and its attention layer against
+``repro.kernels.flash_attention`` and ``repro.models.attention``.
+
+Inputs come from numpy with fixed seeds and go through both packages.
+The JAX side runs the Pallas kernel in interpret mode and the jnp
+reference ``attention_ref``.  Tolerances are the JAX tests' own
+(``tests/test_kernels.py::TestFlashAttention``): 3e-5 in float32 (sums
+of up to 100 products in another order) and 3e-2 in bfloat16 (the
+output is rounded to bfloat16, whose ulp at |o| < 4 is at most 2^-6).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import reduced as j_reduced  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.kernels.flash_attention import attention_ref as j_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402,E501
+from repro.models import attention as JA  # noqa: E402
+from repro_torch.config import reduced  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import _tensor  # noqa: E402
+from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
+                                                 flash_attention,
+                                                 flash_attention_fwd)
+from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
+from repro_torch.models.layers import params_module  # noqa: E402
+
+SHAPES = [(2, 4, 2, 64, 64, 32, True, None),
+          (1, 4, 1, 64, 64, 16, True, 24),
+          (1, 2, 2, 40, 72, 32, False, None),
+          (1, 1, 1, 100, 100, 8, True, 16)]
+
+
+def _qkv(dtype, b, hq, hkv, sq, skv, d, seed=42):
+    rng = np.random.default_rng(seed)
+    return tuple(jnp.asarray(rng.standard_normal(s), dtype=dtype)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d),
+                           (b, hkv, skv, d)))
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", SHAPES)
+def test_plain_matches_jax_kernel_and_ref(dtype, b, hq, hkv, sq, skv, d,
+                                          causal, window):
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q, k, v = _qkv(jdt, b, hq, hkv, sq, skv, d)
+    want_kernel = j_flash(q, k, v, causal, window, None, 16, 16, True)
+    want_ref = j_ref(q, k, v, causal=causal, window=window, scale=d ** -0.5)
+    tq, tk, tv = (_tensor(np.asarray(x)) for x in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal, window)
+    assert got.dtype == getattr(torch, dtype) and got.shape == tq.shape
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    assert np.abs(_np32(got) - _np32(want_kernel)).max() < tol
+    assert np.abs(_np32(got) - _np32(want_ref)).max() < tol
+
+
+@pytest.mark.parametrize("kv_len", [0, 17, 72])
+def test_kv_len_padding_matches_jax_ref(kv_len):
+    """Keys at and past kv_len are masked; a row that sees no key is 0."""
+    q, k, v = _qkv(jnp.float32, 1, 2, 1, 40, 72, 32, seed=3)
+    want = j_ref(q, k, v, causal=False, scale=0.25, kv_len=kv_len)
+    got = flash_attention(*(_tensor(np.asarray(x)) for x in (q, k, v)),
+                          False, None, 0.25, kv_len)
+    assert np.abs(_np32(got) - _np32(want)).max() < 3e-5
+    if kv_len == 0:
+        assert not got.any()
+
+
+def test_autograd_backward_is_the_plain_version(monkeypatch):
+    """The kernel's autograd.Function differentiates through the plain
+    version (the JAX package's custom_vjp).  The launch is swapped for
+    the plain forward, since the CPU has no kernel; gradients must match
+    JAX's gradient of its reference (the JAX test's 1e-4)."""
+    rng = np.random.default_rng(1)
+    arrs = [rng.standard_normal((1, 2, 32, 16)).astype(np.float32)
+            for _ in range(3)]
+
+    def j_loss(q, k, v):
+        return jnp.sum(j_ref(q, k, v, causal=True, scale=16 ** -0.5) ** 2)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrs))
+    monkeypatch.setattr(
+        FA, "flash_attention_fwd",
+        lambda q, k, v, causal, window, scale, kv_len: attention_ref(
+            q, k, v, causal=causal, window=window, scale=scale,
+            kv_len=kv_len))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    out = FA._FlashAttention.apply(*ts, True, None, 16 ** -0.5, None)
+    (out ** 2).sum().backward()
+    for t, w in zip(ts, want):
+        assert np.abs(t.grad.numpy() - np.asarray(w)).max() < 1e-4
+
+
+def test_kernel_launch_refuses_what_it_cannot_take():
+    """A launch is refused (never falls back) for tensors off the card
+    and for a dtype the kernel has no instance of."""
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_fwd(q, q, q, True, None, 0.125, None)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_fwd(q.half(), q.half(), q.half(), True, None, 1.0,
+                            None)
+    meta = torch.empty((1, 2, 8, 32), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_fwd(meta, meta, meta, True, None, 1.0, None)
+    assert FA.HEAD_DIMS == (64, 128, 256)
+
+
+def _attn_params(cfg, seed):
+    p = JA.init_attention(jax.random.PRNGKey(seed), cfg, jnp.float32)
+    return p, params_module(**{k: _tensor(np.asarray(v))
+                               for k, v in p.items()})
+
+
+@pytest.mark.parametrize("arch,window,s,cap", [
+    ("smollm-360m", None, 24, 32),       # full cache, GQA
+    ("gemma-2b", None, 24, 24),          # MQA, cache exactly full
+    ("smollm-360m", 8, 24, 32),          # SWA ring buffer (s > window)
+    ("smollm-360m", 32, 24, 32),         # SWA, prompt inside the window
+])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_attention_layer_and_cache_match_jax(arch, window, s, cap, impl):
+    """Prefill attention output (1e-5: f32, short sums) and the cache it
+    builds — k/v rows and pos_map, ring-buffer order included — against
+    the JAX layer on both of its compute paths."""
+    jcfg = j_reduced(j_get_config(arch), window=window)
+    cfg = reduced(get_config(arch), window=window)
+    jp, tp = _attn_params(jcfg, 5)
+    x = np.random.default_rng(9).standard_normal((2, s, cfg.d_model)) \
+        .astype(np.float32)
+    jo, jc = JA.attention(jp, jnp.asarray(x), jcfg, impl=impl,
+                          make_cache=True, cache_cap=cap)
+    to, tc = TA.attention(tp, torch.from_numpy(x), cfg, make_cache=True,
+                          cache_cap=cap)
+    assert np.abs(to.detach().numpy() - np.asarray(jo)).max() < 1e-5
+    assert np.array_equal(tc.pos_map.numpy(), np.asarray(jc.pos_map))
+    for a, b in ((tc.k, jc.k), (tc.v, jc.v)):
+        assert np.abs(a.detach().numpy() - np.asarray(b)).max() < 1e-5
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_decode_attention_matches_jax(window):
+    """One decode step after a prefill: output and the updated cache."""
+    jcfg = j_reduced(j_get_config("smollm-360m"), window=window)
+    cfg = reduced(get_config("smollm-360m"), window=window)
+    jp, tp = _attn_params(jcfg, 6)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 20, cfg.d_model)).astype(np.float32)
+    xn = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    _, jc = JA.attention(jp, jnp.asarray(x), jcfg, make_cache=True,
+                         cache_cap=24)
+    _, tc = TA.attention(tp, torch.from_numpy(x), cfg, make_cache=True,
+                         cache_cap=24)
+    jo, jc = JA.decode_attention(jp, jnp.asarray(xn), jcfg, jc,
+                                 jnp.int32(20))
+    with torch.no_grad():
+        to, tc = TA.decode_attention(tp, torch.from_numpy(xn), cfg, tc, 20)
+    assert np.abs(to.numpy() - np.asarray(jo)).max() < 1e-5
+    assert np.array_equal(tc.pos_map.numpy(), np.asarray(jc.pos_map))
+    assert np.abs(tc.k.detach().numpy() - np.asarray(jc.k)).max() < 1e-5

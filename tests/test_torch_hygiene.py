@@ -58,7 +58,16 @@ def test_port_has_every_module_of_the_slice():
             "kernels/delta_apply/delta_apply.cu",
             "kernels/edge_delta_apply/edge_delta_apply.cu",
             "kernels/degree_series/degree_series.cu",
-            "kernels/evolve_sweep/sweep.cu"]
+            "kernels/evolve_sweep/sweep.cu",
+            "config.py", "configs/__init__.py", "configs/smollm_360m.py",
+            "configs/mamba2_130m.py", "models/layers.py",
+            "models/attention.py", "models/ssm.py", "models/blocks.py",
+            "models/lm.py", "models/api.py",
+            "kernels/flash_attention/ref.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/flash_attention.cu",
+            "kernels/ssd_scan/ref.py", "kernels/ssd_scan/ops.py",
+            "kernels/ssd_scan/ssd_scan.cu"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing
 
@@ -74,11 +83,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
         GraphSession(n_cap=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TemporalGraphStore(8)
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.models import api as lm_api
+    cfg = reduced(get_config("smollm-360m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_api.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_api.init_decode_caches(cfg, 1, 8)
     assert resolve_device("cpu").type == "cpu"
 
 
 @pytest.mark.parametrize("name", ["delta_apply", "edge_delta_apply",
-                                  "degree_series", "evolve_sweep"])
+                                  "degree_series", "evolve_sweep",
+                                  "flash_attention", "ssd_scan"])
 def test_wrappers_have_no_fallback(name):
     """A CUDA tensor launches the kernel or raises: no ``try`` in the
     wrapper module, and the CPU branch is taken only on a CPU device."""

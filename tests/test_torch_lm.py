@@ -1,0 +1,221 @@
+"""The port's decoder-only LM (``repro_torch.models``) against
+``repro.models`` on ``reduced()`` configs, in float32, with the JAX
+params carried across by ``repro_torch.convert.lm_from_numpy``.
+
+Tokens come from numpy with a fixed seed.  Logits are held to 1e-4
+(float32 through two layers; the two packages round matmuls and
+transcendental functions differently, measured ≤ 5e-6 on logits of
+magnitude ≤ 5), and the greedy tokens must be identical.  The port's own
+prefill + decode must reproduce its forward to the 2e-3 that
+``tests/test_models.py`` asks of the JAX package.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import reduced as j_reduced  # noqa: E402
+from repro.configs import get_config as j_get_config  # noqa: E402
+from repro.models import api as japi  # noqa: E402
+from repro_torch.config import reduced  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.convert import lm_from_numpy  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+
+B, S, N_DEC = 2, 32, 4
+N_PRE = S - N_DEC
+TOL = 1e-4
+PORTED = ["smollm-360m", "olmo-1b", "gemma-2b", "glm4-9b", "mamba2-130m"]
+
+
+def _setup(arch, impl="xla", **over):
+    """JAX params / logits and the port's model for one reduced arch:
+    forward over S tokens, prefill over the first N_PRE, N_DEC decode
+    steps fed the true next tokens."""
+    jcfg = j_reduced(j_get_config(arch), **over)
+    cfg = reduced(get_config(arch), **over)
+    params = japi.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab, (B, S)) \
+        .astype(np.int32)
+    full = np.asarray(japi.forward(params, {"tokens": jnp.asarray(toks)},
+                                   jcfg, impl=impl))
+    logits, caches = japi.prefill(
+        params, {"tokens": jnp.asarray(toks[:, :N_PRE])}, jcfg,
+        cache_cap=S, impl=impl)
+    steps = [np.asarray(logits)]
+    for i in range(N_DEC):
+        logits, caches = japi.decode_step(
+            params, jnp.asarray(toks[:, N_PRE + i:N_PRE + i + 1]),
+            jnp.int32(N_PRE + i), caches, jcfg)
+        steps.append(np.asarray(logits))
+    model = lm_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                          device="cpu")
+    return dict(cfg=cfg, params=params, toks=toks, full=full, steps=steps,
+                model=model)
+
+
+@pytest.fixture(scope="module")
+def setups():
+    cache = {}
+
+    def get(arch, impl="xla"):
+        if (arch, impl) not in cache:
+            cache[arch, impl] = _setup(arch, impl)
+        return cache[arch, impl]
+    return get
+
+
+def _port_run(su):
+    model, cfg, toks = su["model"], su["cfg"], su["toks"]
+    with torch.no_grad():
+        full = api.forward(model, {"tokens": torch.from_numpy(toks)}, cfg)
+    logits, caches = api.prefill(
+        model, {"tokens": torch.from_numpy(toks[:, :N_PRE])}, cfg,
+        cache_cap=S)
+    steps = [logits]
+    for i in range(N_DEC):
+        logits, caches = api.decode_step(
+            model, torch.from_numpy(toks[:, N_PRE + i:N_PRE + i + 1]),
+            N_PRE + i, caches, cfg)
+        steps.append(logits)
+    return full.numpy(), [s.numpy() for s in steps]
+
+
+def _same_greedy(a, b):
+    assert np.array_equal(np.argmax(a, -1), np.argmax(b, -1))
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_forward_prefill_decode_match_jax(setups, arch):
+    su = setups(arch)
+    full, steps = _port_run(su)
+    assert full.shape == (B, S, su["cfg"].vocab) and full.dtype == np.float32
+    assert np.abs(full - su["full"]).max() < TOL
+    _same_greedy(full, su["full"])
+    for got, want in zip(steps, su["steps"]):
+        assert np.abs(got - want).max() < TOL
+        _same_greedy(got, want)
+
+
+def test_matches_jax_pallas_path(setups):
+    """The JAX package's Pallas attention (interpret mode) is the
+    function the port's attention kernel replaces."""
+    su = setups("smollm-360m", "pallas")
+    full, steps = _port_run(su)
+    assert np.abs(full - su["full"]).max() < TOL
+    for got, want in zip(steps, su["steps"]):
+        assert np.abs(got - want).max() < TOL
+        _same_greedy(got, want)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_decode_matches_own_forward(setups, arch):
+    full, steps = _port_run(setups(arch))
+    errs = [np.abs(s - full[:, N_PRE - 1 + i]).max()
+            for i, s in enumerate(steps[:-1])]
+    assert max(errs) < 2e-3, errs
+
+
+def test_swa_ring_buffer_decode():
+    """Sliding-window cache (mirrors tests/test_models.py's ring-buffer
+    test on a dense config): decode past the window matches the port's
+    forward and the JAX package's decode."""
+    over = dict(window=16, max_seq=512)
+    jcfg = j_reduced(j_get_config("smollm-360m"), **over)
+    cfg = reduced(get_config("smollm-360m"), **over)
+    params = japi.init_params(jax.random.PRNGKey(1), jcfg, jnp.float32)
+    model = lm_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                          device="cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 48)) \
+        .astype(np.int32)
+    with torch.no_grad():
+        full = api.forward(model, {"tokens": torch.from_numpy(toks)},
+                           cfg).numpy()
+    n_pre = 40
+    logits, caches = api.prefill(
+        model, {"tokens": torch.from_numpy(toks[:, :n_pre])}, cfg,
+        cache_cap=48)
+    assert caches[0]["l0"].cap == 16
+    jl, jc = japi.prefill(params, {"tokens": jnp.asarray(toks[:, :n_pre])},
+                          jcfg, cache_cap=48)
+    errs = [np.abs(logits.numpy() - full[:, n_pre - 1]).max()]
+    for i in range(48 - n_pre - 1):
+        tok = toks[:, n_pre + i:n_pre + i + 1]
+        logits, caches = api.decode_step(model, torch.from_numpy(tok),
+                                         n_pre + i, caches, cfg)
+        jl, jc = japi.decode_step(params, jnp.asarray(tok),
+                                  jnp.int32(n_pre + i), jc, jcfg)
+        errs.append(np.abs(logits.numpy() - full[:, n_pre + i]).max())
+        assert np.abs(logits.numpy() - np.asarray(jl)).max() < TOL
+    assert np.array_equal(caches[0]["l0"].pos_map.numpy(),
+                          np.asarray(jc["l0"].pos_map[0]))
+    assert max(errs) < 2e-3, errs
+
+
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
+def test_unported_families_raise(arch):
+    cfg = reduced(get_config(arch))
+    assert cfg.family in ("moe", "hybrid", "encdec", "vlm")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        api.init_params(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        api.init_decode_caches(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m"])
+def test_bf16_params_carry_across_bit_for_bit(arch):
+    """JAX exports bfloat16 as ml_dtypes.bfloat16, which torch cannot
+    take; the converter carries the bits across unchanged and keeps the
+    float32 SSM params float32."""
+    jcfg = j_reduced(j_get_config(arch))
+    params = japi.init_params(jax.random.PRNGKey(2), jcfg, jnp.bfloat16)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    model = lm_from_numpy(jax.tree.map(np.asarray, params),
+                          reduced(get_config(arch)), device="cpu")
+    own = dict(model.named_parameters())
+    for path, leaf in flat:
+        keys = [p.key for p in path]
+        arr = np.asarray(leaf)
+        for g in range(arr.shape[0] if keys[0] == "groups" else 1):
+            name = ".".join([keys[0]] + ([str(g)] if keys[0] == "groups"
+                                         else []) + keys[1:])
+            want = arr[g] if keys[0] == "groups" else arr
+            got = own[name].detach()
+            assert str(got.dtype).endswith(want.dtype.name), name
+            bits = torch.int16 if want.itemsize == 2 else torch.int32
+            assert np.array_equal(got.view(bits).numpy(),
+                                  want.view(f"i{want.itemsize}")), name
+
+
+def test_converter_rejects_a_mismatched_tree():
+    jcfg = j_reduced(j_get_config("smollm-360m"))
+    cfg = reduced(get_config("smollm-360m"))
+    tree = jax.tree.map(np.asarray, japi.init_params(
+        jax.random.PRNGKey(0), jcfg, jnp.float32))
+    del tree["final_norm"]["scale"]
+    with pytest.raises(ValueError, match="param names differ"):
+        lm_from_numpy(tree, cfg, device="cpu")
+    tree = jax.tree.map(np.asarray, japi.init_params(
+        jax.random.PRNGKey(0), j_reduced(j_get_config("smollm-360m"),
+                                         d_ff=128), jnp.float32))
+    with pytest.raises(ValueError, match="shape"):
+        lm_from_numpy(tree, cfg, device="cpu")
+
+
+def test_init_params_is_seeded_and_keeps_the_jax_dtypes():
+    cfg = reduced(get_config("mamba2-130m"))
+    a = api.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    b = api.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    dtypes = {n: p.dtype for n, p in a.named_parameters()}
+    assert dtypes["groups.0.l0.ssm.A_log"] == torch.float32
+    assert dtypes["groups.0.l0.ssm.D"] == torch.float32
+    assert dtypes["groups.0.l0.ssm.dt_bias"] == torch.float32
+    assert dtypes["groups.0.l0.ssm.in_proj"] == torch.bfloat16
+    assert dtypes["embed.tok"] == torch.bfloat16
+    assert len(a.groups) == cfg.n_layers
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), n
