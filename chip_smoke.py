@@ -7,6 +7,10 @@ decode) at their published width and depth.
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
         --lm-layers 4                     # quick
+    python3 chip_smoke.py --first-call    # a new kernel's first call:
+        # build with ptxas's registers / shared memory / spills per
+        # kernel instance, small LM-kernel cases against their plain
+        # versions, stop
 
 Phases, in order (any failure exits non-zero):
 
@@ -15,10 +19,12 @@ Phases, in order (any failure exits non-zero):
 2. kernels — call each kernel's wrapper at the shapes the main path
    launches it with and compare with the plain version: the four graph
    kernels on the sessions' own data, bit for bit; flash attention (at
-   the smollm-360m prefill shape, plus head dims 128 / 256, a sliding
-   window and a kv_len-padded non-causal case) and the SSD scan (at the
-   mamba2-130m prefill shape, output and final state) on seeded random
-   inputs, within the tolerance printed.  Each is timed (CUDA events)
+   the smollm-360m prefill shape, plus head dims 128 / 256, and a
+   sliding window and a kv_len-padded non-causal case with ragged Sq,
+   each in float32 and bf16) and the SSD scan (at the mamba2-130m
+   prefill shape, output and final state, from a zero state and
+   continuing a cache) on seeded random inputs, within the tolerance
+   printed.  Each is timed (CUDA events)
    beside its bound, the plain version and, for attention, PyTorch's
    ``scaled_dot_product_attention`` as the library yardstick;
 3. dense session — ``GraphSession(n_cap=8192, layout="dense")`` ingests
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -341,12 +348,18 @@ def _compare(out_k, out_p, tol=None) -> tuple[float, float]:
         if not a.numel():
             continue
         if a.dtype.is_floating_point:
-            diff = (a.float() - b.float()).abs()
+            a, b = a.float(), b.float()
+            # a NaN or an infinity that the plain value does not share
+            # counts as an infinite difference (max() skips NaN)
+            diff = torch.where(a == b, 0.0, (a - b).abs().nan_to_num(
+                nan=math.inf, posinf=math.inf))
         else:
             diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
         err = max(err, float(diff.max()))
         if tol:
-            share = max(share, float((diff / lim).max()))
+            share = max(share, float(torch.where(
+                diff == 0, 0.0, diff / lim).nan_to_num(
+                    nan=math.inf, posinf=math.inf).max()))
         elif err:
             share = float("inf")
     return err, share
@@ -409,121 +422,183 @@ def phase_kernels(cases) -> list[dict]:
     return rows
 
 
-def lm_kernel_cases(seed: int):
-    """Flash attention and the SSD scan on seeded random inputs: the
-    main-path shape of each first (smollm-360m / mamba2-130m prefill),
-    then the other head dims and masks flash attention takes."""
+def attention_case(randn, b, hq, hkv, sq, skv, d, dtype, causal, window,
+                   kv_len) -> dict:
+    """Flash attention on seeded random inputs, beside its plain version
+    and ``scaled_dot_product_attention``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+
+    # [B, S, H, D] activations seen through [B, H, S, D] views, as
+    # models/attention.py hands them over
+    q = randn(b, sq, hq, d, dtype=dtype).transpose(1, 2)
+    k = randn(b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    v = randn(b, skv, hkv, d, dtype=dtype).transpose(1, 2)
+    scale = d ** -0.5
+    i = np.arange(sq)
+    hi = np.full(sq, (kv_len or skv) - 1)
+    if causal:
+        hi = np.minimum(hi, i)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
+    pairs = int(np.maximum(0, hi - lo + 1).sum()) * b * hq
+    # the library yardstick: k / v repeated to Hq heads, and the mask as
+    # a boolean attn_mask wherever is_causal alone does not say it
+    kr = k.repeat_interleave(hq // hkv, 1)
+    vr = v.repeat_interleave(hq // hkv, 1)
+    mask = None
+    if window or kv_len is not None or not causal:
+        qp = torch.arange(sq, device="cuda")[:, None]
+        kp = torch.arange(skv, device="cuda")[None, :]
+        mask = kp < (kv_len or skv)
+        if causal:
+            mask = mask & (kp <= qp)
+        if window:
+            mask = mask & (kp > qp - window)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask, is_causal=causal and mask is None,
+            scale=scale)
+    bf16 = dtype == torch.bfloat16
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:93",
+        kernel=lambda: flash_attention(q, k, v, causal, window, scale,
+                                       kv_len),
+        plain=lambda: attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale, kv_len=kv_len),
+        library=library,
+        bytes=nbytes(q, k, v, q), ops=4 * d * pairs,
+        rate=BF16_TENSOR_FLOPS if bf16 else F32_FLOPS,
+        # bf16: kernel and plain version both sum in float32 and round
+        # once, so they may differ by one bf16 ulp of the plain value
+        # (<= 2^-7·|p|); 2^-12 covers the float32 sums' own rounding
+        # where |p| is near 0
+        tol=(lambda out: 2.0 ** -7 * out.float().abs() + 2.0 ** -12)
+        if bf16 else (lambda out: 3e-5),
+        tol_text="|k-p| <= 2^-7*|p| + 2^-12 per element (bf16: one ulp of "
+                 "the plain value)" if bf16
+        else "3e-5 abs (f32, sums in another order)",
+        shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+              f"{str(dtype)[6:]} causal={causal} window={window} "
+              f"kv_len={kv_len}")
+
+
+def ssd_case(randn, b, s, h, p, n, chunk, with_state0: bool) -> dict:
+    """The SSD scan on seeded random inputs, a and dt as the model makes
+    them; ``with_state0``: a prefill that continues a cache, whose state
+    is the final state of an earlier scan (as ``models/ssm.py`` passes
+    it)."""
+    import torch
+    import torch.nn.functional as F
+
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    def inputs():
+        return (randn(b, s, h, p), F.softplus(randn(b, s, h)),
+                randn(b, s, n), randn(b, s, n))
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    state0 = None
+    if with_state0:
+        x0, dt0, b0, c0 = inputs()
+        state0 = ssd_chunked(x0, dt0, a, b0, c0, chunk)[1]
+        del x0, dt0, b0, c0
+    x, dt, bm, cm = inputs()
+    nc = s // chunk
+    # per (batch, head, chunk) score·(dt·x), C·stateᵀ and the state
+    # update; C·Bᵀ once per (batch, chunk), as the kernel forms it (B and
+    # C are one group shared by every head)
+    ops = (b * h * nc * (chunk * (chunk + 1) * p + 4 * chunk * p * n)
+           + b * nc * chunk * (chunk + 1) * n)
+    s0_64 = (state0.double() if with_state0 else
+             torch.zeros((b, h, p, n), dtype=torch.float64, device="cuda"))
+    return dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:59",
+        kernel=lambda: ssd_scan(x, dt, a, bm, cm, chunk, state0),
+        plain=lambda: ssd_chunked(x, dt, a, bm, cm, chunk, state0),
+        truth=lambda: tuple(t.float() for t in ssd_chunked(
+            x.double(), dt.double(), a.double(), bm.double(), cm.double(),
+            chunk, s0_64)),
+        library=None,
+        bytes=nbytes(x, dt, a, bm, cm, x) + b * h * p * n * 4
+        * (2 if with_state0 else 1), ops=ops,
+        rate=F32_FLOPS,
+        tol=lambda out: 5e-5 * max(float(t.abs().max()) for t in out),
+        tol_text="5e-5 x max|plain| (f32, sums over a chunk in another "
+                 "order; y and final state)",
+        shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} "
+              f"state0={'nonzero' if with_state0 else 'zero'}")
+
+
+def lm_kernel_cases(seed: int):
+    """Flash attention and the SSD scan on seeded random inputs: the
+    main-path shape of each first (smollm-360m / mamba2-130m prefill),
+    then the other head dims and masks flash attention takes, and the
+    scan continuing a cache."""
+    import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    cases = []
-    fa = dict(name="flash_attention", route="cuda",
-              source="src/repro_torch/kernels/flash_attention/"
-                     "flash_attention.cu",
-              replaces="src/repro/kernels/flash_attention/"
-                       "flash_attention.py:93")
-    for b, hq, hkv, sq, skv, d, dtype, causal, window, kv_len in (
-            (LM_BATCH, 15, 5, LM_PROMPT, LM_PROMPT, 64, torch.bfloat16,
-             True, None, None),                       # smollm-360m prefill
-            (1, 32, 2, 512, 512, 128, torch.bfloat16, True, None,
-             None),                                   # glm4-9b heads
-            (1, 8, 1, 512, 512, 256, torch.bfloat16, True, None,
-             None),                                   # gemma-2b heads
-            (1, 8, 2, 1000, 1000, 128, torch.float32, True, 256,
-             None),                                   # sliding window
-            (2, 4, 2, 300, 512, 64, torch.float32, False, None,
-             450)):                                   # kv_len padding
-        # [B, S, H, D] activations seen through [B, H, S, D] views, as
-        # models/attention.py hands them over
-        q = randn(b, sq, hq, d, dtype=dtype).transpose(1, 2)
-        k = randn(b, skv, hkv, d, dtype=dtype).transpose(1, 2)
-        v = randn(b, skv, hkv, d, dtype=dtype).transpose(1, 2)
-        scale = d ** -0.5
-        i = np.arange(sq)
-        hi = np.full(sq, (kv_len or skv) - 1)
-        if causal:
-            hi = np.minimum(hi, i)
-        lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, int)
-        pairs = int(np.maximum(0, hi - lo + 1).sum()) * b * hq
-        # the library yardstick: k / v repeated to Hq heads, and the mask
-        # as a boolean attn_mask wherever is_causal alone does not say it
-        kr = k.repeat_interleave(hq // hkv, 1)
-        vr = v.repeat_interleave(hq // hkv, 1)
-        mask = None
-        if window or kv_len is not None or not causal:
-            qp = torch.arange(sq, device="cuda")[:, None]
-            kp = torch.arange(skv, device="cuda")[None, :]
-            mask = kp < (kv_len or skv)
-            if causal:
-                mask = mask & (kp <= qp)
-            if window:
-                mask = mask & (kp > qp - window)
-
-        def library(q=q, kr=kr, vr=vr, mask=mask, c=causal, s=scale):
-            return F.scaled_dot_product_attention(
-                q, kr, vr, attn_mask=mask, is_causal=c and mask is None,
-                scale=s)
-        bf16 = dtype == torch.bfloat16
-        cases.append(dict(
-            fa,
-            kernel=lambda q=q, k=k, v=v, c=causal, w=window, s=scale,
-            n=kv_len: flash_attention(q, k, v, c, w, s, n),
-            plain=lambda q=q, k=k, v=v, c=causal, w=window, s=scale,
-            n=kv_len: attention_ref(q, k, v, causal=c, window=w, scale=s,
-                                    kv_len=n),
-            library=library,
-            bytes=nbytes(q, k, v, q), ops=4 * d * pairs,
-            rate=BF16_TENSOR_FLOPS if bf16 else F32_FLOPS,
-            # bf16: kernel and plain version both sum in float32 and
-            # round once, so they may differ by one bf16 ulp of the plain
-            # value (≤ 2^-7·|p|); 2^-12 covers the float32 sums' own
-            # rounding where |p| is near 0
-            tol=(lambda out: 2.0 ** -7 * out.float().abs() + 2.0 ** -12)
-            if bf16 else (lambda out: 3e-5),
-            tol_text="|k-p| <= 2^-7*|p| + 2^-12 per element (bf16: one "
-                     "ulp of the plain value)" if bf16
-            else "3e-5 abs (f32, sums in another order)",
-            shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
-                  f"{str(dtype)[6:]} causal={causal} window={window} "
-                  f"kv_len={kv_len}"))
-
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [attention_case(randn, *args) for args in (
+        (LM_BATCH, 15, 5, LM_PROMPT, LM_PROMPT, 64, bf16, True, None,
+         None),                                       # smollm-360m prefill
+        (1, 32, 2, 512, 512, 128, bf16, True, None, None),   # glm4-9b heads
+        (1, 8, 1, 512, 512, 256, bf16, True, None, None),    # gemma-2b heads
+        (1, 8, 2, 1000, 1000, 128, f32, True, 256, None),    # sliding window
+        (1, 8, 2, 1000, 1000, 128, bf16, True, 256, None),
+        (2, 4, 2, 300, 512, 64, f32, False, None, 450),      # kv_len padding
+        (2, 4, 2, 300, 512, 64, bf16, False, None, 450))]
     # the SSD scan at the mamba2-130m prefill: B 8, S 2048, H 24, P 64,
-    # N 128, chunk 256; a and dt as the model makes them
-    b, s, h, p, n, chunk = LM_BATCH, LM_PROMPT, 24, 64, 128, 256
-    x = randn(b, s, h, p)
-    dt = F.softplus(randn(b, s, h))
-    a = -torch.linspace(1.0, 16.0, h, device="cuda")
-    bm, cm = randn(b, s, n), randn(b, s, n)
-    nc = s // chunk
-    ops = b * h * nc * (chunk * (chunk + 1) * (n + p) + 4 * chunk * p * n)
-    cases.append(dict(
-        name="ssd_scan", route="cuda",
-        source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
-        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:59",
-        kernel=lambda: ssd_scan(x, dt, a, bm, cm, chunk),
-        plain=lambda: ssd_chunked(x, dt, a, bm, cm, chunk),
-        truth=lambda: tuple(t.float() for t in ssd_chunked(
-            x.double(), dt.double(), a.double(), bm.double(), cm.double(),
-            chunk, torch.zeros((b, h, p, n), dtype=torch.float64,
-                               device="cuda"))),
-        library=None,
-        bytes=nbytes(x, dt, a, bm, cm, x) + b * h * p * n * 4, ops=ops,
-        rate=F32_FLOPS,
-        tol=lambda out: 5e-5 * max(float(t.abs().max()) for t in out),
-        tol_text="5e-5 x max|plain| (f32, sums over a chunk in another "
-                 "order; y and final state)",
-        shape=f"B={b} S={s} H={h} P={p} N={n} chunk={chunk}"))
+    # N 128, chunk 256; from a zero state and continuing a cache
+    cases += [ssd_case(randn, LM_BATCH, LM_PROMPT, 24, 64, 128, 256, s0)
+              for s0 in (False, True)]
     return cases
+
+
+def first_call(seed: int) -> int:
+    """A new kernel's first call on the card: build with ptxas's report
+    of registers, shared memory and spills per kernel instance, hold
+    small cases of flash attention (bf16, every head dim and mask) and
+    the SSD scan (ragged chunk, nonzero state) against their plain
+    versions, and stop."""
+    import torch
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.load(verbose=True)      # the wrappers' ext() then finds it built
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    bf16 = torch.bfloat16
+    cases = [attention_case(randn, *args) for args in (
+        (1, 3, 1, 300, 300, 64, bf16, True, None, None),
+        (2, 4, 2, 200, 200, 128, bf16, True, 96, None),
+        (1, 2, 1, 130, 130, 256, bf16, True, None, None),
+        (1, 2, 1, 100, 256, 64, bf16, False, None, 150))]
+    cases += [ssd_case(randn, 2, 512, 4, 64, 128, 256, False),
+              ssd_case(randn, 2, 300, 3, 64, 128, 100, True)]
+    bad = 0
+    for c in cases:
+        try:
+            phase_kernels([c])
+        except AssertionError as exc:
+            bad += 1
+            log(f"chip_smoke: {exc}")
+    return fail(f"{bad} first-call cases disagree") if bad else 0
 
 
 # ---------------------------------------------------------------------------
@@ -886,6 +961,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-layers", type=int, default=0,
                     help="cut the LMs' depth (0: the published depth)")
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--first-call", action="store_true",
+                    help="build with ptxas's report, run small kernel "
+                         "cases against their plain versions and stop")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
     args = ap.parse_args(argv)
@@ -902,6 +980,8 @@ def main(argv=None) -> int:
                     f"({exc})")
     if torch.backends.cuda.matmul.allow_tf32:
         return fail("TF32 matmul is on; the f32 measures need it off")
+    if args.first_call:
+        return first_call(args.seed)
     phases = {}
 
     t0 = time.perf_counter()

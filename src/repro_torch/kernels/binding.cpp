@@ -32,10 +32,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int hq, int hkv, int sq, int kv_len, int d,
                            int dtype, int causal, int window, float scale,
                            long long stream);
+int ssd_scan_cb_stride(int chunk);
 int ssd_scan_launch(const void* x, const void* dt, const void* a,
                     const void* bm, const void* cm, const void* state0,
-                    void* y, void* state, int batch, int seqlen, int heads,
-                    int p, int n, int chunk, long long stream);
+                    void* y, void* state, void* chunk_scratch,
+                    void* cum_scratch, void* cb_scratch, int batch,
+                    int seqlen, int heads, int p, int n, int chunk,
+                    long long stream);
 const char* repro_cuda_error_string(int err);
 
 namespace {
@@ -116,13 +119,17 @@ void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
 
 void ssd_scan(torch::Tensor x, torch::Tensor dt, torch::Tensor a,
               torch::Tensor bm, torch::Tensor cm, torch::Tensor state0,
-              torch::Tensor y, torch::Tensor state, int64_t chunk,
+              torch::Tensor y, torch::Tensor state, torch::Tensor chunks,
+              torch::Tensor cum, torch::Tensor cb, int64_t chunk,
               int64_t stream) {
   check(ssd_scan_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                         bm.data_ptr(), cm.data_ptr(), ptr_or_null(state0),
-                        y.data_ptr(), state.data_ptr(), (int)x.size(0),
-                        (int)x.size(1), (int)x.size(2), (int)x.size(3),
-                        (int)bm.size(2), (int)chunk, stream),
+                        y.data_ptr(), state.data_ptr(),
+                        const_cast<void*>(ptr_or_null(chunks)),
+                        const_cast<void*>(ptr_or_null(cum)),
+                        const_cast<void*>(ptr_or_null(cb)),
+                        (int)x.size(0), (int)x.size(1), (int)x.size(2),
+                        (int)x.size(3), (int)bm.size(2), (int)chunk, stream),
         "ssd_scan");
 }
 
@@ -137,4 +144,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sweep_series_smem_bytes", &sweep_series_smem_bytes);
   m.def("flash_attention", &flash_attention);
   m.def("ssd_scan", &ssd_scan);
+  m.def("ssd_scan_cb_stride", &ssd_scan_cb_stride);
 }

@@ -31,7 +31,10 @@ SOURCES = (
     "flash_attention/flash_attention.cu",
     "ssd_scan/ssd_scan.cu",
 )
-CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+# ``-Xptxas=-v``: ptxas reports registers, shared memory and spills of
+# every kernel instance; the report is shown only by ``load(verbose=True)``
+CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a",
+              "-Xptxas=-v")
 
 KERNELS = ("delta_apply", "edge_delta_apply", "degree_series",
            "sweep_series", "flash_attention", "ssd_scan")
@@ -43,17 +46,24 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def load(verbose: bool = False):
+    """Build the extension where its sources or flags changed, and load
+    it.  ``verbose`` prints the build's output, ptxas's report
+    included; the flags, and so the build, are the same either way."""
+    from torch.utils.cpp_extension import load as load_extension
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    return load_extension(name="repro_torch_kernels",
+                          sources=[os.path.join(_HERE, s) for s in SOURCES],
+                          build_directory=BUILD_DIR,
+                          extra_cflags=["-O3"],
+                          extra_cuda_cflags=list(CUDA_FLAGS),
+                          verbose=verbose)
+
+
 @functools.cache
 def ext():
     """The compiled extension module (built on first call)."""
-    from torch.utils.cpp_extension import load
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    return load(name="repro_torch_kernels",
-                sources=[os.path.join(_HERE, s) for s in SOURCES],
-                build_directory=BUILD_DIR,
-                extra_cflags=["-O3"],
-                extra_cuda_cflags=list(CUDA_FLAGS),
-                verbose=False)
+    return load()
 
 
 def stream_handle(device: torch.device) -> int:
@@ -73,6 +83,20 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(name: str, t: torch.Tensor, elems: int = 1) -> None:
+    """A kernel that copies ``t`` in 16-byte pieces (``cp.async``) needs
+    its start 16-byte aligned and every stride it steps along between
+    rows (the outer dims longer than one) a multiple of ``elems``
+    elements."""
+    if t.numel() and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+    bad = [st for sz, st in zip(t.shape[:-1], t.stride()[:-1])
+           if sz > 1 and st % elems]
+    if bad:
+        raise ValueError(f"{name} strides {tuple(t.stride())} must be "
+                         f"multiples of {elems} elements")
 
 
 def check_same_device(**tensors: torch.Tensor) -> None:

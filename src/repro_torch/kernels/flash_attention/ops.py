@@ -7,7 +7,10 @@ backward kernel, on the TPU either).
 The kernel reads q/k/v through their strides (the head dim must be
 unit-stride) and masks ragged sequence edges itself, so ``[B, S, H, D]``
 activations go in as ``.transpose(1, 2)`` views without copies or
-padding."""
+padding.  The bfloat16 instance copies rows in 16-byte pieces, so it
+needs 16-byte aligned operands with strides of whole 8-element pieces;
+a layout it cannot take raises here (nothing is copied to make it
+fit)."""
 from __future__ import annotations
 
 import torch
@@ -86,6 +89,9 @@ def flash_attention_fwd(q, k, v, causal: bool, window: int | None,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     build.check_same_device(q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            build.check_aligned(name, t, 8)
     out = torch.empty_like(q)           # keeps q's (transposed) strides
     if out.numel() == 0:
         return out

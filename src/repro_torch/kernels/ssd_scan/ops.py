@@ -1,9 +1,12 @@
 """Wrapper of the chunked SSD scan kernel (``ssd_scan.cu``): operand
-checks and the launch on the current stream.  Takes the model's own
-layout — the kernel forms dt·x and a·dt itself and reads B/C once per
-batch, so nothing is transposed, broadcast to heads or padded here (the
-caller pads the sequence to a chunk multiple with dt = 0, as
-``models/ssm.py::apply_ssm`` does)."""
+checks, the scratch its chunk-parallel steps share (the chunk states,
+overwritten by the states entering each chunk; the in-chunk cumsum of
+a·dt, kept in float64; C·Bᵀ within each chunk, once for all heads), and
+the launches on the current stream.  Takes the
+model's own layout — the kernel forms dt·x and a·dt itself and reads
+B/C once per batch, so nothing is transposed, broadcast to heads or
+padded here (the caller pads the sequence to a chunk multiple with
+dt = 0, as ``models/ssm.py::apply_ssm`` does)."""
 from __future__ import annotations
 
 import torch
@@ -35,9 +38,10 @@ def ssd_scan(x, dt, a, b, c, chunk: int, state0=None):
         raise ValueError(f"ssd_scan shapes do not match: x {tuple(x.shape)}"
                          f" dt {tuple(dt.shape)} a {tuple(a.shape)} b "
                          f"{tuple(b.shape)} c {tuple(c.shape)}")
-    if p > MAX_HEADDIM or n > MAX_STATE:
-        raise ValueError(f"ssd_scan.cu takes head dim <= {MAX_HEADDIM} and "
-                         f"state <= {MAX_STATE}, got {p} and {n}")
+    if p > MAX_HEADDIM or n > MAX_STATE or p % 4 or n % 4:
+        raise ValueError(f"ssd_scan.cu takes a head dim <= {MAX_HEADDIM} "
+                         f"and a state <= {MAX_STATE}, both multiples of 4, "
+                         f"got {p} and {n}")
     if chunk <= 0 or s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     if state0 is None:
@@ -48,10 +52,18 @@ def ssd_scan(x, dt, a, b, c, chunk: int, state0=None):
             raise ValueError(f"state0 must be [{bsz}, {h}, {p}, {n}]")
         s0 = state0
     build.check_same_device(x=x, dt=dt, a=a, b=b, c=c, state0=s0)
+    for name, t in (("x", x), ("b", b), ("c", c), ("state0", s0)):
+        build.check_aligned(name, t)
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32,
                         device=x.device)
-    build.ext().ssd_scan(x, dt, a, b, c, s0, y, state, int(chunk),
-                         build.stream_handle(x.device))
+    chunks = torch.empty((bsz, h, s // chunk, p, n), dtype=torch.float32,
+                         device=x.device)
+    cum = torch.empty((bsz, h, s), dtype=torch.float64, device=x.device)
+    ext = build.ext()
+    cb = torch.empty((bsz, s // chunk, chunk, ext.ssd_scan_cb_stride(chunk)),
+                     dtype=torch.float32, device=x.device)
+    ext.ssd_scan(x, dt, a, b, c, s0, y, state, chunks, cum, cb, int(chunk),
+                 build.stream_handle(x.device))
     build.LAUNCHES["ssd_scan"] += 1
     return y, state

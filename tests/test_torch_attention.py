@@ -119,6 +119,67 @@ def test_kernel_launch_refuses_what_it_cannot_take():
     assert FA.HEAD_DIMS == (64, 128, 256)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_p_needs_more_than_bf16(d):
+    """Why the bf16 kernel splits P into bf16 hi + lo for O += P·V.
+
+    The kernel's tensor cores take P as bf16.  Emulated here in plain
+    torch (float32 scores and P, the row sum from the float32 P, the
+    product summed in float32, the output rounded to bf16 once), P
+    rounded to bf16 once falls far outside the per-element rule that
+    ``chip_smoke.py`` holds the kernel to, |k - p| <= 2^-7·|p| + 2^-12
+    against ``attention_ref`` (one bf16 ulp of the plain value): rows
+    that see few keys and nearly cancel amplify P's 2^-9 relative error.
+    P = P_hi + P_lo, both bf16 and both multiplied, meets it."""
+    rng = np.random.default_rng(0)
+    s = 512
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, s, d))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    scale = d ** -0.5
+    want = attention_ref(q, k, v, causal=True, scale=scale).float()
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(),
+                        float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    rowsum = p.sum(-1, keepdim=True)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+
+    def pv(w):
+        return torch.einsum("bhqk,bhkd->bhqd", w, v.float())
+
+    allowed = 2.0 ** -7 * want.abs() + 2.0 ** -12
+
+    def share(out):
+        return float(((out.bfloat16().float() - want).abs() / allowed).max())
+
+    once, split = share(pv(p_hi) / rowsum), share((pv(p_hi) + pv(p_lo))
+                                                  / rowsum)
+    assert split <= 1, f"hi + lo at {split:.3g} of the rule"
+    # measured 4.5x (D 64) and 4.6x (D 128) the rule
+    assert once > 2, f"P rounded once reads only {once:.3g} of the rule"
+
+
+def test_bf16_operands_need_16_byte_pieces():
+    """The bf16 kernel copies rows in 16-byte pieces: a start off a
+    16-byte boundary or a row stride that is not a whole number of
+    8-element pieces is refused (nothing is copied to make it fit); the
+    model's [B, S, H, D] views pass."""
+    from repro_torch.kernels import build
+    x = torch.zeros((2, 16, 3, 64), dtype=torch.bfloat16)
+    build.check_aligned("q", x.transpose(1, 2), 8)
+    build.check_aligned("q", x[:, :, :1].transpose(1, 2), 8)
+    flat = torch.zeros(2 * 16 * 3 * 64 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        build.check_aligned("q", flat[1:1 + x.numel()].view(x.shape)
+                            .transpose(1, 2), 8)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        build.check_aligned("k", torch.zeros((2, 4, 16, 68),
+                                             dtype=torch.bfloat16)
+                            [..., :64], 8)
+
+
 def _attn_params(cfg, seed):
     p = JA.init_attention(jax.random.PRNGKey(seed), cfg, jnp.float32)
     return p, params_module(**{k: _tensor(np.asarray(v))

@@ -154,3 +154,34 @@ def test_scan_launch_refuses_tensors_off_the_card():
                       (1, 16, 4))]
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_scan(*meta, 16)
+
+
+def test_segment_sums_lose_digits_in_float32():
+    """Why ``ssd_scan.cu`` keeps the in-chunk cumsum of a·dt in float64.
+
+    At the mamba2-130m prefill's a (down to -16) and dt (softplus of
+    N(0, 1)), cum reaches ~-10^3 within a chunk of 256 steps, and the
+    decay exp(cum_i - cum_j) formed from float32 cums keeps only the
+    digits their difference has left: its relative error grows with
+    |cum|.  Formed from float64 cums (the difference rounded to float32
+    once) the error is that of the segment alone.  The float32 scan's
+    error is dominated by this (on the card the kernel, with float64
+    cums, reads 30-60x closer to a float64 scan than the float32 plain
+    version)."""
+    rng = np.random.default_rng(0)
+    q, h = 256, 24
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((q, h)).astype(np.float32)))
+    a = -torch.linspace(1.0, 16.0, h)
+    cum32 = torch.cumsum(dt * a, 0)
+    cum64 = torch.cumsum(dt.double() * a.double(), 0)
+    i, j = torch.tril_indices(q, q)
+    seg64 = cum64[i] - cum64[j]
+    keep = seg64 > -80.0                  # decays float32 still holds
+    truth = torch.exp(seg64[keep])
+    from32 = torch.exp(cum32[i] - cum32[j])[keep].double()
+    from64 = torch.exp(seg64[keep].float()).double()
+    err32 = float(((from32 - truth).abs() / truth).max())
+    err64 = float(((from64 - truth).abs() / truth).max())
+    assert float(cum64.min()) < -1000
+    assert err64 < 1e-5 and err32 > 10 * err64, (err32, err64)
