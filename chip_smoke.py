@@ -9,8 +9,8 @@ decode) at their published width and depth.
         --lm-layers 4                     # quick
     python3 chip_smoke.py --first-call    # a new kernel's first call:
         # build with ptxas's registers / shared memory / spills per
-        # kernel instance, small LM-kernel cases against their plain
-        # versions, stop
+        # kernel instance, every graph-kernel case at a small size and
+        # small LM-kernel cases against their plain versions, stop
 
 Phases, in order (any failure exits non-zero):
 
@@ -18,15 +18,23 @@ Phases, in order (any failure exits non-zero):
    print the card's name and power limit as nvidia-smi reports them;
 2. kernels — call each kernel's wrapper at the shapes the main path
    launches it with and compare with the plain version: the four graph
-   kernels on the sessions' own data, bit for bit; flash attention (at
+   kernels on the sessions' own data, bit for bit, and, untimed, the
+   other paths of dense LWW reconstruction (per-query anchors and
+   windows both ways, a ``row_mask``, N = 1000 and 1008) and of the
+   degree sweep (four windows, the dense session's N, B = 512 with the
+   nets in global memory), the kernel lines carrying the counts the
+   two designs turn on; flash attention (at
    the smollm-360m prefill shape, plus head dims 128 / 256, and a
    sliding window and a kv_len-padded non-causal case with ragged Sq,
    each in float32 and bf16) and the SSD scan (at the mamba2-130m
    prefill shape, output and final state, from a zero state and
    continuing a cache) on seeded random inputs, within the tolerance
-   printed.  Each is timed (CUDA events)
-   beside its bound, the plain version and, for attention, PyTorch's
-   ``scaled_dot_product_attention`` as the library yardstick;
+   printed.  Each main case is timed (CUDA events, behind a device
+   sleep that covers the host's launches; the host's own time per call
+   beside it) beside its bound, the plain version and, for attention,
+   PyTorch's ``scaled_dot_product_attention`` as the library
+   yardstick; the degree sweep's work list, which its launch derives
+   on the card, is held against its plain version and timed alone;
 3. dense session — ``GraphSession(n_cap=8192, layout="dense")`` ingests
    the paper's Table 3 evolution parameters in several flushed batches,
    then a mixed ``query_many`` (point / diff / agg, node and global,
@@ -75,6 +83,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_FLOPS = 989e12         # H100 SXM dense bf16, NVIDIA data sheet
 F32_FLOPS = 67e12                  # float32 outside the tensor cores
+# ~0.1 s at the H100's clock: longer than the host takes to enqueue any
+# timed run of kernel calls (cuda_ms)
+SLEEP_CYCLES = 200_000_000
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 32
 CHECK_PROMPT, CHECK_DECODE = 256, 32
 # bf16 decode against a fresh bf16 forward over the same tokens, as max
@@ -189,18 +200,28 @@ def sweeps(t_cur: int, v: int):
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn`` over ``reps`` calls.  The
+    card sleeps first while the host enqueues the calls, so a call the
+    host launches more slowly than the card runs it is timed on the
+    card (CUDA events), not at the host's launch rate; the host's own
+    time to return from each call while the card sleeps is the second
+    number (a call that synchronizes still waits for the sleep: its
+    device time is as before and its host time holds the sleep)."""
     import torch
     fn()                                   # warm up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms
 
 
 def nbytes(*ts) -> int:
@@ -214,11 +235,66 @@ def in_window(t_col, lo, hi) -> int:
     return int(((t > lo.view(-1, 1)) & (t <= hi.view(-1, 1))).sum())
 
 
-def kernel_cases(dense_store, edge_store, dense_q, edge_q):
-    """The four kernels' inputs as the sessions' groups build them."""
+def delta_apply_design(ent, tst, ta, tq) -> dict:
+    """What B1's design is about, from the bucketing: entries per 64×64
+    tile and, per query, the tiles with no entry in its window (they
+    write the anchor straight out)."""
     import torch
 
-    from repro_torch.core.reconstruct import window_of
+    from repro_torch.kernels.delta_apply.ref import entry_tiles
+    counts = (tst[1:] - tst[:-1]).to(torch.int64)
+    t = ent[:, 1].view(1, -1)
+    win = ((t > torch.minimum(ta, tq).view(-1, 1))
+           & (t <= torch.maximum(ta, tq).view(-1, 1)))
+    per = torch.zeros((win.shape[0], counts.numel()), dtype=torch.int64,
+                      device=ent.device)
+    per.index_add_(1, entry_tiles(tst), win.to(torch.int64))
+    empty = (per == 0).sum(1).tolist()
+    return dict(tiles=counts.numel(),
+                entries_per_tile_mean=float(counts.double().mean()),
+                entries_per_tile_max=int(counts.max()),
+                tiles_without_window_entry=empty,
+                tile_queries_without_window_entry=sum(empty))
+
+
+def sweep_design(tst, n_events: int) -> dict:
+    """What B4's design is about, from the bucketing and the work list
+    the kernel derives from it: events per 256-node tile, the blocks
+    they were cut into (``rows_per_query`` counts the surplus rows of
+    the list too, whose blocks exit at once).  On the card the list is
+    the work kernel's, held bit for bit against its plain version."""
+    import torch
+
+    from repro_torch.kernels.evolve_sweep import sweep, sweep_work_ref
+    counts = (tst[1:] - tst[:-1]).to(torch.int64)
+    rows = sweep.sweep_work(tst, n_events)
+    if not torch.equal(rows, sweep_work_ref(tst, n_events, sweep.CHUNK)):
+        raise AssertionError("sweep_series's work list disagrees with "
+                             "its plain version")
+    real = rows[rows[:, 0] >= 0]
+    sizes = (real[:, 2] - real[:, 1]).to(torch.int64)
+    return dict(tiles=counts.numel(),
+                events_per_tile_mean=float(counts.double().mean()),
+                events_per_tile_max=int(counts.max()), chunk=sweep.CHUNK,
+                blocks_per_query=int(sizes.numel()),
+                rows_per_query=rows.shape[0],
+                split_tiles=int(real[:, 3].max()) + 1,   # slots from 0
+                heaviest_block_events=int(sizes.max()))
+
+
+def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
+    """The four graph kernels' inputs as the sessions' groups build them
+    (timed), then B1's and B4's other paths on the same data: B1 with a
+    per-query anchor and windows both ways, with a ``row_mask``, and at
+    N = 1000 and 1008 (ragged tiles, bytes and 16-byte words); B4 with
+    four sweeps of different windows, at the dense session's N, and with
+    B past the shared-memory limit (global nets).  Every case is held
+    bit for bit against its plain version."""
+    import torch
+
+    from repro_torch.core.reconstruct import (reconstruct_dense_many,
+                                              reconstruct_edge_many,
+                                              window_of)
     from repro_torch.kernels.degree_series import (TILE as DS_TILE,
                                                    bucket_node_events,
                                                    degree_series_kernel,
@@ -232,56 +308,87 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q):
     from repro_torch.kernels.evolve_sweep import (TILE as SW_TILE,
                                                   bucket_sweep_events,
                                                   sweep_series,
-                                                  sweep_series_ref)
+                                                  sweep_series_ref,
+                                                  sweep_work)
     from repro_torch.kernels.evolve_sweep.ops import _start_state
-    from repro_torch.core.reconstruct import reconstruct_edge_many
 
     dev = dense_store.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
     cases = []
+
+    def i32(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    def b1_case(adj, d, ta, tq, row_mask=None, timed=False, what=""):
+        n = adj.shape[-1]
+        ent, tst = bucket_ops(d, n, *window_of(ta, tq))
+        q = tq.numel()
+        lo, hi = torch.minimum(ta, tq), torch.maximum(ta, tq)
+        return dict(
+            name="delta_apply", route="cuda",
+            source="src/repro_torch/kernels/delta_apply/delta_apply.cu",
+            replaces="src/repro/kernels/delta_apply/delta_apply.py:52",
+            kernel=lambda: delta_apply(adj, ent, tst, ta, tq, row_mask),
+            plain=lambda: delta_apply_ref(adj, ent, tst, ta, tq, row_mask,
+                                          DA_TILE),
+            bytes=nbytes(adj, ent, tst, ta, tq) + q * n * n
+            + (nbytes(row_mask) if row_mask is not None else 0),
+            ops=in_window(ent[:, 1], lo, hi) + q * n * n, timed=timed,
+            design=delta_apply_design(ent, tst, ta, tq),
+            shape=f"Q={q} N={n} entries={ent.shape[0]}{what}")
+
+    def b4_case(deg0, d, t_lo, widths, stride, nb, timed=False, what=""):
+        q, n = deg0.shape
+        t_last = t_lo + (widths - 1) * stride
+        ev, tst = bucket_sweep_events(d, n, int(t_lo.min()),
+                                      int(t_last.max()))
+        return dict(
+            name="sweep_series", route="cuda",
+            source="src/repro_torch/kernels/evolve_sweep/sweep.cu",
+            replaces="src/repro/kernels/evolve_sweep/sweep.py:100",
+            kernel=lambda: sweep_series(deg0, ev, tst, t_lo, t_last, stride,
+                                        nb),
+            plain=lambda: sweep_series_ref(deg0, ev, tst, t_lo, t_last,
+                                           stride, nb, SW_TILE),
+            bytes=nbytes(deg0, ev, tst, t_lo, t_last) + q * nb * n * 4,
+            ops=in_window(ev[:, 0], t_lo, t_last) + q * nb * n,
+            timed=timed, design=sweep_design(tst, ev.shape[0]),
+            parts={"work_list": lambda: sweep_work(tst, ev.shape[0])},
+            shape=f"Q={q} B={nb} N={n} events={ev.shape[0]}{what}")
 
     # B1: a dense two-phase point group (the dense-only global measures)
     ts = sorted({q["t_k"] for q, _ in dense_q
                  if q["measure"] in ("triangles", "num_components")})
     t_cur = dense_store.t_cur
-    tq = torch.tensor(ts, dtype=torch.int32, device=dev)
+    tq = i32(ts)
     ta = torch.full_like(tq, t_cur)
     d = dense_store.delta_view().window_delta(min(ts), t_cur)
     n = dense_store.n_cap
-    ent, tst = bucket_ops(d, n, *window_of(ta, tq))
     adj = dense_store.current.adj
-    cases.append(dict(
-        name="delta_apply", route="cuda",
-        source="src/repro_torch/kernels/delta_apply/delta_apply.cu",
-        replaces="src/repro/kernels/delta_apply/delta_apply.py:52",
-        kernel=lambda: delta_apply(adj, ent, tst, ta, tq),
-        plain=lambda: delta_apply_ref(adj, ent, tst, ta, tq, None, DA_TILE),
-        bytes=nbytes(adj, ent, tst, ta, tq) + len(ts) * n * n,
-        ops=in_window(ent[:, 1], torch.minimum(ta, tq),
-                      torch.maximum(ta, tq)) + len(ts) * n * n,
-        shape=f"Q={len(ts)} N={n} entries={ent.shape[0]}"))
+    cases.append(b1_case(adj, d, ta, tq, timed=True))
 
     # B2: an edge two-phase point group (node degree at six times)
-    ts = sorted({q["t_k"] for q, _ in edge_q if q["kind"] == "point"})
-    t_cur = edge_store.t_cur
-    tq = torch.tensor(ts, dtype=torch.int32, device=dev)
-    ta = torch.full_like(tq, t_cur)
-    d = edge_store.delta_view().window_delta(min(ts), t_cur)
+    ts2 = sorted({q["t_k"] for q, _ in edge_q if q["kind"] == "point"})
+    t_cur_e = edge_store.t_cur
+    tq2 = i32(ts2)
+    ta2 = torch.full_like(tq2, t_cur_e)
+    d = edge_store.delta_view().window_delta(min(ts2), t_cur_e)
     cur = edge_store.current_edge_snapshot()
     e = cur.e_cap
-    ent2, tst2 = bucket_slot_ops(d, e, *window_of(ta, tq))
+    ent2, tst2 = bucket_slot_ops(d, e, *window_of(ta2, tq2))
     cases.append(dict(
         name="edge_delta_apply", route="cuda",
         source="src/repro_torch/kernels/edge_delta_apply/"
                "edge_delta_apply.cu",
         replaces="src/repro/kernels/edge_delta_apply/"
                  "edge_delta_apply.py:53",
-        kernel=lambda: edge_delta_apply(cur.emask, ent2, tst2, ta, tq),
-        plain=lambda: edge_delta_apply_ref(cur.emask, ent2, tst2, ta, tq,
+        kernel=lambda: edge_delta_apply(cur.emask, ent2, tst2, ta2, tq2),
+        plain=lambda: edge_delta_apply_ref(cur.emask, ent2, tst2, ta2, tq2,
                                            EA_TILE),
-        bytes=nbytes(cur.emask, ent2, tst2, ta, tq) + len(ts) * e,
-        ops=in_window(ent2[:, 1], torch.minimum(ta, tq),
-                      torch.maximum(ta, tq)) + len(ts) * e,
-        shape=f"Q={len(ts)} E={e} entries={ent2.shape[0]}"))
+        bytes=nbytes(cur.emask, ent2, tst2, ta2, tq2) + len(ts2) * e,
+        ops=in_window(ent2[:, 1], torch.minimum(ta2, tq2),
+                      torch.maximum(ta2, tq2)) + len(ts2) * e,
+        timed=True, shape=f"Q={len(ts2)} E={e} entries={ent2.shape[0]}"))
 
     # B3: the hybrid agg group's shared degree series
     aggs = [q for q, _ in edge_q if q["kind"] == "agg"
@@ -299,32 +406,80 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q):
         kernel=lambda: degree_series_kernel(deg, ev3, ts3, w_total),
         plain=lambda: degree_series_ref(deg, ev3, ts3, w_total, DS_TILE),
         bytes=nbytes(deg, ev3, ts3) + w_total * nn * 4,
-        ops=ev3.shape[0] + w_total * nn,
+        ops=ev3.shape[0] + w_total * nn, timed=True,
         shape=f"B={w_total} N={nn} events={ev3.shape[0]}"))
 
     # B4: a sweep group's degree series (the session's degree sweep)
-    sw = sweeps(t_cur, 0)[1]
-    lo, hi, stride = sw["t_lo"], sw["t_hi"], sw["stride"]
-    width = (hi - lo) // stride + 1
-    nb = 1 << (width - 1).bit_length()
-    t_lo = torch.tensor([lo], dtype=torch.int32, device=dev)
-    t_last = t_lo + (width - 1) * stride
-    g = reconstruct_edge_many(cur, edge_store.delta_view().window_delta(
-        lo, t_cur, merged=True), t_cur, t_lo)
-    deg0 = _start_state(g, dense=False)[0]
-    d4 = edge_store.delta_view().window_delta(lo, int(t_last))
-    ev4, ts4 = bucket_sweep_events(d4, nn, lo, int(t_last))
-    cases.append(dict(
-        name="sweep_series", route="cuda",
-        source="src/repro_torch/kernels/evolve_sweep/sweep.cu",
-        replaces="src/repro/kernels/evolve_sweep/sweep.py:100",
-        kernel=lambda: sweep_series(deg0, ev4, ts4, t_lo, t_last, stride,
-                                    nb),
-        plain=lambda: sweep_series_ref(deg0, ev4, ts4, t_lo, t_last, stride,
-                                       nb, SW_TILE),
-        bytes=nbytes(deg0, ev4, ts4, t_lo, t_last) + nb * nn * 4,
-        ops=in_window(ev4[:, 1], t_lo, t_last) + nb * nn,
-        shape=f"Q=1 B={nb} N={nn} events={ev4.shape[0]}"))
+    def sweep_start(store, cur_g, t_los, dense):
+        view = store.delta_view()
+        d_rec = view.window_delta(int(t_los.min()), store.t_cur,
+                                  merged=True)
+        recon = reconstruct_dense_many if dense else reconstruct_edge_many
+        return _start_state(recon(cur_g, d_rec, store.t_cur, t_los),
+                            dense)[0]
+
+    def sweep_shape(store):
+        sw = sweeps(store.t_cur, 0)[1]
+        lo, hi, stride = sw["t_lo"], sw["t_hi"], sw["stride"]
+        width = (hi - lo) // stride + 1
+        return lo, stride, width, 1 << (width - 1).bit_length()
+
+    lo, stride, width, nb = sweep_shape(edge_store)
+    t_lo = i32([lo])
+    deg0 = sweep_start(edge_store, cur, t_lo, dense=False)
+    d4 = edge_store.delta_view().window_delta(lo, lo + (width - 1) * stride)
+    cases.append(b4_case(deg0, d4, t_lo, i32([width]), stride, nb,
+                         timed=True))
+
+    # --- B1's other paths: per-query anchors, windows both ways ---
+    tq_a = i32([ts[0] - max(1, ts[0] // 3), ts[2], t_cur])
+    ta_a = i32(ts)                       # back, forward, forward
+    anchors = delta_apply_ref(adj, *bucket_ops(d, n, *window_of(ta, tq)),
+                              ta, tq, None, DA_TILE)
+    d1 = dense_store.delta_view().window_delta(1, t_cur)
+    cases.append(b1_case(anchors, d1, ta_a, tq_a,
+                         what=" per-query anchors, windows both ways"))
+    # a row_mask (partial reconstruction), main windows
+    rm = torch.rand((len(ts), n), generator=gen, device=dev) < 0.03
+    cases.append(b1_case(adj, d, ta, tq, row_mask=rm, what=" row_mask"))
+    # ragged tiles: N = 1000 moves bytes, N = 1008 16-byte words with a
+    # partial last tile; a row_mask and windows both ways
+    for nr in (1000, 1008):
+        sub = adj[:nr, :nr].contiguous()
+        rm_r = torch.rand((3, nr), generator=gen, device=dev) < 0.2
+        cases.append(b1_case(sub, d1, i32([t_cur, ts[0], ts[0]]),
+                             i32([ts[1], ts[2], 1]),
+                             row_mask=rm_r if nr == 1008 else None,
+                             what=" ragged" + (" row_mask" if nr == 1008
+                                               else "")))
+
+    # --- B4's other paths ---
+    # four sweeps of different windows at the edge session's N
+    t_los = i32([lo, lo + stride // 2, 2 * lo, lo + 7 * stride])
+    widths = i32([width, width // 2, 17, 5])
+    deg0q = sweep_start(edge_store, cur, t_los, dense=False)
+    d4q = edge_store.delta_view().window_delta(
+        lo, int((t_los + (widths - 1) * stride).max()))
+    cases.append(b4_case(deg0q, d4q, t_los, widths, stride, nb,
+                         what=" four windows"))
+    # the dense session's N, one sweep and two
+    lo_d, stride_d, width_d, nb_d = sweep_shape(dense_store)
+    dcur = dense_store.current
+    for t_los_d in (i32([lo_d]), i32([lo_d, 2 * lo_d])):
+        deg0d = sweep_start(dense_store, dcur, t_los_d, dense=True)
+        d4d = dense_store.delta_view().window_delta(
+            lo_d, lo_d + (width_d - 1) * stride_d)
+        widths_d = torch.full_like(t_los_d, width_d)
+        widths_d[1:] = width_d // 2
+        cases.append(b4_case(deg0d, d4d, t_los_d, widths_d, stride_d, nb_d))
+    # B = 512: the packed net (B/2 × 256 × 4 bytes) past 226 KB of shared
+    # memory, so every tile's net is in global scratch
+    stride_s = max(1, (dense_store.t_cur - lo_d) // 500)
+    t_lo_s = i32([lo_d])
+    deg0s = sweep_start(dense_store, dcur, t_lo_s, dense=True)
+    d4s = dense_store.delta_view().window_delta(lo_d, dense_store.t_cur)
+    cases.append(b4_case(deg0s, d4s, t_lo_s, i32([500]), stride_s, 512,
+                         what=" global nets"))
     return cases
 
 
@@ -367,11 +522,15 @@ def _compare(out_k, out_p, tol=None) -> tuple[float, float]:
 
 def phase_kernels(cases) -> list[dict]:
     """Each case: kernel against plain version (``tol``: the allowed
-    difference as ``_compare`` takes it, or None for bit-exact), then
-    timed beside its bound and, where one PyTorch call computes the same
-    function (``library``), that call.  A case with ``truth`` (the same
-    function in float64) also reads kernel and plain version against
-    it."""
+    difference as ``_compare`` takes it, or None for bit-exact), then,
+    unless ``timed`` is False, timed beside its bound and, where one
+    PyTorch call computes the same function (``library``), that call.
+    A case with ``truth`` (the same function in float64) also reads
+    kernel and plain version against it; ``design`` (counts from the
+    kernel's inputs) is printed and kept with the row, and each of
+    ``parts`` (a piece of the kernel's launch, alone) is timed with
+    it.  A timed kernel's row holds the host's time per call beside
+    the card's."""
     import torch
     rows = []
     for c in cases:
@@ -392,34 +551,61 @@ def phase_kernels(cases) -> list[dict]:
                                            for t in truth)
             del truth
         del out_k, out_p
-        ms = cuda_ms(c["kernel"], 20)
-        plain_ms = cuda_ms(c["plain"], 3)
-        library_ms = cuda_ms(c["library"], 20) if c.get("library") else None
+        timed = c.get("timed", True)
+        ms, host_ms = cuda_ms(c["kernel"], 20) if timed else (None, None)
+        plain_ms = cuda_ms(c["plain"], 3)[0] if timed else None
+        library_ms = (cuda_ms(c["library"], 20)[0]
+                      if timed and c.get("library") else None)
         bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = c["ops"] / c.get("rate", SCALAR_OPS_PER_S) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         rows.append(dict(name=c["name"], route=c["route"],
                          source=c["source"], replaces=c["replaces"],
-                         max_abs_err=err, ms=ms,
+                         max_abs_err=err, ms=ms, host_ms=host_ms,
                          plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by="bytes" if bytes_ms >= ops_ms
                          else "operations", library_ms=library_ms,
                          bytes=c["bytes"], ops=c["ops"],
                          shape=c["shape"], tolerance=tol_text,
                          tolerance_share=share, **extra))
+        if c.get("design"):
+            rows[-1]["design"] = c["design"]
+        parts = ""
+        if timed and c.get("parts"):
+            rows[-1]["parts"] = {}
+            for name, fn in c["parts"].items():
+                p_ms, p_host = cuda_ms(fn, 20)
+                rows[-1]["parts"][name] = dict(ms=p_ms, host_ms=p_host)
+                parts += f"  {name} {p_ms:.4f} ms (host {p_host:.4f} ms)"
         lib = f"  library {library_ms:.4f} ms" if library_ms else ""
-        print(f"kernel {c['name']}: {c['shape']}  {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
-              f"({rows[-1]['bound_by']})  max_abs_err {err:.3g}, "
-              f"{share:.3g} of the tolerance ({tol_text})"
-              + "".join(f"  {k} {v:.3g}" for k, v in extra.items()),
-              flush=True)
+        times = (f"{ms:.4f} ms (host {host_ms:.4f} ms){parts}  plain "
+                 f"{plain_ms:.4f} ms{lib}" if timed else "untimed")
+        design = "".join(f"  {k} {v}" for k, v in
+                         c.get("design", {}).items())
+        print(f"kernel {c['name']}: {c['shape']}  {times}  bound "
+              f"{bound_ms:.4f} ms ({rows[-1]['bound_by']})  max_abs_err "
+              f"{err:.3g}, {share:.3g} of the tolerance ({tol_text})"
+              + "".join(f"  {k} {v:.3g}" for k, v in extra.items())
+              + design, flush=True)
         if share > 1:
             raise AssertionError(f"{c['name']} ({c['shape']}) disagrees "
                                  f"with its plain version (max abs err "
                                  f"{err}, {share:.3g} of the tolerance)")
         torch.cuda.empty_cache()
     return rows
+
+
+def main_rows(rows: list[dict]) -> list[dict]:
+    """One row per kernel, at its main-path shape (its first case); the
+    other shapes of a kernel go with it under "cases"."""
+    kernels = []
+    for r in rows:
+        first = next((k for k in kernels if k["name"] == r["name"]), None)
+        if first is None:
+            kernels.append(r)
+        else:
+            first.setdefault("cases", []).append(r)
+    return kernels
 
 
 def attention_case(randn, b, hq, hkv, sq, skv, d, dtype, causal, window,
@@ -566,25 +752,48 @@ def lm_kernel_cases(seed: int):
     return cases
 
 
+def graph_stores(dense_ops, edge_ops, dense_nodes: int, edge_nodes: int,
+                 e_cap: int, seed: int):
+    """Device stores built from the sessions' op streams, and the
+    sessions' query mixes: what ``kernel_cases`` takes."""
+    from repro_torch.core.store import TemporalGraphStore
+    stores = []
+    for ops, n, layout, cap in ((dense_ops, dense_nodes, "dense", None),
+                                (edge_ops, edge_nodes, "edge", e_cap)):
+        st = TemporalGraphStore(n, e_cap=cap, layout=layout, device="cuda")
+        st.ingest([(o.op, o.u, o.v, o.t) for o in ops])
+        st.advance_to(ops[-1].t)
+        stores.append(st)
+    return (*stores, query_mix(dense_ops[-1].t, dense_nodes, True, seed),
+            query_mix(edge_ops[-1].t, edge_nodes, False, seed))
+
+
 def first_call(seed: int) -> int:
     """A new kernel's first call on the card: build with ptxas's report
     of registers, shared memory and spills per kernel instance, hold
-    small cases of flash attention (bf16, every head dim and mask) and
-    the SSD scan (ragged chunk, nonzero state) against their plain
-    versions, and stop."""
+    every graph-kernel case at a small size (dense 2048 nodes, edge
+    8192: ragged tiles, per-query anchors, row_mask, several sweeps,
+    global nets) and small cases of flash attention (bf16, every head
+    dim and mask) and the SSD scan (ragged chunk, nonzero state) against
+    their plain versions, untimed but for the LM cases, and stop."""
     import torch
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.load(verbose=True)      # the wrappers' ext() then finds it built
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    cases = kernel_cases(*graph_stores(make_ops(2048, seed),
+                                       make_ops(8192, seed), 2048, 8192,
+                                       1 << 17, seed), seed)
+    for c in cases:
+        c["timed"] = False
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     bf16 = torch.bfloat16
-    cases = [attention_case(randn, *args) for args in (
+    cases += [attention_case(randn, *args) for args in (
         (1, 3, 1, 300, 300, 64, bf16, True, None, None),
         (2, 4, 2, 200, 200, 128, bf16, True, 96, None),
         (1, 2, 1, 130, 130, 256, bf16, True, None, None),
@@ -974,7 +1183,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.kernels import build
-        from repro_torch.core.store import TemporalGraphStore
     except ImportError as exc:
         return fail(f"the repository's port is not beside this script "
                     f"({exc})")
@@ -1000,33 +1208,16 @@ def main(argv=None) -> int:
 
     # phase 2 — stores built from the sessions' op streams
     t0 = time.perf_counter()
-    stores = []
-    for ops, n, layout, e_cap in ((dense_ops, args.dense_nodes, "dense",
-                                   None),
-                                  (edge_ops, args.edge_nodes, "edge",
-                                   args.edge_e_cap)):
-        st = TemporalGraphStore(n, e_cap=e_cap, layout=layout,
-                                device="cuda")
-        st.ingest([(o.op, o.u, o.v, o.t) for o in ops])
-        st.advance_to(ops[-1].t)
-        stores.append(st)
-    dense_q = query_mix(dense_ops[-1].t, args.dense_nodes, True, args.seed)
-    edge_q = query_mix(edge_ops[-1].t, args.edge_nodes, False, args.seed)
-    cases = kernel_cases(stores[0], stores[1], dense_q, edge_q)
-    kernels = phase_kernels(cases)
-    del cases, stores
+    cases = kernel_cases(*graph_stores(dense_ops, edge_ops, args.dense_nodes,
+                                       args.edge_nodes, args.edge_e_cap,
+                                       args.seed), args.seed)
+    rows = phase_kernels(cases)
+    del cases
     torch.cuda.empty_cache()
-    lm_rows = phase_kernels(lm_kernel_cases(args.seed))
+    rows += phase_kernels(lm_kernel_cases(args.seed))
     torch.cuda.empty_cache()
     phases["kernels_s"] = time.perf_counter() - t0
-    # one row per kernel, at its main-path shape; the other shapes of a
-    # kernel go with it under "cases"
-    for r in lm_rows:
-        first = next((k for k in kernels if k["name"] == r["name"]), None)
-        if first is None:
-            kernels.append(r)
-        else:
-            first.setdefault("cases", []).append(r)
+    kernels = main_rows(rows)
 
     # phases 3 and 4 — the main path, counters zeroed just before each
     dense = phase_session(
@@ -1059,10 +1250,13 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
         k["launches"] = sum(k["launches_by_run"].values())
-        print(f"kernel {k['name']}: {k['ms']:.4f} ms  plain "
+        print(f"kernel {k['name']}: {k['ms']:.4f} ms (host "
+              f"{k['host_ms']:.4f} ms)  plain "
               f"{k['plain_ms']:.4f} ms  bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})  launches {k['launches']} "
-              f"{k['launches_by_run']}", flush=True)
+              f"{k['launches_by_run']}"
+              + "".join(f"  {n} {v}" for n, v in k.get("design", {}).items()),
+              flush=True)
 
     report = dict(card=smi, torch=torch.__version__,
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,

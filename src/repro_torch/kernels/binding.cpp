@@ -23,10 +23,14 @@ int degree_series_launch(const void* deg_cur, const void* events,
                          const void* tile_start, void* out, void* scratch,
                          int n, int nb, long long stream);
 long long sweep_series_smem_bytes(int nb);
+int sweep_work_launch(const void* tile_start, void* work, int tiles,
+                      int n_rows, int chunk, long long stream);
 int sweep_series_launch(const void* deg0, const void* events,
-                        const void* tile_start, const void* t_lo,
-                        const void* t_last, void* out, void* scratch, int n,
-                        int nb, int stride, int n_queries, long long stream);
+                        const void* tile_start, void* work,
+                        const void* t_lo, const void* t_last, void* out,
+                        void* scratch, int n, int nb, int stride, int chunk,
+                        int tiles, int n_rows, int regions, int n_queries,
+                        long long stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int batch,
                            int hq, int hkv, int sq, int kv_len, int d,
@@ -88,17 +92,29 @@ void degree_series(torch::Tensor deg_cur, torch::Tensor events,
 }
 
 void sweep_series(torch::Tensor deg0, torch::Tensor events,
-                  torch::Tensor tile_start, torch::Tensor t_lo,
-                  torch::Tensor t_last, torch::Tensor out,
-                  torch::Tensor scratch, int64_t nb, int64_t stride,
+                  torch::Tensor tile_start, torch::Tensor work,
+                  torch::Tensor t_lo, torch::Tensor t_last,
+                  torch::Tensor out, torch::Tensor scratch, int64_t nb,
+                  int64_t stride, int64_t chunk, int64_t regions,
                   int64_t stream) {
   check(sweep_series_launch(deg0.data_ptr(), ptr_or_null(events),
-                            tile_start.data_ptr(), t_lo.data_ptr(),
-                            t_last.data_ptr(), out.data_ptr(),
+                            tile_start.data_ptr(), work.data_ptr(),
+                            t_lo.data_ptr(), t_last.data_ptr(),
+                            out.data_ptr(),
                             const_cast<void*>(ptr_or_null(scratch)),
                             (int)deg0.size(1), (int)nb, (int)stride,
+                            (int)chunk, (int)tile_start.numel() - 1,
+                            (int)work.size(0), (int)regions,
                             (int)t_lo.numel(), stream),
         "sweep_series");
+}
+
+void sweep_work(torch::Tensor tile_start, torch::Tensor work, int64_t chunk,
+                int64_t stream) {
+  check(sweep_work_launch(tile_start.data_ptr(), work.data_ptr(),
+                          (int)tile_start.numel() - 1, (int)work.size(0),
+                          (int)chunk, stream),
+        "sweep_work");
 }
 
 void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
@@ -142,6 +158,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("degree_series_smem_bytes", &degree_series_smem_bytes);
   m.def("sweep_series", &sweep_series);
   m.def("sweep_series_smem_bytes", &sweep_series_smem_bytes);
+  m.def("sweep_work", &sweep_work);
   m.def("flash_attention", &flash_attention);
   m.def("ssd_scan", &ssd_scan);
   m.def("ssd_scan_cb_stride", &ssd_scan_cb_stride);

@@ -2,6 +2,8 @@
 
 * ``sweep_series_ref`` — the plain-PyTorch version of the degree-sweep
   kernel (``sweep.cu``) on the same bucketed events.
+* ``sweep_work_ref`` — the plain version of the work list that
+  ``sweep.cu``'s first kernel derives from the bucketing.
 * ``evolve_ref`` — B independent point reconstructions + measures: the
   semantics ``batch_evolve`` must bit-match (what a client pays by
   issuing B point queries).
@@ -17,10 +19,13 @@ def sweep_series_ref(deg0: torch.Tensor, events: torch.Tensor,
                      tile_start: torch.Tensor, t_lo: torch.Tensor,
                      t_last: torch.Tensor, stride: int, num_buckets: int,
                      tile: int) -> torch.Tensor:
-    """i32[Q, B, N]: deg0(v) + Σ_{b' ≤ b} net[b', v] per sweep."""
+    """i32[Q, B, N]: deg0(v) + Σ_{b' ≤ b} net[b', v] per sweep, from
+    events ``[t, local node·2 + is_add]``."""
     q, n = deg0.shape
-    node = entry_tiles(tile_start) * tile + events[:, 0].to(torch.int64)
-    t = events[:, 1].to(torch.int64).view(1, -1)
+    code = events[:, 1]
+    node = entry_tiles(tile_start) * tile + (code >> 1).to(torch.int64)
+    sign = (code & 1) * 2 - 1
+    t = events[:, 0].to(torch.int64).view(1, -1)
     lo = t_lo.to(torch.int64).view(q, 1)
     win = (t > lo) & (t <= t_last.to(torch.int64).view(q, 1))
     k = torch.clamp((t - lo + stride - 1) // stride, 0, num_buckets - 1)
@@ -28,9 +33,37 @@ def sweep_series_ref(deg0: torch.Tensor, events: torch.Tensor,
             + k) * n + node.view(1, -1)
     net = torch.zeros((q * num_buckets * n,), dtype=torch.int32,
                       device=deg0.device)
-    net.index_add_(0, flat[win], events[:, 2].view(1, -1).expand_as(win)[win])
+    net.index_add_(0, flat[win], sign.view(1, -1).expand_as(win)[win])
     net = net.view(q, num_buckets, n)
     return deg0.view(q, 1, n) + torch.cumsum(net, 1, dtype=torch.int32)
+
+
+def sweep_work_ref(tile_start: torch.Tensor, n_events: int,
+                   chunk: int) -> torch.Tensor:
+    """i32[tiles + n_events // chunk, 4]: one row ``[tile, first event,
+    end, slot]`` per block, every tile's run of events cut into
+    ceil(count / chunk) chunks of near-equal size (one chunk for a tile
+    with none), in tile order.  ``slot`` numbers the tiles cut into
+    several chunks (-1 for a tile of one chunk).  The row count is the
+    most that ``n_events`` events can need; the rows past the real ones
+    are ``[-1, 0, 0, -1]``."""
+    ts = tile_start.to(torch.int64)
+    counts = ts[1:] - ts[:-1]
+    k = torch.clamp((counts + chunk - 1) // chunk, min=1)
+    ends = torch.cumsum(k, 0)
+    r = torch.arange(k.numel() + n_events // chunk, device=ts.device)
+    tile = torch.searchsorted(ends, r, right=True)
+    real = tile < k.numel()
+    tile = torch.clamp(tile, max=k.numel() - 1)
+    idx = r - (ends - k)[tile]
+    kt, ct, st = k[tile], counts[tile], ts[:-1][tile]
+    split = (k > 1).to(torch.int64)
+    slot = torch.where(kt > 1, (torch.cumsum(split, 0) - 1)[tile], -1)
+    rows = torch.stack([tile, st + idx * ct // kt,
+                        st + (idx + 1) * ct // kt, slot], 1)
+    pad = torch.tensor([-1, 0, 0, -1], device=ts.device)
+    return torch.where(real.unsqueeze(1), rows, pad).to(
+        torch.int32).contiguous()
 
 
 def evolve_ref(anchor, delta, t_anchor, t_lo, t_hi, stride: int,

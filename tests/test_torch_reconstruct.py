@@ -229,6 +229,40 @@ def test_bucket_ops_matches_jax_glue(wide, forward):
         assert np.array_equal(got, want), tid
 
 
+@pytest.fixture(scope="module")
+def ragged():
+    """N = 100: neither a multiple of the tile (64) nor of 16, so the
+    last tiles are partial and rows are not 16-byte aligned."""
+    st = build_store(90, PARAMS, seed=3, n_cap=100)
+    return st, st.delta(), port_delta(st.delta())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_delta_apply_ref_ragged_per_query_anchor_matches_jax(ragged,
+                                                             masked):
+    """One batched call with a per-query [Q, N, N] anchor, windows both
+    ways and (optionally) a per-query row_mask — the paths B1 takes
+    besides its main one — against JAX's reconstruction of each query
+    from its own anchor."""
+    st, d, td = ragged
+    n, tc = st.n_cap, st.t_cur
+    t_a = [tc // 2, tc // 2, tc // 4, tc]
+    t_q = [tc // 5, 3 * tc // 4, tc // 4, 1]      # back, fwd, empty, back
+    anchors = [R.reconstruct_dense(st.current, d, tc, t) for t in t_a]
+    rng = np.random.default_rng(5)
+    rms = rng.random((len(t_a), n)) < 0.1
+    rm = torch.from_numpy(rms) if masked else None
+    ents, starts = DA.bucket_ops(td, n, 1, tc)
+    out = DA.delta_apply_ref(
+        torch.stack([port_graph(a).adj for a in anchors]), ents, starts,
+        torch.tensor(t_a, dtype=torch.int32),
+        torch.tensor(t_q, dtype=torch.int32), rm, DA.TILE)
+    for i, (a, ta, tq) in enumerate(zip(anchors, t_a, t_q)):
+        kw = (dict(row_mask=jnp.asarray(rms[i]), restrict_rows=True)
+              if masked else {})
+        eq(R.reconstruct_dense(a, d, ta, tq, **kw).adj, out[i])
+
+
 def test_edge_delta_apply_ref_matches_jax(hist):
     st, d, td = hist
     ec = st.current_edge_snapshot()

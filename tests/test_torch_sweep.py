@@ -93,8 +93,9 @@ def test_sweep_series_plain_matches_jax_nets(hist):
 
 def test_bucket_sweep_events_match_jax_glue(hist):
     """The port's events are the jnp glue's, with the sample index left
-    to the kernel: computing it from the carried time gives the jnp
-    blocks' [node, sample, sign] rows in the same order."""
+    to the kernel: computing it from the carried time, and node and sign
+    from the packed ``local node·2 + is_add``, gives the jnp blocks'
+    [node, sample, sign] rows in the same order."""
     st, d, td = hist
     lo, last, stride, nb = 3, st.t_cur - 2, 3, 64
     blocks, overflow = j_bse(d, TS.TILE, lo, last, stride, nb, TS.TILE,
@@ -103,8 +104,8 @@ def test_bucket_sweep_events_match_jax_glue(hist):
     blk = np.asarray(blocks)[0]
     ev, _ = TS.bucket_sweep_events(td, st.n_cap, lo, last)
     ev = ev.numpy()
-    k = np.clip((ev[:, 1] - lo + stride - 1) // stride, 0, nb - 1)
-    got = np.stack([ev[:, 0], k, ev[:, 2]], 1)
+    k = np.clip((ev[:, 0] - lo + stride - 1) // stride, 0, nb - 1)
+    got = np.stack([ev[:, 1] >> 1, k, (ev[:, 1] & 1) * 2 - 1], 1)
     assert np.array_equal(got, blk[blk[:, 3] > 0][:, :3])
 
 
@@ -120,3 +121,178 @@ def test_evolve_ref_matches_jax(hist, layout):
         b = TS.evolve_ref(port_graph(anchor), td, st.t_cur, 2,
                           st.t_cur - 1, 4, measure, scope, v)
         eq(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The degree-sweep kernel's work list (sweep_work) and a model of sweep.cu
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide_sweep():
+    """Three node tiles (TILE = 256), the last one partial."""
+    st = build_store(600, PARAMS, seed=5, n_cap=640)
+    td = port_delta(st.delta())
+    ev, starts = TS.bucket_sweep_events(td, st.n_cap, 2, st.t_cur)
+    return st, td, ev, starts
+
+
+def _hub_delta(n_ops, n_cap, seed):
+    """Edge ops of which 9 in 10 touch one of four hub nodes: the hubs'
+    tile holds most events, as preferential attachment's first tile
+    does.  Signs alternate per op; the sweep glue and plain version do
+    not check legality."""
+    from repro.core.delta import delta_from_numpy as j_dfn
+
+    from repro_torch.core.delta import ADD_EDGE, REM_EDGE, delta_from_numpy
+    rng = np.random.default_rng(seed)
+    u = np.where(rng.random(n_ops) < 0.9, rng.integers(0, 4, n_ops),
+                 rng.integers(0, n_cap, n_ops)).astype(np.int32)
+    v = rng.integers(4, n_cap, n_ops).astype(np.int32)
+    op = np.where(np.arange(n_ops) % 3 == 2, REM_EDGE, ADD_EDGE).astype(
+        np.int32)
+    t = (1 + np.arange(n_ops) // 16).astype(np.int32)
+    slot = np.arange(n_ops, dtype=np.int32)
+    return (j_dfn(op, u, v, slot, t),
+            delta_from_numpy(op, u, v, slot, t, device="cpu"))
+
+
+def _check_work(rows, starts, n_events):
+    """Rows in tile order, each tile's run cut into contiguous chunks of
+    at most CHUNK events that cover it exactly once, the split tiles
+    numbered in order and within the wrapper's bound on them, then
+    surplus rows up to the bound on rows."""
+    rows = rows.numpy()
+    chunk = TS.sweep.CHUNK
+    ts = starts.numpy().astype(np.int64)
+    counts = np.diff(ts)
+    assert rows.shape == (counts.size + n_events // chunk, 4)
+    real = rows[:, 0] >= 0
+    n_real = int(real.sum())
+    assert real[:n_real].all()                            # surplus last
+    assert (rows[n_real:] == [-1, 0, 0, -1]).all()
+    rows = rows[real]
+    assert np.all(np.diff(rows[:, 0]) >= 0)               # tile order
+    assert np.all(rows[:, 2] - rows[:, 1] <= chunk)
+    split = 0
+    for tile in range(counts.size):
+        mine = rows[rows[:, 0] == tile]
+        assert len(mine) == max(1, -(-counts[tile] // chunk))
+        assert mine[0, 1] == ts[tile] and mine[-1, 2] == ts[tile + 1]
+        assert np.array_equal(mine[1:, 1], mine[:-1, 2])  # no gap, no overlap
+        if len(mine) > 1:
+            assert np.all(mine[:, 3] == split)
+            assert np.all(mine[:, 2] > mine[:, 1])        # none empty
+            split += 1
+        else:
+            assert mine[0, 3] == -1
+    assert split <= min(counts.size, n_events // (chunk + 1))
+    return split
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 100, TS.CHUNK])
+def test_sweep_work_covers_every_event_once(wide_sweep, chunk, monkeypatch):
+    _, _, ev, starts = wide_sweep
+    monkeypatch.setattr(TS.sweep, "CHUNK", chunk)
+    split = _check_work(TS.sweep_work(starts, ev.shape[0]), starts,
+                        ev.shape[0])
+    if chunk < int(np.diff(starts.numpy()).max()):
+        assert split > 0
+
+
+def test_sweep_work_splits_a_hub_tile():
+    """A store whose four hubs hold most events: at the kernel's own
+    chunk size their tile takes several blocks, none past CHUNK, and
+    the plain version over those events still equals JAX's nets."""
+    n_cap, n_ops = 1024, 12000
+    jd, td = _hub_delta(n_ops, n_cap, seed=3)
+    ev, starts = TS.bucket_sweep_events(td, n_cap, 0, n_ops)
+    counts = np.diff(starts.numpy())
+    assert counts[0] > TS.CHUNK
+    work = TS.sweep_work(starts, ev.shape[0])
+    assert _check_work(work, starts, ev.shape[0]) == 1
+    rows = work.numpy()
+    assert (rows[:, 0] == 0).sum() > 1 and rows[0, 3] == 0
+    lo, last, stride, nb = 3, 600, 10, 64
+    deg0 = torch.zeros((1, n_cap), dtype=torch.int32)
+    out = TS.sweep_series_ref(deg0, ev, starts, torch.tensor([lo]),
+                              torch.tensor([last]), stride, nb, TS.TILE)
+    nets = JO.sweep_nets(jd, lo, last, stride, nb, n_cap)[0]
+    eq(np.cumsum(np.asarray(nets), 0, dtype=np.int32), out[0])
+
+
+def _wrap32(x):
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _kernel_model(deg0, ev, starts, t_lo, t_last, stride, nb, rows):
+    """sweep.cu block by block, in numpy: each work row adds its events
+    into a net packed two samples to an int32 word (while B/2 × 256 ×
+    4 bytes fit in 226 KB) or into an int32 net, a split tile's chunks
+    are summed into one global net and the block that brings the
+    tile's event counter to its count runs the running sum from deg0;
+    surplus rows do nothing."""
+    q, n = deg0.shape
+    tile_n = TS.TILE
+    packed = (nb + 1) // 2 * tile_n * 4 <= 226 * 1024
+    e = ev.numpy().astype(np.int64)
+    out = np.zeros((q, nb, n), np.int64)
+    for qi in range(q):
+        lo, last = int(t_lo[qi]), int(t_last[qi])
+        gnet, seen = {}, {}
+        for tile, j0, j1, slot in rows.numpy():
+            if tile < 0:
+                continue
+            t, code = e[j0:j1, 0], e[j0:j1, 1]
+            win = (t > lo) & (t <= last)
+            k = np.clip((t[win] - lo + stride - 1) // stride, 0, nb - 1)
+            node = code[win] >> 1
+            sign = np.where(code[win] & 1, 1, -1)
+            if packed:
+                words = np.zeros(((nb + 1) // 2, tile_n), np.int64)
+                np.add.at(words, (k >> 1, node),
+                          np.where(k & 1, sign * 65536, sign))
+                words = _wrap32(words)
+                low = ((words & 0xffff) ^ 0x8000) - 0x8000
+                net = np.stack([low, (words - low) >> 16], 1).reshape(
+                    -1, tile_n)[:nb]
+            else:
+                net = np.zeros((nb, tile_n), np.int64)
+                np.add.at(net, (k, node), sign)
+            if slot >= 0:
+                gnet[tile] = gnet.get(tile, 0) + net
+                seen[tile] = seen.get(tile, 0) + (j1 - j0)
+                if seen[tile] != starts[tile + 1] - starts[tile]:
+                    continue
+                net = gnet[tile]
+            cols = slice(tile * tile_n, min(n, (tile + 1) * tile_n))
+            w = cols.stop - cols.start
+            out[qi, :, cols] = (deg0[qi, cols].numpy().astype(np.int64)
+                                + np.cumsum(net[:, :w], 0))
+    return _wrap32(out).astype(np.int32)
+
+
+@pytest.mark.parametrize("nb", [64, 5, 512], ids=["packed", "odd", "global"])
+@pytest.mark.parametrize("chunk", [50, TS.CHUNK])
+def test_kernel_model_matches_plain(wide_sweep, nb, chunk, monkeypatch):
+    """The kernel's algorithm (chunks, packed nets, the global combine)
+    equals JAX's nets summed from deg0 for three sweeps of different
+    windows: a record of why the packed halves and the chunked combine
+    are exact.  It models sweep.cu and does not run it; the card's
+    bit-exact check in chip_smoke.py holds the CUDA code itself."""
+    st, _, ev, starts = wide_sweep
+    rng = np.random.default_rng(nb)
+    deg0 = rng.integers(0, 9, (3, st.n_cap)).astype(np.int32)
+    tc = st.t_cur
+    t_lo = np.array([2, tc // 3, tc // 2], np.int32)
+    stride = 2
+    t_last = t_lo + np.array([nb, 9, 1], np.int32) * stride
+    monkeypatch.setattr(TS.sweep, "CHUNK", chunk)
+    rows = TS.sweep_work(starts, ev.shape[0])
+    got = _kernel_model(torch.from_numpy(deg0), ev, starts.numpy(), t_lo,
+                        t_last, stride, nb, rows)
+    for qi in range(3):
+        nets = JO.sweep_nets(st.delta(), int(t_lo[qi]), int(t_last[qi]),
+                             stride, nb, st.n_cap)[0]
+        eq(got[qi], deg0[qi] + np.cumsum(np.asarray(nets), 0,
+                                         dtype=np.int32))
