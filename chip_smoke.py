@@ -20,21 +20,24 @@ Phases, in order (any failure exits non-zero):
    launches it with and compare with the plain version: the four graph
    kernels on the sessions' own data, bit for bit, and, untimed, the
    other paths of dense LWW reconstruction (per-query anchors and
-   windows both ways, a ``row_mask``, N = 1000 and 1008) and of the
-   degree sweep (four windows, the dense session's N, B = 512 with the
-   nets in global memory), the kernel lines carrying the counts the
-   two designs turn on; flash attention (at
-   the smollm-360m prefill shape, plus head dims 128 / 256, and a
-   sliding window and a kv_len-padded non-causal case with ragged Sq,
-   each in float32 and bf16) and the SSD scan (at the mamba2-130m
-   prefill shape, output and final state, from a zero state and
-   continuing a cache) on seeded random inputs, within the tolerance
-   printed.  Each main case is timed (CUDA events, behind a device
-   sleep that covers the host's launches; the host's own time per call
-   beside it) beside its bound, the plain version and, for attention,
-   PyTorch's ``scaled_dot_product_attention`` as the library
-   yardstick; the degree sweep's work list, which its launch derives
-   on the card, is held against its plain version and timed alone;
+   windows both ways, a ``row_mask``, N = 1000 and 1008), of edge-slot
+   LWW reconstruction (per-query anchors and windows both ways, the
+   dense session's slot layout, a ragged E), of the hybrid degree
+   series (B = 512 with the nets in global memory, a ragged N) and of
+   the degree sweep (four windows, the dense session's N, B = 512), the
+   kernel lines carrying the counts the designs turn on; flash
+   attention (at the smollm-360m prefill shape, plus head dims 128 /
+   256, and a sliding window and a kv_len-padded non-causal case with
+   ragged Sq, each in float32 and bf16) and the SSD scan (at the
+   mamba2-130m prefill shape, output and final state, from a zero
+   state and continuing a cache) on seeded random inputs, within the
+   tolerance printed.  Each main case is timed (CUDA events, behind a
+   device sleep that covers the host's launches; the host's own time
+   per call beside it) beside its bound, the plain version and, for
+   attention, PyTorch's ``scaled_dot_product_attention`` as the
+   library yardstick; edge-slot LWW is timed at one query too; the
+   series' work list, which their blocks derive on the card, is held
+   against its plain version;
 3. dense session — ``GraphSession(n_cap=8192, layout="dense")`` ingests
    the paper's Table 3 evolution parameters in several flushed batches,
    then a mixed ``query_many`` (point / diff / agg, node and global,
@@ -56,9 +59,11 @@ fresh forward over prompt + generated tokens (bf16 tolerance printed),
 and the same model in float32 on the card and on the CPU (one prompt of
 256 tokens, 32 decode steps) must give close logits and the same greedy
 tokens.  For mamba2 the float32 run is repeated on the card with the
-plain chunked scan in the kernel's place, and phase 2 reads the SSD
-scan and its plain version against a float64 scan: the two witnesses
-of where the float32 card–CPU gap comes from.
+plain chunked scan in the kernel's place, the float32 card and CPU
+models are read output by output (embeddings, each layer, logits)
+against a float64 copy of the same weights, and phase 2 reads the SSD
+scan and its plain version against a float64 scan: the witnesses of
+where the float32 card–CPU gap comes from.
 
 The second-to-last line is ``{"kernels": [...], "phases": {...}}``; the
 last is ``{"ok": true, "device": {...}}``.  Details go to
@@ -101,12 +106,14 @@ BF16_FIRST_STEP_RTOL = 2.0 ** -4
 BF16_DECODE_RTOL = 2.0 ** -2
 # float32 card against float32 CPU: max |Δ logit| / max |logit| over
 # the prefill and 32 decode steps; the sums run in other orders on the
-# two devices (TF32 stays off).  mamba2 reads ~2.7e-4 with the SSD
-# kernel and about the same with the plain chunked scan in its place on
-# the card (the witness run below), so the gap is the float32 SSM's own
-# sensitivity to summation order, not the kernel's: the SSM family gets
-# a looser bound than the dense one (~2e-6).
-F32_CARD_CPU_RTOL = {"dense": 1e-4, "ssm": 1e-3}
+# two devices (TF32 stays off).  Read on an H100 80GB HBM3 at 700 W:
+# smollm-360m 2.4e-6, mamba2-130m 3.9e-5.  mamba2 read 3.1e-4 while the
+# CPU's chunked scan formed its in-chunk cumsums in float32: against a
+# float64 copy of the model (``float64_drift``) the CPU then sat 8-28x
+# farther from float64 than the card, whose kernel forms them in
+# float64, at every layer; with the plain scan forming them in float64
+# too, card and CPU sit within 0.7-1.8x of each other, layer by layer.
+F32_CARD_CPU_RTOL = 1e-4
 PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
                     events_per_unit=8)      # paper Table 3
 
@@ -257,28 +264,67 @@ def delta_apply_design(ent, tst, ta, tq) -> dict:
                 tile_queries_without_window_entry=sum(empty))
 
 
+def edge_delta_apply_design(ent, tst, ta, tq) -> dict:
+    """What B2's design is about, from the bucketing: entries per
+    512-slot tile, the warps that share a tile (one per query, up to
+    four), the blocks (8 warps each) and the entries of the heaviest,
+    and, per query, the tiles with no entry in its window (their warp
+    writes the anchor straight out)."""
+    import torch
+
+    from repro_torch.kernels.delta_apply.ref import entry_tiles
+    from repro_torch.kernels.edge_delta_apply import WARPS
+    counts = (tst[1:] - tst[:-1]).to(torch.int64)
+    tiles = counts.numel()
+    q = tq.numel()
+    groups = 4 if q >= 4 else (2 if q >= 2 else 1)
+    per_block = WARPS // groups
+    blocks = -(-tiles // per_block)
+    per_block_entries = torch.zeros(blocks * per_block, dtype=torch.int64,
+                                    device=counts.device)
+    per_block_entries[:tiles] = counts
+    per_block_entries = per_block_entries.view(blocks, per_block).sum(1)
+    t = ent[:, 0].view(1, -1)
+    win = ((t > torch.minimum(ta, tq).view(-1, 1))
+           & (t <= torch.maximum(ta, tq).view(-1, 1)))
+    per = torch.zeros((win.shape[0], tiles), dtype=torch.int64,
+                      device=ent.device)
+    per.index_add_(1, entry_tiles(tst), win.to(torch.int64))
+    empty = (per == 0).sum(1).tolist()
+    return dict(tiles=tiles,
+                entries_per_tile_mean=float(counts.double().mean()),
+                entries_per_tile_max=int(counts.max()),
+                warps_per_tile=groups, blocks=blocks,
+                heaviest_block_entries=int(per_block_entries.max()),
+                blocks_without_entry=int((per_block_entries == 0).sum()),
+                tiles_without_window_entry=empty,
+                tile_queries_without_window_entry=sum(empty))
+
+
 def sweep_design(tst, n_events: int) -> dict:
-    """What B4's design is about, from the bucketing and the work list
-    the kernel derives from it: events per 256-node tile, the blocks
-    they were cut into (``rows_per_query`` counts the surplus rows of
-    the list too, whose blocks exit at once).  On the card the list is
-    the work kernel's, held bit for bit against its plain version."""
+    """What B4's and B3's design is about, from the bucketing and the
+    work list their kernel's blocks derive from it: events per 256-node
+    tile, the blocks they were cut into (``rows_per_query`` counts the
+    surplus rows of the list too, whose blocks exit at once).  On the
+    card the list is the work kernel's (the code the blocks run to find
+    their rows), held bit for bit against its plain version."""
     import torch
 
     from repro_torch.kernels.evolve_sweep import sweep, sweep_work_ref
     counts = (tst[1:] - tst[:-1]).to(torch.int64)
     rows = sweep.sweep_work(tst, n_events)
     if not torch.equal(rows, sweep_work_ref(tst, n_events, sweep.CHUNK)):
-        raise AssertionError("sweep_series's work list disagrees with "
+        raise AssertionError("the series' work list disagrees with "
                              "its plain version")
     real = rows[rows[:, 0] >= 0]
+    split = real[real[:, 3] >= 0, 0]
     sizes = (real[:, 2] - real[:, 1]).to(torch.int64)
     return dict(tiles=counts.numel(),
                 events_per_tile_mean=float(counts.double().mean()),
                 events_per_tile_max=int(counts.max()), chunk=sweep.CHUNK,
                 blocks_per_query=int(sizes.numel()),
                 rows_per_query=rows.shape[0],
-                split_tiles=int(real[:, 3].max()) + 1,   # slots from 0
+                split_tiles=int(torch.unique(split).numel()),
                 heaviest_block_events=int(sizes.max()))
 
 
@@ -296,7 +342,6 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
                                               reconstruct_edge_many,
                                               window_of)
     from repro_torch.kernels.degree_series import (TILE as DS_TILE,
-                                                   bucket_node_events,
                                                    degree_series_kernel,
                                                    degree_series_ref)
     from repro_torch.kernels.delta_apply import (TILE as DA_TILE,
@@ -308,8 +353,7 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     from repro_torch.kernels.evolve_sweep import (TILE as SW_TILE,
                                                   bucket_sweep_events,
                                                   sweep_series,
-                                                  sweep_series_ref,
-                                                  sweep_work)
+                                                  sweep_series_ref)
     from repro_torch.kernels.evolve_sweep.ops import _start_state
 
     dev = dense_store.device
@@ -353,8 +397,49 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
             bytes=nbytes(deg0, ev, tst, t_lo, t_last) + q * nb * n * 4,
             ops=in_window(ev[:, 0], t_lo, t_last) + q * nb * n,
             timed=timed, design=sweep_design(tst, ev.shape[0]),
-            parts={"work_list": lambda: sweep_work(tst, ev.shape[0])},
             shape=f"Q={q} B={nb} N={n} events={ev.shape[0]}{what}")
+
+    def b2_case(anchor, d, ta, tq, timed=False, one_query=False, what=""):
+        e = anchor.shape[-1]
+        ent, tst = bucket_slot_ops(d, e, *window_of(ta, tq))
+        q = tq.numel()
+        lo, hi = torch.minimum(ta, tq), torch.maximum(ta, tq)
+        # the same buckets at Q = 1: does the time still scale with Q?
+        parts = ({"one_query": lambda: edge_delta_apply(
+            anchor if anchor.dim() == 1 else anchor[:1], ent, tst, ta[:1],
+            tq[:1])} if one_query else None)
+        return dict(
+            name="edge_delta_apply", route="cuda",
+            source="src/repro_torch/kernels/edge_delta_apply/"
+                   "edge_delta_apply.cu",
+            replaces="src/repro/kernels/edge_delta_apply/"
+                     "edge_delta_apply.py:53",
+            kernel=lambda: edge_delta_apply(anchor, ent, tst, ta, tq),
+            plain=lambda: edge_delta_apply_ref(anchor, ent, tst, ta, tq,
+                                               EA_TILE),
+            # the anchor (shared, or one per query), entries, tile starts
+            # and times read once; Q outputs written once
+            bytes=nbytes(anchor, ent, tst, ta, tq) + q * e,
+            ops=in_window(ent[:, 0], lo, hi) + q * e, timed=timed,
+            design=edge_delta_apply_design(ent, tst, ta, tq), parts=parts,
+            shape=f"Q={q} E={e} entries={ent.shape[0]}"
+                  f"{' per-query anchors' if anchor.dim() == 2 else ''}"
+                  f"{what}")
+
+    def b3_case(deg_cur, d, t_k, nb, timed=False, what=""):
+        n = deg_cur.shape[0]
+        ev, tst = bucket_sweep_events(d, n, t_k)
+        return dict(
+            name="degree_series", route="cuda",
+            source="src/repro_torch/kernels/degree_series/degree_series.cu",
+            replaces="src/repro/kernels/degree_series/degree_series.py:57",
+            kernel=lambda: degree_series_kernel(deg_cur, ev, tst, t_k, nb),
+            plain=lambda: degree_series_ref(deg_cur, ev, tst, t_k, nb,
+                                            DS_TILE),
+            bytes=nbytes(deg_cur, ev, tst) + nb * n * 4,
+            ops=int((ev[:, 0] > t_k).sum()) + nb * n, timed=timed,
+            design=sweep_design(tst, ev.shape[0]),
+            shape=f"B={nb} N={n} events={ev.shape[0]}{what}")
 
     # B1: a dense two-phase point group (the dense-only global measures)
     ts = sorted({q["t_k"] for q, _ in dense_q
@@ -374,21 +459,7 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     ta2 = torch.full_like(tq2, t_cur_e)
     d = edge_store.delta_view().window_delta(min(ts2), t_cur_e)
     cur = edge_store.current_edge_snapshot()
-    e = cur.e_cap
-    ent2, tst2 = bucket_slot_ops(d, e, *window_of(ta2, tq2))
-    cases.append(dict(
-        name="edge_delta_apply", route="cuda",
-        source="src/repro_torch/kernels/edge_delta_apply/"
-               "edge_delta_apply.cu",
-        replaces="src/repro/kernels/edge_delta_apply/"
-                 "edge_delta_apply.py:53",
-        kernel=lambda: edge_delta_apply(cur.emask, ent2, tst2, ta2, tq2),
-        plain=lambda: edge_delta_apply_ref(cur.emask, ent2, tst2, ta2, tq2,
-                                           EA_TILE),
-        bytes=nbytes(cur.emask, ent2, tst2, ta2, tq2) + len(ts2) * e,
-        ops=in_window(ent2[:, 1], torch.minimum(ta2, tq2),
-                      torch.maximum(ta2, tq2)) + len(ts2) * e,
-        timed=True, shape=f"Q={len(ts2)} E={e} entries={ent2.shape[0]}"))
+    cases.append(b2_case(cur.emask, d, ta2, tq2, timed=True, one_query=True))
 
     # B3: the hybrid agg group's shared degree series
     aggs = [q for q, _ in edge_q if q["kind"] == "agg"
@@ -396,18 +467,8 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     t0 = min(q["t_k"] for q in aggs)
     w_total = 1 << (max(q["t_l"] for q in aggs) - t0).bit_length()
     d3 = edge_store.delta_view().window_delta(t0, None)
-    nn = cur.n_cap
-    ev3, ts3 = bucket_node_events(d3, nn, t0, w_total)
     deg = cur.degrees()
-    cases.append(dict(
-        name="degree_series", route="cuda",
-        source="src/repro_torch/kernels/degree_series/degree_series.cu",
-        replaces="src/repro/kernels/degree_series/degree_series.py:57",
-        kernel=lambda: degree_series_kernel(deg, ev3, ts3, w_total),
-        plain=lambda: degree_series_ref(deg, ev3, ts3, w_total, DS_TILE),
-        bytes=nbytes(deg, ev3, ts3) + w_total * nn * 4,
-        ops=ev3.shape[0] + w_total * nn, timed=True,
-        shape=f"B={w_total} N={nn} events={ev3.shape[0]}"))
+    cases.append(b3_case(deg, d3, t0, w_total, timed=True))
 
     # B4: a sweep group's degree series (the session's degree sweep)
     def sweep_start(store, cur_g, t_los, dense):
@@ -480,6 +541,48 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     d4s = dense_store.delta_view().window_delta(lo_d, dense_store.t_cur)
     cases.append(b4_case(deg0s, d4s, t_lo_s, i32([500]), stride_s, 512,
                          what=" global nets"))
+
+    # --- B2's other paths ---
+    # per-query anchors (the agg-diff path) with windows both ways
+    ta_q = i32(ts2[1:4])
+    tq_q = i32([ts2[0], ts2[4], t_cur_e])          # back, forward, forward
+    d2 = edge_store.delta_view().window_delta(1, t_cur_e)
+    anchors2 = edge_delta_apply_ref(
+        cur.emask, *bucket_slot_ops(d2, cur.e_cap, ts2[1], t_cur_e),
+        torch.full_like(ta_q, t_cur_e), ta_q, EA_TILE)
+    cases.append(b2_case(anchors2, d2, ta_q, tq_q,
+                         what=", windows both ways"))
+    # the dense session's slot layout (its registered slots, e_cap a
+    # power of two), at its point-query times
+    dts = sorted({q["t_k"] for q, _ in dense_q if q["kind"] == "point"})
+    dcur_e = dense_store.current_edge_snapshot()
+    cases.append(b2_case(
+        dcur_e.emask, dense_store.delta_view().window_delta(min(dts), t_cur),
+        torch.full((len(dts),), t_cur, dtype=torch.int32, device=dev),
+        i32(dts), what=" (dense session)"))
+    # a ragged E (not a multiple of 16, of the tile or of the block's
+    # 4096 slots), a shared anchor at an earlier time, windows both ways
+    e_r = cur.e_cap // 2 + 4099
+    t_mid = ts2[2]
+    anchor_r = edge_delta_apply_ref(
+        cur.emask, *bucket_slot_ops(d2, cur.e_cap, t_mid, t_cur_e),
+        i32([t_cur_e]), i32([t_mid]), EA_TILE)[0, :e_r].contiguous()
+    cases.append(b2_case(anchor_r, d2, torch.full((3,), t_mid,
+                                                  dtype=torch.int32,
+                                                  device=dev),
+                         i32([ts2[0], ts2[4], t_cur_e]), what=" ragged"))
+
+    # --- B3's other paths ---
+    # B = 512: the packed net past 226 KB of shared memory, every tile's
+    # net in global scratch (the dense session's N)
+    t_k_s = max(1, dense_store.t_cur - 500)
+    cases.append(b3_case(dense_store.current.degrees(),
+                         dense_store.delta_view().window_delta(t_k_s, None),
+                         t_k_s, 512, what=" global nets"))
+    # a ragged N (the last node tile partial)
+    n_r = cur.n_cap - 100
+    cases.append(b3_case(deg[:n_r].contiguous(), d3, t0, w_total,
+                         what=" ragged"))
     return cases
 
 
@@ -968,6 +1071,50 @@ def profile_device(fn, top: int = 8) -> dict:
                         for e in events[:top]])
 
 
+def layer_outputs(model, cfg, tokens) -> list:
+    """(name, float64 copy) of the embeddings, every layer's output and
+    the logits of one forward over ``tokens``, as ``models/lm.py``'s
+    ``forward`` computes them."""
+    import torch
+
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import apply_norm, embed, unembed
+    outs = []
+    with torch.no_grad():
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = embed(model.embed, tokens.long(), cfg, positions=pos)
+        outs.append(("embed", x.cpu().double()))
+        for i, g in enumerate(model.groups):
+            x, _ = blocks.apply_group(g, x, cfg, positions=pos.int())
+            outs.append((f"layer {i}", x.cpu().double()))
+        x = apply_norm(model.final_norm, x, cfg.norm_kind)
+        outs.append(("logits", unembed(model.embed, x, cfg).cpu().double()))
+    return outs
+
+
+def float64_drift(cpu, card, cfg, tokens) -> list[dict]:
+    """Where the float32 card and the float32 CPU part: both read
+    against a float64 copy of the same weights on the CPU, output by
+    output (embeddings, each layer, logits), as max |Δ| / max |ref|.
+    Side by side, the two distances show which device's path drifts
+    from float64, and from which layer on."""
+    import copy
+
+    ref = copy.deepcopy(cpu).double()
+    want = layer_outputs(ref, cfg, tokens)
+    del ref
+    got_card = layer_outputs(card, cfg, tokens.cuda())
+    got_cpu = layer_outputs(cpu, cfg, tokens)
+    rows = []
+    for (name, w), (_, a), (_, b) in zip(want, got_card, got_cpu):
+        scale = float(w.abs().max().clamp_min(1e-300))
+        rows.append(dict(output=name,
+                         card=float((a - w).abs().max()) / scale,
+                         cpu=float((b - w).abs().max()) / scale,
+                         card_cpu=float((a - b).abs().max()) / scale))
+    return rows
+
+
 def lm_config(arch: str, layers: int):
     import dataclasses
 
@@ -1112,11 +1259,11 @@ def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
     f32_launches = build.LAUNCHES[kernel]
     g_cpu, s_cpu, _ = greedy(api, cpu, cfg, toks, CHECK_DECODE, cap)
     f32_rel = max(_rel_err(a.cpu(), b) for a, b in zip(s_card, s_cpu))
-    f32_tol = F32_CARD_CPU_RTOL[cfg.family]
+    f32_tol = F32_CARD_CPU_RTOL
     same = bool(torch.equal(g_card.cpu(), g_cpu))
     f32_s = time.perf_counter() - t0
     witness = ""
-    plain_rel = None
+    plain_rel = drift = None
     if cfg.family == "ssm":
         # witness: the same float32 run on the card with the plain
         # chunked scan (the CPU's path) in the kernel's place
@@ -1131,6 +1278,12 @@ def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
         plain_rel = max(_rel_err(a.cpu(), b) for a, b in zip(s_plain, s_cpu))
         witness = (f"; with the plain chunked scan on the card instead of "
                    f"the kernel: rel err {plain_rel:.3g}")
+        drift = float64_drift(cpu, card, cfg, toks)
+        print(f"{arch}: float32 against a float64 copy on the CPU, prompt "
+              f"{CHECK_PROMPT}, max|Δ|/max|ref| card / CPU (card vs CPU): "
+              + ", ".join(f"{r['output']} {r['card']:.3g} / {r['cpu']:.3g}"
+                          f" ({r['card_cpu']:.3g})" for r in drift),
+              flush=True)
     print(f"{arch}: float32 card vs CPU, prompt {CHECK_PROMPT} + "
           f"{CHECK_DECODE} steps: rel err {f32_rel:.3g} (tolerance "
           f"{f32_tol:.3g}), greedy tokens identical: {same} "
@@ -1154,7 +1307,7 @@ def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
                 decode_rel_err_by_step=step_rel,
                 profile_prefill=prof_prefill, profile_decode8=prof_decode,
                 greedy_agreement=greedy_same, f32_rel_err=f32_rel,
-                f32_plain_scan_rel_err=plain_rel,
+                f32_plain_scan_rel_err=plain_rel, f32_float64_drift=drift,
                 f32_greedy_identical=same, f32_check_s=f32_s,
                 generated=gen[0].tolist())
 

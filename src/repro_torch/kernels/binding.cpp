@@ -18,18 +18,17 @@ int edge_delta_apply_launch(const void* entries, const void* tile_start,
                             void* out, const void* t_anchor,
                             const void* t_query, int e_cap, int n_queries,
                             long long stream);
-long long degree_series_smem_bytes(int nb);
 int degree_series_launch(const void* deg_cur, const void* events,
-                         const void* tile_start, void* out, void* scratch,
-                         int n, int nb, long long stream);
-long long sweep_series_smem_bytes(int nb);
+                         const void* tile_start, int t_k, void* out,
+                         void* nets, void* sync, int n, int nb, int chunk,
+                         int tiles, int n_rows, long long stream);
 int sweep_work_launch(const void* tile_start, void* work, int tiles,
                       int n_rows, int chunk, long long stream);
 int sweep_series_launch(const void* deg0, const void* events,
-                        const void* tile_start, void* work,
-                        const void* t_lo, const void* t_last, void* out,
-                        void* scratch, int n, int nb, int stride, int chunk,
-                        int tiles, int n_rows, int regions, int n_queries,
+                        const void* tile_start, const void* t_lo,
+                        const void* t_last, void* out, void* nets,
+                        void* sync, int n, int nb, int stride, int chunk,
+                        int tiles, int n_rows, int n_queries,
                         long long stream);
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* strides, int batch,
@@ -82,30 +81,33 @@ void edge_delta_apply(torch::Tensor entries, torch::Tensor tile_start,
 }
 
 void degree_series(torch::Tensor deg_cur, torch::Tensor events,
-                   torch::Tensor tile_start, torch::Tensor out,
-                   torch::Tensor scratch, int64_t nb, int64_t stream) {
+                   torch::Tensor tile_start, int64_t t_k, torch::Tensor out,
+                   torch::Tensor nets, torch::Tensor sync, int64_t nb,
+                   int64_t chunk, int64_t n_rows, int64_t stream) {
   check(degree_series_launch(deg_cur.data_ptr(), ptr_or_null(events),
-                             tile_start.data_ptr(), out.data_ptr(),
-                             const_cast<void*>(ptr_or_null(scratch)),
-                             (int)deg_cur.numel(), (int)nb, stream),
+                             tile_start.data_ptr(), (int)t_k, out.data_ptr(),
+                             const_cast<void*>(ptr_or_null(nets)),
+                             const_cast<void*>(ptr_or_null(sync)),
+                             (int)deg_cur.numel(), (int)nb, (int)chunk,
+                             (int)tile_start.numel() - 1, (int)n_rows,
+                             stream),
         "degree_series");
 }
 
 void sweep_series(torch::Tensor deg0, torch::Tensor events,
-                  torch::Tensor tile_start, torch::Tensor work,
-                  torch::Tensor t_lo, torch::Tensor t_last,
-                  torch::Tensor out, torch::Tensor scratch, int64_t nb,
-                  int64_t stride, int64_t chunk, int64_t regions,
+                  torch::Tensor tile_start, torch::Tensor t_lo,
+                  torch::Tensor t_last, torch::Tensor out,
+                  torch::Tensor nets, torch::Tensor sync, int64_t nb,
+                  int64_t stride, int64_t chunk, int64_t n_rows,
                   int64_t stream) {
   check(sweep_series_launch(deg0.data_ptr(), ptr_or_null(events),
-                            tile_start.data_ptr(), work.data_ptr(),
-                            t_lo.data_ptr(), t_last.data_ptr(),
-                            out.data_ptr(),
-                            const_cast<void*>(ptr_or_null(scratch)),
+                            tile_start.data_ptr(), t_lo.data_ptr(),
+                            t_last.data_ptr(), out.data_ptr(),
+                            const_cast<void*>(ptr_or_null(nets)),
+                            const_cast<void*>(ptr_or_null(sync)),
                             (int)deg0.size(1), (int)nb, (int)stride,
                             (int)chunk, (int)tile_start.numel() - 1,
-                            (int)work.size(0), (int)regions,
-                            (int)t_lo.numel(), stream),
+                            (int)n_rows, (int)t_lo.numel(), stream),
         "sweep_series");
 }
 
@@ -155,9 +157,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("delta_apply", &delta_apply);
   m.def("edge_delta_apply", &edge_delta_apply);
   m.def("degree_series", &degree_series);
-  m.def("degree_series_smem_bytes", &degree_series_smem_bytes);
   m.def("sweep_series", &sweep_series);
-  m.def("sweep_series_smem_bytes", &sweep_series_smem_bytes);
   m.def("sweep_work", &sweep_work);
   m.def("flash_attention", &flash_attention);
   m.def("ssd_scan", &ssd_scan);

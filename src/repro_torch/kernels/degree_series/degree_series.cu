@@ -1,94 +1,54 @@
 // Hybrid-plan degree time series: every node's degree at each time unit
-// t_k + b, b in [0, B), from the current degrees and the window's edge
-// ops (paper §3.2.3, evaluated for all nodes at once).
+// t_k + b, b in [0, B), from the current degrees and the edge ops after
+// t_k (paper §3.2.3, evaluated for all nodes at once) — the backward
+// twin of the forward degree sweep (../evolve_sweep/sweep.cu).
 //
 // Replaces: repro/kernels/degree_series/degree_series.py::
 // degree_series_tiles (Pallas body ``_kernel``; glue
 // ``ops.py::bucket_node_events``).
 //
-// What it computes.  Each in-suffix edge op (t > t_k) gives a signed
+// What it computes.  Each edge op after t_k (t > t_k) gives a signed
 // event (+1 add, -1 remove) to both endpoints at bucket
-// clip(t - t_k, 0, B) — bucket B is the virtual tail for ops past the
+// min(t - t_k, B) — bucket B is the virtual tail for ops past the
 // window.  Then
 //   deg(v, t_k + b) = deg_cur(v) - sum_{b' > b} net[b', v].
+// Written with k = b' - 1 in [0, B), that is series.cuh's backward
+// series at stride 1: out[b] = deg_cur - sum_{k >= b} net[k].
 //
-// Design.  The plain-PyTorch glue buckets events by node tile (no cap).
-// One block per tile of TN nodes: the (B+1) x TN int32 net array lives
-// in shared memory while it fits in the 227 KB a block may use
-// (B <= 225 at TN = 256), else in global scratch the wrapper allocates.
-// Events are atomicAdd'ed into it (integer adds commute, so arrival
-// order does not matter); then one thread per node column runs the
-// reverse running sum and writes the B outputs, coalesced along nodes.
+// What bounds it on the H100.  Bytes: the B·N·4-byte int32 output, N·4
+// of current degrees and 8 bytes per event, each read once.  At
+// N = 131072, B = 16 and 1.24 M events that is 18.8 MB, 5.6 µs at
+// 3.35 TB/s.  The events are skewed twice: preferential attachment
+// puts the hubs in node tile 0 (60,714 events, 25× the mean), and at
+// that shape all but 0.03 % of them land in the tail bucket B, where a
+// hub's events hit one address.
 //
-// What bounds it on the H100.  Bytes: the B·N·4-byte int32 output, plus
-// N·4 of degrees and 16 bytes per event.  At N = 8192 and B = 64 that
-// is 2 MiB — under a microsecond of HBM time, so launch latency bounds
-// it at the main path's shapes.
+// Design: B4's (sweep.cu), run backward, from the one copy of the code
+// in ../evolve_sweep/series.cuh.  The glue is the sweep's
+// bucket_sweep_events with no upper time bound: events {t, local
+// node·2 + is_add} by 256-node tile; the bucket is computed in the
+// kernel, only for events that passed the t > t_k test (the T_PAD
+// guard, by construction).  One kernel: each block finds its own row
+// of the work list, which cuts each tile's events into chunks of at
+// most CHUNK (8,192; tile 0 becomes 8 blocks at the main shape); a
+// block adds its events into a packed shared-memory net (two buckets a
+// word: B = 16 takes 8 KB), a single-chunk tile runs the reverse
+// running sum from deg_cur, and split tiles combine through global
+// atomics and the last block's reverse running sum.  B > 452 keeps
+// every tile's net in global memory, as the sweep does.
+// Launch: one kernel, 663 blocks at the main shape (529 real; tile 0's
+// seven extra chunks first), 256 threads, at most 64 registers, 8 KB of
+// dynamic shared memory at B = 16.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "../evolve_sweep/series.cuh"
 
-namespace {
-
-constexpr int TN = 256;         // nodes per tile == threads per block
-
-__global__ void degree_series_kernel(const int* __restrict__ deg_cur,
-                                     const int4* __restrict__ events,
-                                     const int* __restrict__ tile_start,
-                                     int* __restrict__ out,
-                                     int* __restrict__ scratch, int n,
-                                     int nb) {
-  extern __shared__ int smem_net[];
-  const int tile = blockIdx.x;
-  const int rows = nb + 1;
-  int* net = scratch ? scratch + (long long)tile * rows * TN : smem_net;
-
-  for (int i = threadIdx.x; i < rows * TN; i += blockDim.x) net[i] = 0;
-  __syncthreads();
-
-  const int s = tile_start[tile];
-  const int e = tile_start[tile + 1];
-  for (int j = s + threadIdx.x; j < e; j += blockDim.x) {
-    const int4 ev = events[j];          // {local node, bucket, sign, 0}
-    atomicAdd(&net[ev.y * TN + ev.x], ev.z);
-  }
-  __syncthreads();
-
-  const int col = threadIdx.x;
-  const int node = tile * TN + col;
-  if (node >= n) return;
-  const int d = deg_cur[node];
-  int acc = 0;
-  for (int b = nb - 1; b >= 0; --b) {
-    acc += net[(b + 1) * TN + col];
-    out[(long long)b * n + node] = d - acc;
-  }
-}
-
-}  // namespace
-
-// Bytes of shared memory the net array needs; 0 when it must go to
-// global scratch (the wrapper then passes a scratch buffer).
-long long degree_series_smem_bytes(int nb) {
-  const long long bytes = (long long)(nb + 1) * TN * 4;
-  return bytes <= 227 * 1024 ? bytes : 0;
-}
-
+// One series (a single query): t_k as the window's lower end, no upper
+// end; the same arguments as sweep_series_launch otherwise.
 int degree_series_launch(const void* deg_cur, const void* events,
-                         const void* tile_start, void* out, void* scratch,
-                         int n, int nb, long long stream) {
-  const int tiles = (n + TN - 1) / TN;
-  if (tiles <= 0 || nb <= 0) return (int)cudaSuccess;
-  const long long smem = scratch ? 0 : degree_series_smem_bytes(nb);
-  if (!scratch && smem == 0) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        degree_series_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  degree_series_kernel<<<tiles, TN, smem, (cudaStream_t)stream>>>(
-      (const int*)deg_cur, (const int4*)events, (const int*)tile_start,
-      (int*)out, (int*)scratch, n, nb);
-  return (int)cudaGetLastError();
+                         const void* tile_start, int t_k, void* out,
+                         void* nets, void* sync, int n, int nb, int chunk,
+                         int tiles, int n_rows, long long stream) {
+  return series_launch<true>(deg_cur, events, tile_start, nullptr, nullptr,
+                             t_k, 0x7fffffff, out, nets, sync, n, nb, 1,
+                             chunk, tiles, n_rows, 1, stream);
 }

@@ -1,6 +1,7 @@
-from repro_torch.kernels.edge_delta_apply.ops import (TILE, bucket_slot_ops,
+from repro_torch.kernels.edge_delta_apply.ops import (TILE, WARPS,
+                                                      bucket_slot_ops,
                                                       edge_delta_apply)
 from repro_torch.kernels.edge_delta_apply.ref import edge_delta_apply_ref
 
-__all__ = ["TILE", "bucket_slot_ops", "edge_delta_apply",
+__all__ = ["TILE", "WARPS", "bucket_slot_ops", "edge_delta_apply",
            "edge_delta_apply_ref"]

@@ -10,14 +10,19 @@ from repro_torch.core.delta import ADD_EDGE, Delta
 from repro_torch.kernels import build
 from repro_torch.kernels.edge_delta_apply.ref import edge_delta_apply_ref
 
-TILE = 4096   # == TS in edge_delta_apply.cu
+TILE = 512   # slots a warp resolves (== WS in edge_delta_apply.cu)
+WARPS = 8    # tiles a block (== WARPS in edge_delta_apply.cu)
 
 
 def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None):
-    """Bucket the delta's edge ops by slot tile: ONE entry per op,
-    i32 ``[local slot, t, key, 0]`` with ``key = 2·rank + (op ==
-    addEdge)``, ordered by tile and by rank within a tile.  No per-tile
-    cap.  Returns (entries i32[E', 4], tile_start i32[T + 1])."""
+    """Bucket the delta's edge ops by tile of TILE slots: ONE entry per
+    op, i32 ``[t, local slot·2 + (op == addEdge)]``, ordered by tile and
+    within a tile by time, then rank (for the store's time-ordered log,
+    rank order).  An entry's position j then orders the ops of one slot
+    as their ranks do, so the kernel's key ``2·j + is_add`` decides
+    last-writer-wins as ``2·rank + is_add`` would, and every window
+    holds one contiguous run of a tile's entries.  No per-tile cap.
+    Returns (entries i32[E', 2], tile_start i32[T + 1])."""
     keep = delta.valid_mask() & delta.is_edge_op() & (delta.slot < e)
     if t_lo is not None:
         keep &= delta.t > int(t_lo)
@@ -25,14 +30,16 @@ def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None):
         keep &= delta.t <= int(t_hi)
     idx = torch.nonzero(keep).flatten()
     slot = delta.slot[idx].to(torch.int64)
-    key = idx * 2 + (delta.op[idx] == ADD_EDGE).to(torch.int64)
+    t = delta.t[idx].to(torch.int64)
     tiles = -(-e // TILE)
     tile_id = slot // TILE
-    order = torch.argsort(tile_id, stable=True)
+    # (tile, time) in one int64 key; the stable sort keeps rank order
+    # among equal keys
+    order = torch.argsort((tile_id << 32) + (t + 2 ** 31), stable=True)
     tile_start = torch.searchsorted(
         tile_id[order], torch.arange(tiles + 1, device=slot.device))
-    entries = torch.stack([slot % TILE, delta.t[idx].to(torch.int64), key,
-                           torch.zeros_like(slot)], 1)
+    code = (slot % TILE) * 2 + (delta.op[idx] == ADD_EDGE).to(torch.int64)
+    entries = torch.stack([t, code], 1)
     return (entries[order].to(torch.int32).contiguous(),
             tile_start.to(torch.int32))
 
@@ -57,7 +64,7 @@ def edge_delta_apply(anchor_emask: torch.Tensor, entries: torch.Tensor,
     build.check_cuda("tile_start", tile_start, torch.int32, 1)
     build.check_cuda("t_anchor", t_anchor, torch.int32, 1)
     build.check_cuda("t_query", t_query, torch.int32, 1)
-    if entries.shape[1] != 4 or tile_start.numel() != -(-e // TILE) + 1:
+    if entries.shape[1] != 2 or tile_start.numel() != -(-e // TILE) + 1:
         raise ValueError("entries/tile_start do not match the tiling")
     if t_anchor.numel() != q:
         raise ValueError("t_anchor and t_query differ in length")

@@ -28,8 +28,6 @@ from repro_torch.core.delta import ADD_EDGE, ADD_NODE, NOP, Delta
 from repro_torch.core.graph import EdgeGraph
 from repro_torch.core.queries import (DEGREE_DIST_BINS, _avg_degree,
                                       _degree_histogram, _density)
-from repro_torch.core.reconstruct import (as_times, reconstruct_dense_many,
-                                          reconstruct_edge_many)
 from repro_torch.kernels.evolve_sweep.sweep import (bucket_sweep_events,
                                                     sweep_series)
 
@@ -152,6 +150,11 @@ def batch_evolve(anchor, d_rec: Delta, d_net: Delta, t_anchor, t_los,
     [Q, num_buckets, bins] for degree_distribution.  Samples past a
     query's width repeat its last state — callers slice ``[:width]``.
     """
+    # imported here: core.reconstruct imports this package (the hybrid
+    # series shares the sweep's glue and kernel code)
+    from repro_torch.core.reconstruct import (as_times,
+                                              reconstruct_dense_many,
+                                              reconstruct_edge_many)
     dev = anchor.device
     n_cap = anchor.n_cap
     t_lo = as_times(t_los, None, dev)

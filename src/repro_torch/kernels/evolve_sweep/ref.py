@@ -40,27 +40,33 @@ def sweep_series_ref(deg0: torch.Tensor, events: torch.Tensor,
 
 def sweep_work_ref(tile_start: torch.Tensor, n_events: int,
                    chunk: int) -> torch.Tensor:
-    """i32[tiles + n_events // chunk, 4]: one row ``[tile, first event,
+    """i32[n_events // chunk + tiles, 4]: one row ``[tile, first event,
     end, slot]`` per block, every tile's run of events cut into
     ceil(count / chunk) chunks of near-equal size (one chunk for a tile
-    with none), in tile order.  ``slot`` numbers the tiles cut into
-    several chunks (-1 for a tile of one chunk).  The row count is the
-    most that ``n_events`` events can need; the rows past the real ones
-    are ``[-1, 0, 0, -1]``."""
+    with none).  The first n_events // chunk rows, as many as the event
+    count can need, are the chunks past the first of the tiles cut into
+    several, in tile and chunk order, then surplus rows ``[-1, 0, 0,
+    -1]``; the last ``tiles`` rows are the tiles' first chunks.
+    ``slot`` is the tile for a tile of several chunks, -1 for one of a
+    single chunk."""
     ts = tile_start.to(torch.int64)
     counts = ts[1:] - ts[:-1]
+    tiles = counts.numel()
     k = torch.clamp((counts + chunk - 1) // chunk, min=1)
-    ends = torch.cumsum(k, 0)
-    r = torch.arange(k.numel() + n_events // chunk, device=ts.device)
-    tile = torch.searchsorted(ends, r, right=True)
-    real = tile < k.numel()
-    tile = torch.clamp(tile, max=k.numel() - 1)
-    idx = r - (ends - k)[tile]
+    ends = torch.cumsum(k - 1, 0)                  # extra chunks so far
+    x = torch.arange(n_events // chunk, device=ts.device)
+    tile_x = torch.searchsorted(ends, x, right=True)
+    real = torch.cat([tile_x < tiles,
+                      torch.ones(tiles, dtype=torch.bool, device=ts.device)])
+    tile_x = torch.clamp(tile_x, max=tiles - 1)
+    tile = torch.cat([tile_x, torch.arange(tiles, device=ts.device)])
+    idx = torch.cat([x - (ends - (k - 1))[tile_x] + 1,
+                     torch.zeros(tiles, dtype=torch.int64,
+                                 device=ts.device)])
     kt, ct, st = k[tile], counts[tile], ts[:-1][tile]
-    split = (k > 1).to(torch.int64)
-    slot = torch.where(kt > 1, (torch.cumsum(split, 0) - 1)[tile], -1)
     rows = torch.stack([tile, st + idx * ct // kt,
-                        st + (idx + 1) * ct // kt, slot], 1)
+                        st + (idx + 1) * ct // kt,
+                        torch.where(kt > 1, tile, -1)], 1)
     pad = torch.tensor([-1, 0, 0, -1], device=ts.device)
     return torch.where(real.unsqueeze(1), rows, pad).to(
         torch.int32).contiguous()

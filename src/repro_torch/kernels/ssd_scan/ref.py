@@ -5,7 +5,8 @@ JAX package's names; they live here, beside the kernel, so that the
 kernel package needs nothing of the model package.
 
 Shapes: x [b, s, nh, P]; dt [b, s, nh]; a [nh]; B, C [b, s, N] (one
-group); state [b, nh, P, N].  Everything float32.
+group); state [b, nh, P, N].  Everything float32 (or, for a float64
+reference, everything float64).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ def ssd_sequential(x, dt, a, B, C, state0=None):
     final state [b, nh, P, N]."""
     b, s, nh, p = x.shape
     n = B.shape[-1]
-    h = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((b, nh, p, n), dtype=x.dtype, device=x.device)
          if state0 is None else state0)
     ys = []
     for t in range(s):
@@ -43,8 +44,16 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, state0=None):
     Bc = B.reshape(b, nc, q, n)
     Cc = C.reshape(b, nc, q, n)
 
-    ad = dtc * a[None, None, None, :]              # [b,nc,q,nh] (≤0)
-    cum = torch.cumsum(ad, dim=2)                  # within-chunk cumsum
+    # a·dt, its within-chunk cumsum and every exponent formed from it in
+    # float64, each rounded to the input's type once before the exp, as
+    # ssd_scan.cu forms them: float32 cums lose most of cum_i − cum_j's
+    # digits to cancellation (cum reaches −10^3 at mamba2-130m), which
+    # dominated the float32 scan's error
+    cum = torch.cumsum(dtc.double() * a.double()[None, None, None, :],
+                       dim=2)                      # [b,nc,q,nh] (≤0)
+
+    def exp(t):
+        return torch.exp(t.to(x.dtype))
 
     # intra-chunk: y_ij = C_i·B_j · exp(cum_i − cum_j) · dt_j · x_j, j ≤ i
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)   # [b,nc,q,q]
@@ -52,19 +61,19 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, state0=None):
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                 device=x.device))[None, None, :, :, None]
     # mask BEFORE exp: upper-triangle seg is positive-large
-    decay = torch.exp(torch.where(tri, seg, 0.0)) * tri
+    decay = exp(torch.where(tri, seg, 0.0)) * tri
     lmat = cb[..., None] * decay                   # [b,nc,i,j,nh]
     dx = dtc[..., None] * xc                       # [b,nc,q,nh,p]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", lmat, dx)
 
     # chunk states: S_c = Σ_j exp(cum_last − cum_j) dt_j x_j ⊗ B_j
     last = cum[:, :, -1:, :]                       # [b,nc,1,nh]
-    decay_to_end = torch.exp(last - cum)           # [b,nc,q,nh]
+    decay_to_end = exp(last - cum)                 # [b,nc,q,nh]
     sc = torch.einsum("bcjh,bcjhp,bcjn->bchpn", decay_to_end * dtc, xc, Bc)
 
     # inter-chunk recurrence over the nc chunks
-    chunk_decay = torch.exp(last[:, :, 0, :])      # [b,nc,nh]
-    h = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    chunk_decay = exp(last[:, :, 0, :])            # [b,nc,nh]
+    h = (torch.zeros((b, nh, p, n), dtype=x.dtype, device=x.device)
          if state0 is None else state0)
     h_ins = []                                     # state entering chunk
     for c in range(nc):
@@ -75,6 +84,6 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, state0=None):
     # carried state: exp(cum_i) · C_i · h_in (the scale is applied after
     # the sum over N, so no [b,nc,q,nh,p,N] temporary is formed)
     y_inter = (torch.einsum("bcin,bchpn->bcihp", Cc, h_in)
-               * torch.exp(cum)[..., None])
+               * exp(cum)[..., None])
     y = (y_intra + y_inter).reshape(b, s, nh, p)
     return y, h

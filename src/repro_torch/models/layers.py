@@ -46,17 +46,24 @@ def init_norm(cfg: ModelConfig, dtype, device) -> nn.Module:
     return params_module(**p)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 where it is float64: the steps
+    that compute in float32 keep a float64 copy of a model (the
+    reference its float32 runs are read against) in float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def apply_norm(p: nn.Module, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = at_least_f32(x)
     if kind == "rms":
         y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-        return (y * p.scale.float()).to(x.dtype)
+        return (y * p.scale.to(xf.dtype)).to(x.dtype)
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     if kind == "ln":
-        y = y * p.scale.float() + p.bias.float()
+        y = y * p.scale.to(xf.dtype) + p.bias.to(xf.dtype)
     return y.to(x.dtype)
 
 
@@ -151,7 +158,7 @@ def unembed(p: nn.Module, x: torch.Tensor,
     """Logits in float32: the product runs in the param dtype and is
     cast afterwards, as in the JAX package."""
     w = p.unembed if hasattr(p, "unembed") else p.tok.T
-    logits = (x @ w).float()
+    logits = at_least_f32(x @ w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

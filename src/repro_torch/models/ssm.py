@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_sequential
-from repro_torch.models.layers import _normal, params_module
+from repro_torch.models.layers import _normal, at_least_f32, params_module
 
 __all__ = ["SSMCache", "apply_ssm", "decode_ssm", "init_ssm",
            "init_ssm_cache", "ssd_chunked", "ssd_sequential"]
@@ -92,7 +92,7 @@ def _causal_conv(xbc, conv_w, prev=None):
 def _gated_norm(y, z, scale, dtype):
     """Mamba2's gated RMSNorm: norm(y · silu(z)) · scale."""
     y = y * F.silu(z)
-    yf = y.float()
+    yf = at_least_f32(y)
     return (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
             ).to(dtype) * scale
 
@@ -110,7 +110,7 @@ def apply_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     xs = conv_out[..., :d_in].reshape(b, s, nh, pd)
     Bs = conv_out[..., d_in:d_in + n]
     Cs = conv_out[..., d_in + n:]
-    dt = F.softplus(dt.float() + p.dt_bias[None, None])
+    dt = F.softplus(at_least_f32(dt) + p.dt_bias[None, None])
     a = -torch.exp(p.A_log)
 
     state0 = None if cache is None else cache.state
@@ -119,14 +119,14 @@ def apply_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     q = min(cfg.ssm_chunk, s) if s % min(cfg.ssm_chunk, s) == 0 \
         else cfg.ssm_chunk
     pad = (-s) % q
-    xsf = F.pad(xs.float(), (0, 0, 0, 0, 0, pad))
+    xsf = F.pad(at_least_f32(xs), (0, 0, 0, 0, 0, pad))
     dtp = F.pad(dt, (0, 0, 0, pad))
-    Bp = F.pad(Bs.float(), (0, 0, 0, pad))
-    Cp = F.pad(Cs.float(), (0, 0, 0, pad))
+    Bp = F.pad(at_least_f32(Bs), (0, 0, 0, pad))
+    Cp = F.pad(at_least_f32(Cs), (0, 0, 0, pad))
     y, h = ssd_scan(*(t.contiguous() for t in (xsf, dtp, a, Bp, Cp)), q,
                     state0)
     y = y[:, :s]
-    y = y + p.D[None, None, :, None] * xs.float()
+    y = y + p.D[None, None, :, None] * at_least_f32(xs)
     y = _gated_norm(y.reshape(b, s, d_in).to(x.dtype), z, p.norm_scale,
                     x.dtype)
     out = y @ p.out_proj
@@ -148,15 +148,15 @@ def decode_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     xs = conv_out[..., :d_in].reshape(b, 1, nh, pd)[:, 0]
     Bs = conv_out[:, 0, d_in:d_in + n]
     Cs = conv_out[:, 0, d_in + n:]
-    dt = F.softplus(dt.float() + p.dt_bias[None, None])[:, 0]   # [b, nh]
+    dt = F.softplus(at_least_f32(dt) + p.dt_bias[None, None])[:, 0]
     a = -torch.exp(p.A_log)
 
     decay = torch.exp(dt * a[None, :])[..., None, None]
-    upd = (dt[..., None, None] * xs.float()[..., None]
-           * Bs.float()[:, None, None, :])
+    upd = (dt[..., None, None] * at_least_f32(xs)[..., None]
+           * at_least_f32(Bs)[:, None, None, :])
     h = cache.state * decay + upd
-    y = torch.einsum("bhpn,bn->bhp", h, Cs.float())
-    y = y + p.D[None, :, None] * xs.float()
+    y = torch.einsum("bhpn,bn->bhp", h, at_least_f32(Cs))
+    y = y + p.D[None, :, None] * at_least_f32(xs)
     y = _gated_norm(y.reshape(b, 1, d_in).to(x.dtype), z, p.norm_scale,
                     x.dtype)
     cache.conv, cache.state = conv_state, h

@@ -106,4 +106,70 @@ def test_sweep_design_counts_match_work_list(small_store, monkeypatch):
     assert got["blocks_per_query"] == real.shape[0] > 2
     assert got["rows_per_query"] == rows.shape[0] >= real.shape[0]
     assert got["heaviest_block_events"] == int(sizes.max()) <= 64
-    assert got["split_tiles"] == int(real[:, 3].max()) + 1 == 2
+    split = real[real[:, 3] >= 0]
+    assert torch.equal(split[:, 3], split[:, 0])      # a split tile's slot
+    assert got["split_tiles"] == int(torch.unique(split[:, 0]).numel()) == 2
+
+
+def test_edge_delta_apply_design_counts_match_bucket_slot_ops(small_store):
+    """B2's counts: tiles, entries per tile and per block (two tiles of
+    four warps at four queries) from the bucketing, and per query the
+    tiles that a bucketing of that query's window alone leaves empty.
+    The slot space is twice the registry, as an edge store's e_cap
+    outgrows its registered slots: the second half's blocks hold no
+    entry."""
+    from repro_torch.core.reconstruct import window_of
+    from repro_torch.kernels.edge_delta_apply import (TILE, WARPS,
+                                                      bucket_slot_ops)
+    st = small_store
+    tc = st.t_cur
+    e = 2 * st.current_edge_snapshot().e_cap
+    tq = torch.tensor([tc // 5, tc // 2, tc - 1, tc], dtype=torch.int32)
+    ta = torch.tensor([tc, tc, tc // 3, tc], dtype=torch.int32)
+    d = st.delta_view().window_delta(1, tc)
+    ent, tst = bucket_slot_ops(d, e, *window_of(ta, tq))
+    got = chip_smoke.edge_delta_apply_design(ent, tst, ta, tq)
+    counts = (tst[1:] - tst[:-1]).tolist()
+    assert got["tiles"] == len(counts) == -(-e // TILE) > WARPS
+    assert got["entries_per_tile_max"] == max(counts)
+    assert got["entries_per_tile_mean"] == sum(counts) / len(counts)
+    # four queries: four warps a tile, two tiles a block
+    assert got["warps_per_tile"] == 4
+    per_block = [sum(counts[b:b + WARPS // 4])
+                 for b in range(0, len(counts), WARPS // 4)]
+    assert got["blocks"] == len(per_block) == -(-len(counts) // 2)
+    assert got["heaviest_block_entries"] == max(per_block)
+    assert got["blocks_without_entry"] == per_block.count(0) >= 4
+    want = []
+    for a, q in zip(ta.tolist(), tq.tolist()):
+        _, one = bucket_slot_ops(d, e, min(a, q), max(a, q))
+        want.append(int(((one[1:] - one[:-1]) == 0).sum()))
+    assert got["tiles_without_window_entry"] == want
+    assert want[3] == len(counts) and got[
+        "tile_queries_without_window_entry"] == sum(want)
+
+
+def test_degree_series_design_counts_match_work_list(small_store,
+                                                     monkeypatch):
+    """B3's counts come from the sweep's work list over the series'
+    events (no upper time bound): a tile past CHUNK is split, and no
+    block walks more than CHUNK events."""
+    from repro_torch.kernels.evolve_sweep import (bucket_sweep_events,
+                                                  sweep, sweep_work)
+    st = small_store
+    t_k = st.t_cur // 4
+    ev, tst = bucket_sweep_events(st.delta_view().window_delta(t_k, None),
+                                  st.n_cap, t_k)
+    counts = (tst[1:] - tst[:-1]).to(torch.int64)
+    assert int((ev[:, 0] > t_k).sum()) == ev.shape[0] == int(counts.sum())
+    monkeypatch.setattr(sweep, "CHUNK", 100)
+    rows = sweep_work(tst, ev.shape[0])
+    got = chip_smoke.sweep_design(tst, ev.shape[0])
+    real = rows[rows[:, 0] >= 0]
+    sizes = real[:, 2] - real[:, 1]
+    assert got["tiles"] == counts.numel() == 2
+    assert got["events_per_tile_max"] == int(counts.max()) > 100
+    assert got["blocks_per_query"] == real.shape[0] == int(
+        torch.clamp((counts + 99) // 100, min=1).sum())
+    assert got["heaviest_block_events"] == int(sizes.max()) <= 100
+    assert got["split_tiles"] == int((counts > 100).sum())

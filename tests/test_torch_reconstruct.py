@@ -29,6 +29,7 @@ from repro_torch.core.graph import DenseGraph, EdgeGraph  # noqa: E402
 from repro_torch.kernels import degree_series as DS  # noqa: E402
 from repro_torch.kernels import delta_apply as DA  # noqa: E402
 from repro_torch.kernels import edge_delta_apply as EA  # noqa: E402
+from repro_torch.kernels.evolve_sweep import bucket_sweep_events  # noqa: E402,E501
 
 PARAMS = EvolutionParams(m_attach=3, lam_extra=1.0, lam_remove=1.5,
                          p_remove_node=0.03, events_per_unit=5)
@@ -275,29 +276,129 @@ def test_edge_delta_apply_ref_matches_jax(hist):
         torch.tensor(ts, dtype=torch.int32), EA.TILE)
     for i, t in enumerate(ts):
         eq(j_ear(ec, d, st.t_cur, t).emask, out[i])
-    # glue: one tile (E < TILE) — entries in rank order == jnp blocks
+    # glue: one tile (E = TILE) — the entries [t, local slot·2 + is_add]
+    # in rank order == the jnp blocks' [local slot, is_add] rows, and
+    # their times are the window's ops' times in delta order
     t_lo, t_hi = 2, st.t_cur - 3
     blocks, overflow = j_bso(d, EA.TILE, t_lo, t_hi, EA.TILE, 2048, True)
     assert not bool(overflow)
     blk = np.asarray(blocks)[0]
     ents, starts = EA.bucket_slot_ops(td, EA.TILE, t_lo, t_hi)
     ents = ents.numpy()
-    got = np.stack([ents[:, 0], ents[:, 2] & 1], 1)
+    got = np.stack([ents[:, 1] >> 1, ents[:, 1] & 1], 1)
     assert np.array_equal(got, blk[blk[:, 2] > 0][:, :2])
+    dt, dslot = np.asarray(d.t), np.asarray(d.slot)
+    win = ((dt > t_lo) & (dt <= t_hi) & (dslot < EA.TILE)
+           & np.asarray(d.is_edge_op() & d.valid_mask()))
+    assert np.array_equal(ents[:, 0], dt[win])
+    assert list(starts.numpy()) == [0, len(ents)]
+
+
+@pytest.fixture(scope="module")
+def slots():
+    """A store whose slot registry spans several 512-slot tiles (more
+    than one block of eight)."""
+    st = build_store(1200, PARAMS, seed=6, n_cap=1280)
+    ec = st.current_edge_snapshot()
+    assert ec.e_cap > 8 * EA.TILE
+    return st, st.delta(), port_delta(st.delta()), ec
+
+
+def _edge_kernel_model(anchor, ents, starts, t_a, t_q, e):
+    """edge_delta_apply.cu warp by warp, in numpy: each 512-slot tile is
+    one warp's, its entries ordered by time, and for every query the
+    warp finds the run [a, b) of its tile's entries in the window by two
+    searches on t; with an empty run it writes the anchor, else it
+    keeps, per slot, the max (forward) or min (backward) positional key
+    2·j + is_add of the run and writes the key's add bit (forward) or
+    its complement (backward) where a key was kept.  ``anchor`` is [E]
+    or [Q, E]."""
+    q, tile = len(t_q), EA.TILE
+    anchors = np.broadcast_to(anchor, (q, e))
+    out = np.zeros((q, e), bool)
+    for w in range(len(starts) - 1):
+        j0, j1 = starts[w], starts[w + 1]
+        t, code = ents[j0:j1, 0], ents[j0:j1, 1]
+        key = 2 * np.arange(j0, j1) + (code & 1)
+        cols = slice(w * tile, min(e, (w + 1) * tile))
+        for qi in range(q):
+            word = anchors[qi, cols].copy()
+            fwd = t_q[qi] >= t_a[qi]
+            lo, hi = min(t_a[qi], t_q[qi]), max(t_a[qi], t_q[qi])
+            assert np.all(t[1:] >= t[:-1])                # time order
+            a, b = np.searchsorted(t, [lo, hi], side="right")
+            hit = np.zeros(t.size, bool)
+            hit[a:b] = True                               # the run
+            assert np.array_equal(hit, (t > lo) & (t <= hi))
+            if a < b:
+                init = -1 if fwd else 2 ** 31 - 1
+                dec = np.full(tile, init, np.int64)
+                (np.maximum if fwd else np.minimum).at(
+                    dec, code[hit] >> 1, key[hit])
+                dec = dec[:word.size]
+                val = (dec & 1) == (1 if fwd else 0)
+                word = np.where(dec != init, val, word)
+            out[qi, cols] = word
+    return out
+
+
+@pytest.mark.parametrize("shared", [True, False],
+                         ids=["shared-anchor", "per-query-anchors"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_edge_kernel_model_matches_jax(slots, shared, ragged):
+    """B2's blocking — one pass per warp tile serving every query of the
+    launch, forward and backward windows mixed, keys by position in the
+    bucketed array, a shared or per-query anchor, E ragged or not —
+    equals JAX's reconstruction of each query from its own anchor: the
+    record of why positional keys decide LWW as ranks do.  It models
+    edge_delta_apply.cu and does not run it; chip_smoke.py holds the
+    CUDA code itself bit for bit."""
+    st, d, td, ec = slots
+    tc = st.t_cur
+    e = ec.e_cap - 37 if ragged else ec.e_cap       # 37: not a multiple
+    if shared:                                      # of 16 or the tile
+        t_a = [tc // 2] * 4
+    else:
+        t_a = [tc // 2, tc // 3, tc, tc // 4]
+    t_q = [tc // 5, 3 * tc // 4, 1, tc // 4]       # back/fwd/back/empty
+    anchors = [R.reconstruct_edge(ec, d, tc, t) for t in sorted(set(t_a))]
+    by_t = dict(zip(sorted(set(t_a)), anchors))
+    a_np = np.stack([np.asarray(by_t[t].emask)[:e] for t in t_a])
+    ents, starts = EA.bucket_slot_ops(td, e, 1, tc)
+    ents, starts = ents.numpy().astype(np.int64), starts.numpy()
+    assert len(starts) - 1 == -(-e // EA.TILE)
+    got = _edge_kernel_model(a_np[0] if shared else a_np, ents, starts,
+                             t_a, t_q, e)
+    for i, (ta, tq) in enumerate(zip(t_a, t_q)):
+        eq(np.asarray(R.reconstruct_edge(by_t[ta], d, ta, tq).emask)[:e],
+           got[i])
+    # the plain version reads the same entries the same way
+    anchor_t = torch.from_numpy(a_np[0] if shared else a_np)
+    plain = EA.edge_delta_apply_ref(
+        anchor_t, torch.from_numpy(ents.astype(np.int32)),
+        torch.from_numpy(starts), torch.tensor(t_a, dtype=torch.int32),
+        torch.tensor(t_q, dtype=torch.int32), EA.TILE)
+    eq(got, plain)
 
 
 def test_degree_series_ref_matches_jax(hist):
     st, d, td = hist
     tcur = port_graph(st.current)
     t_k, nb = st.t_cur // 3, 8
-    ev, starts = DS.bucket_node_events(td, tcur.n_cap, t_k, nb)
-    out = DS.degree_series_ref(tcur.degrees(), ev, starts, nb, DS.TILE)
+    ev, starts = bucket_sweep_events(td, tcur.n_cap, t_k)
+    out = DS.degree_series_ref(tcur.degrees(), ev, starts, t_k, nb, DS.TILE)
     eq(j_dsr(st.current, d, t_k, st.t_cur, nb), out)
-    # glue: the jnp events of the (single) node tile, in order
+    # glue: the sweep's events [t, local node·2 + is_add] with no upper
+    # bound, their bucket min(t − t_k, B) computed as the kernel does,
+    # give the jnp events [node, bucket, sign] of the (single) node
+    # tile, in the same order
     blocks, overflow = j_bne(d, DS.TILE, t_k, nb, DS.TILE, 2048)
     assert not bool(overflow)
     blk = np.asarray(blocks)[0]
-    assert np.array_equal(ev.numpy()[:, :3], blk[blk[:, 3] > 0][:, :3])
+    e = ev.numpy()
+    got = np.stack([e[:, 1] >> 1, np.minimum(e[:, 0] - t_k, nb),
+                    (e[:, 1] & 1) * 2 - 1], 1)
+    assert np.array_equal(got, blk[blk[:, 3] > 0][:, :3])
 
 
 # ---------------------------------------------------------------------------

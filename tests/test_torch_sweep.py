@@ -15,6 +15,7 @@ from repro.core.generate import EvolutionParams, build_store  # noqa: E402
 from repro.kernels.evolve_sweep import ops as JO  # noqa: E402
 from repro.kernels.evolve_sweep.ref import evolve_ref as j_evolve_ref  # noqa: E402,E501
 from repro.kernels.evolve_sweep.sweep import bucket_sweep_events as j_bse  # noqa: E402,E501
+from repro_torch.kernels import degree_series as DS  # noqa: E402
 from repro_torch.kernels import evolve_sweep as TS  # noqa: E402
 from test_torch_reconstruct import eq, port_delta, port_graph  # noqa: E402
 
@@ -158,35 +159,40 @@ def _hub_delta(n_ops, n_cap, seed):
 
 
 def _check_work(rows, starts, n_events):
-    """Rows in tile order, each tile's run cut into contiguous chunks of
-    at most CHUNK events that cover it exactly once, the split tiles
-    numbered in order and within the wrapper's bound on them, then
-    surplus rows up to the bound on rows."""
+    """The split tiles' chunks past their first, in tile and chunk
+    order, then surplus rows up to the bound on rows, then the tiles'
+    first chunks in tile order; each tile's run of events cut into
+    contiguous chunks of at most CHUNK events that cover it exactly
+    once, a split tile's rows carrying its tile as their slot."""
     rows = rows.numpy()
     chunk = TS.sweep.CHUNK
     ts = starts.numpy().astype(np.int64)
     counts = np.diff(ts)
-    assert rows.shape == (counts.size + n_events // chunk, 4)
-    real = rows[:, 0] >= 0
+    tiles = counts.size
+    extra = n_events // chunk
+    assert rows.shape == (extra + tiles, 4)
+    assert np.array_equal(rows[extra:, 0], np.arange(tiles))   # firsts
+    assert np.array_equal(rows[extra:, 1], ts[:-1])
+    real = rows[:extra, 0] >= 0
     n_real = int(real.sum())
-    assert real[:n_real].all()                            # surplus last
-    assert (rows[n_real:] == [-1, 0, 0, -1]).all()
-    rows = rows[real]
-    assert np.all(np.diff(rows[:, 0]) >= 0)               # tile order
+    assert real[:n_real].all()                      # surplus after them
+    assert (rows[n_real:extra] == [-1, 0, 0, -1]).all()
+    assert np.all(np.diff(rows[:n_real, 0]) >= 0)   # tile order
+    rows = np.concatenate([rows[extra:], rows[:n_real]])
     assert np.all(rows[:, 2] - rows[:, 1] <= chunk)
     split = 0
-    for tile in range(counts.size):
+    for tile in range(tiles):
         mine = rows[rows[:, 0] == tile]
         assert len(mine) == max(1, -(-counts[tile] // chunk))
         assert mine[0, 1] == ts[tile] and mine[-1, 2] == ts[tile + 1]
         assert np.array_equal(mine[1:, 1], mine[:-1, 2])  # no gap, no overlap
         if len(mine) > 1:
-            assert np.all(mine[:, 3] == split)
+            assert np.all(mine[:, 3] == tile)
             assert np.all(mine[:, 2] > mine[:, 1])        # none empty
             split += 1
         else:
             assert mine[0, 3] == -1
-    assert split <= min(counts.size, n_events // (chunk + 1))
+    assert split <= min(tiles, n_events // (chunk + 1))
     return split
 
 
@@ -212,7 +218,8 @@ def test_sweep_work_splits_a_hub_tile():
     work = TS.sweep_work(starts, ev.shape[0])
     assert _check_work(work, starts, ev.shape[0]) == 1
     rows = work.numpy()
-    assert (rows[:, 0] == 0).sum() > 1 and rows[0, 3] == 0
+    assert (rows[:, 0] == 0).sum() > 1
+    assert rows[0, 0] == rows[0, 3] == 0        # tile 0's second chunk
     lo, last, stride, nb = 3, 600, 10, 64
     deg0 = torch.zeros((1, n_cap), dtype=torch.int32)
     out = TS.sweep_series_ref(deg0, ev, starts, torch.tensor([lo]),
@@ -225,13 +232,18 @@ def _wrap32(x):
     return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
-def _kernel_model(deg0, ev, starts, t_lo, t_last, stride, nb, rows):
-    """sweep.cu block by block, in numpy: each work row adds its events
+def _kernel_model(deg0, ev, starts, t_lo, t_last, stride, nb, rows,
+                  backward=False):
+    """series.cuh block by block, in numpy: each work row adds its events
     into a net packed two samples to an int32 word (while B/2 × 256 ×
     4 bytes fit in 226 KB) or into an int32 net, a split tile's chunks
     are summed into one global net and the block that brings the
     tile's event counter to its count runs the running sum from deg0;
-    surplus rows do nothing."""
+    surplus rows do nothing.  Forward (sweep.cu) an event counts from
+    bucket clip(ceil((t − lo)/stride), 0, B − 1) on; ``backward``
+    (degree_series.cu) it counts at and below bucket min(ceil((t −
+    lo)/stride), B) − 1, and the running sum runs down from the top,
+    subtracting."""
     q, n = deg0.shape
     tile_n = TS.TILE
     packed = (nb + 1) // 2 * tile_n * 4 <= 226 * 1024
@@ -245,7 +257,8 @@ def _kernel_model(deg0, ev, starts, t_lo, t_last, stride, nb, rows):
                 continue
             t, code = e[j0:j1, 0], e[j0:j1, 1]
             win = (t > lo) & (t <= last)
-            k = np.clip((t[win] - lo + stride - 1) // stride, 0, nb - 1)
+            k = (t[win] - lo + stride - 1) // stride
+            k = np.minimum(k, nb) - 1 if backward else np.clip(k, 0, nb - 1)
             node = code[win] >> 1
             sign = np.where(code[win] & 1, 1, -1)
             if packed:
@@ -267,8 +280,12 @@ def _kernel_model(deg0, ev, starts, t_lo, t_last, stride, nb, rows):
                 net = gnet[tile]
             cols = slice(tile * tile_n, min(n, (tile + 1) * tile_n))
             w = cols.stop - cols.start
-            out[qi, :, cols] = (deg0[qi, cols].numpy().astype(np.int64)
-                                + np.cumsum(net[:, :w], 0))
+            base = deg0[qi, cols].numpy().astype(np.int64)
+            if backward:
+                out[qi, :, cols] = base - np.cumsum(net[::-1, :w],
+                                                    0)[::-1]
+            else:
+                out[qi, :, cols] = base + np.cumsum(net[:, :w], 0)
     return _wrap32(out).astype(np.int32)
 
 
@@ -296,3 +313,60 @@ def test_kernel_model_matches_plain(wide_sweep, nb, chunk, monkeypatch):
                              stride, nb, st.n_cap)[0]
         eq(got[qi], deg0[qi] + np.cumsum(np.asarray(nets), 0,
                                          dtype=np.int32))
+
+
+# ---------------------------------------------------------------------------
+# The hybrid plan's degree series (degree_series.cu): the same code run
+# backward over the sweep's events with no upper time bound
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nb", [64, 5, 512], ids=["packed", "odd", "global"])
+@pytest.mark.parametrize("chunk", [50, TS.CHUNK])
+def test_degree_series_kernel_model_matches_jax(wide_sweep, nb, chunk,
+                                                 monkeypatch):
+    """B3's algorithm — B4's chunks, packed nets and global combine, run
+    backward (reverse running sum, subtracting) with every op past the
+    series in the tail bucket — equals JAX's ``degree_series`` (with
+    B = 5 nearly every event is in the tail)."""
+    from repro.core import reconstruct as R
+    st, td, _, _ = wide_sweep
+    t_k = st.t_cur // 3
+    ev, starts = TS.bucket_sweep_events(td, st.n_cap, t_k)
+    monkeypatch.setattr(TS.sweep, "CHUNK", chunk)
+    rows = TS.sweep_work(starts, ev.shape[0])
+    if chunk == 50:
+        assert (rows[:, 3] >= 0).any()                    # split tiles
+    deg = port_graph(st.current).degrees()
+    got = _kernel_model(deg.view(1, -1), ev, starts.numpy(), [t_k],
+                        [2 ** 31 - 1], 1, nb, rows, backward=True)[0]
+    want = R.degree_series(st.current, st.delta(), t_k, t_k + nb - 1, nb,
+                           st.t_cur)
+    eq(want, got)
+    eq(want, DS.degree_series_kernel(deg, ev, starts, t_k, nb))
+
+
+def test_degree_series_splits_a_hub_tile():
+    """The hub store: tile 0 holds more than CHUNK events, so B3's work
+    list cuts it into several blocks, none past CHUNK, and the series
+    (from zero degrees) still equals JAX's."""
+    from repro.core import reconstruct as R
+    from repro.core.graph import DenseGraph as JDense
+    n_cap, n_ops = 1024, 12000
+    jd, td = _hub_delta(n_ops, n_cap, seed=5)
+    t_k, nb = 40, 16
+    ev, starts = TS.bucket_sweep_events(td, n_cap, t_k)
+    counts = np.diff(starts.numpy())
+    assert counts[0] > TS.CHUNK
+    rows = TS.sweep_work(starts, ev.shape[0])
+    assert _check_work(rows, starts, ev.shape[0]) == 1
+    real = rows[rows[:, 0] >= 0].numpy()
+    assert (real[:, 0] == 0).sum() > 1
+    assert (real[:, 2] - real[:, 1]).max() <= TS.CHUNK
+    zero = JDense(nodes=jnp.ones((n_cap,), bool),
+                  adj=jnp.zeros((n_cap, n_cap), bool))
+    want = R.degree_series(zero, jd, t_k, t_k + nb - 1, nb, n_ops)
+    deg = torch.zeros((n_cap,), dtype=torch.int32)
+    eq(want, DS.degree_series_kernel(deg, ev, starts, t_k, nb))
+    eq(want, _kernel_model(deg.view(1, -1), ev, starts.numpy(), [t_k],
+                           [2 ** 31 - 1], 1, nb, rows, backward=True)[0])
