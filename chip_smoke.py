@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
-against its plain PyTorch version, run the in-memory GraphSession end
-to end on both layouts, and serve two decoder LMs (prefill + greedy
-decode) at their published width and depth.
+against its plain PyTorch version, run the GraphSession end to end on
+both layouts — in memory, then durable and indexed, reopened and
+crashed — and serve two decoder LMs (prefill + greedy decode) at their
+published width and depth.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -37,7 +38,9 @@ Phases, in order (any failure exits non-zero):
    attention, PyTorch's ``scaled_dot_product_attention`` as the
    library yardstick; edge-slot LWW is timed at one query too; the
    series' work list, which their blocks derive on the card, is held
-   against its plain version;
+   against its plain version; dense and edge-slot LWW are also timed at
+   crash recovery's shapes (one query over the whole log, (0, t_cur],
+   from the empty graph);
 3. dense session — ``GraphSession(n_cap=8192, layout="dense")`` ingests
    the paper's Table 3 evolution parameters in several flushed batches,
    then a mixed ``query_many`` (point / diff / agg, node and global,
@@ -45,10 +48,34 @@ Phases, in order (any failure exits non-zero):
 4. edge session — the same at ``n_cap=131072``, ``layout="edge"``;
 5. smollm-360m and 6. mamba2-130m — bf16 weights from a seeded
    ``torch.Generator``, prefill of 8 prompts of 2048 seeded tokens
-   (``cache_cap`` 2080), 32 greedy decode steps.
+   (``cache_cap`` 2080), 32 greedy decode steps;
+7. durable indexed sessions — the sessions of phases 3 and 4 again with
+   ``path=`` (a temporary root) and ``indexed=True``: the same ops in
+   the same flushed batches and the same mix, then ``close`` and
+   ``GraphSession.open(path)``, which recovers on the card, and the mix
+   again; both sets of answers, the snapshot and ``current`` must equal
+   the in-memory session's bit for bit, the reopen must launch dense
+   (dense) or edge-slot (edge) LWW, and queries must run through the
+   node-centric index.  The host time of every step is printed, the
+   reopen split into load, host rebuild, card rebuild, replay, serving
+   state and the first ``query_many`` (read from ``open_store``'s
+   trace spans), and the root's bytes.  On the reopened engine, a group
+   of 512 node queries of each measure-only plan (hybrid points,
+   delta-only diffs) runs forced indexed and forced unindexed in turn:
+   both times are printed, and the answers must be equal bit for bit;
+8. one crash — a child process (``--crash-child``) runs the dense
+   configuration durably on the card and SIGKILLs itself right after
+   the drain record of its second swap; reopened on the card, the store
+   must hold every acknowledged batch, and every query of the mix at
+   t ≤ the recovered watermark, ``current`` and a snapshot must
+   bit-match a from-scratch card session over the same ops, before and
+   after a ``flush``.
 
-Phases 3 and 4 zero the launch counters before driving the session and
-read them after: each kernel the layout should use must have launched.
+Phases 7 and 8 run right after phase 4.
+
+Phases 3, 4, 7 and 8 zero the launch counters before driving each
+session (and each reopen) and read them after: each kernel the layout
+should use must have launched.
 A sample of the answers must equal, bit for bit, those of the same
 session built with ``device="cpu"`` from the same ops; triangle counts
 are checked against a sparse count of the snapshot.  Phases 5 and 6 zero
@@ -72,11 +99,14 @@ last is ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -491,6 +521,17 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     d4 = edge_store.delta_view().window_delta(lo, lo + (width - 1) * stride)
     cases.append(b4_case(deg0, d4, t_lo, i32([width]), stride, nb,
                          timed=True))
+
+    # --- recovery's shapes: Q = 1 over the whole log, (0, t_cur], from
+    # the empty graph, as persist/recovery.py rebuilds ``current`` ---
+    cases.append(b1_case(torch.zeros_like(adj), dense_store.delta(),
+                         i32([0]), i32([t_cur]), timed=True,
+                         what=" recovery: empty anchor, whole log"))
+    e_reg = edge_store.edge_graph().e_cap
+    cases.append(b2_case(torch.zeros(e_reg, dtype=torch.bool, device=dev),
+                         edge_store.delta(), i32([0]), i32([t_cur_e]),
+                         timed=True,
+                         what=" recovery: empty anchor, whole log"))
 
     # --- B1's other paths: per-query anchors, windows both ways ---
     tq_a = i32([ts[0] - max(1, ts[0] // 3), ts[2], t_cur])
@@ -918,23 +959,29 @@ def first_call(seed: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def run_session(ops, n_cap: int, layout: str, device: str, qmix, sw,
-                e_cap=None, sample_only: bool = False):
+                e_cap=None, sample_only: bool = False, **session_kw):
     """Ingest in flushed batches, then the mixed batch, sweeps and a
-    snapshot.  Returns (answers, sweep answers, snapshot, stats,
-    session, seconds per step)."""
+    snapshot (``session_kw``: ``path`` for a durable session,
+    ``indexed``).  Returns a dict: answers, sweeps, snapshot, stats,
+    session, seconds per step, and the executor groups of the mixed
+    batch."""
     from repro_torch.api import GraphSession
     from repro_torch.core.plans import Query
-    import torch
     steps = {}
 
     def step(name, t0):
-        if device == "cuda":
-            torch.cuda.synchronize()
+        _sync(device)
         steps[name] = steps.get(name, 0.0) + time.perf_counter() - t0
 
     s = GraphSession(n_cap=n_cap, e_cap=e_cap, layout=layout, device=device,
-                     slow_query_ms=None)
+                     slow_query_ms=None, **session_kw)
     for b in batches(ops, 4):
         t0 = time.perf_counter()
         s.ingest(b)
@@ -946,19 +993,62 @@ def run_session(ops, n_cap: int, layout: str, device: str, qmix, sw,
     t0 = time.perf_counter()
     answers = s.query_many(qs)
     step("query_many_s", t0)
+    groups = list(s.live.engine.last_group_stats)
     t0 = time.perf_counter()
     sweep_out = [s.sweep(**w) for w in sw]
     step("sweeps_s", t0)
     t0 = time.perf_counter()
     snap = s.snapshot_at(qmix[0][0]["t_k"])
     step("snapshot_s", t0)
-    return answers, sweep_out, snap, s.stats(), s, steps
+    return dict(answers=answers, sweeps=sweep_out, snapshot=snap,
+                stats=s.stats(), session=s, steps=steps, groups=groups)
 
 
 def same(a, b) -> bool:
+    """Equal bit for bit: dtype, shape and bits (floats compared as
+    their integer bit patterns)."""
     import numpy as np
     a, b = np.asarray(a), np.asarray(b)
-    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f":
+        a, b = a.view(f"u{a.itemsize}"), b.view(f"u{b.itemsize}")
+    return np.array_equal(a, b)
+
+
+def differing(names, got, want) -> list:
+    """The names of the answers that are not equal bit for bit (and
+    "count" when the lists differ in length)."""
+    bad = [n for n, a, b in zip(names, got, want) if not same(a, b)]
+    return bad + (["count"] if len(got) != len(want) else [])
+
+
+def _to_cpu(g):
+    """A snapshot's tensors copied to the host (the same dataclass)."""
+    import dataclasses
+
+    import torch
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name).cpu() for f in dataclasses.fields(g)
+        if isinstance(getattr(g, f.name), torch.Tensor)})
+
+
+def same_graph(a, b) -> bool:
+    """Two snapshots (dense or edge-slot) equal bit for bit, wherever
+    each lives."""
+    import dataclasses
+
+    import torch
+    if type(a) is not type(b):
+        return False
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x.cpu(), y.cpu()):
+                return False
+        elif x != y:
+            return False
+    return True
 
 
 def sparse_triangles(adj) -> int:
@@ -979,11 +1069,13 @@ def phase_session(name: str, ops, n_cap: int, layout: str, seed: int,
     sw = sweeps(t_cur, qmix[0][0]["v"])
     build.reset_launches()
     t0 = time.perf_counter()
-    answers, sweep_out, snap, stats, s, steps = run_session(
-        ops, n_cap, layout, "cuda", qmix, sw, e_cap=e_cap)
+    run = run_session(ops, n_cap, layout, "cuda", qmix, sw, e_cap=e_cap)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    answers, sweep_out, snap, stats, s, steps = (
+        run["answers"], run["sweeps"], run["snapshot"], run["stats"],
+        run["session"], run["steps"])
     print(f"{name} session: {len(ops)} ops, t_cur {stats['t_cur']}, "
           f"{len(answers)} queries + {len(sw)} sweeps + snapshot in "
           f"{seconds:.2f} s ({', '.join(f'{k} {v:.3f}' for k, v in steps.items())})"
@@ -1010,8 +1102,11 @@ def phase_session(name: str, ops, n_cap: int, layout: str, seed: int,
                                      f"sparse count {want} at {q}")
     # the same session on the CPU, sampled answers only
     t1 = time.perf_counter()
-    c_ans, c_sw, c_snap, c_stats, _, _ = run_session(
-        ops, n_cap, layout, "cpu", qmix, sw, e_cap=e_cap, sample_only=True)
+    cpu_run = run_session(ops, n_cap, layout, "cpu", qmix, sw, e_cap=e_cap,
+                          sample_only=True)
+    c_ans, c_sw, c_snap, c_stats = (cpu_run["answers"], cpu_run["sweeps"],
+                                    cpu_run["snapshot"], cpu_run["stats"])
+    del cpu_run
     cpu_seconds = time.perf_counter() - t1
     gpu_sample = [a for (q, keep), a in zip(qmix, answers) if keep]
     n_cmp = len(gpu_sample) + len(sw) + 2
@@ -1027,9 +1122,397 @@ def phase_session(name: str, ops, n_cap: int, layout: str, seed: int,
         raise AssertionError(f"{name}: GPU and CPU answers differ: {bad}")
     print(f"{name} session: {n_cmp} sampled answers equal the CPU port "
           f"bit for bit (CPU side {cpu_seconds:.2f} s)", flush=True)
+    # what phase 7's durable session is held to, kept on the host
+    memory = dict(answers=answers, sweeps=sweep_out,
+                  snapshot=_to_cpu(snap), current=_to_cpu(s.store.current))
     return dict(seconds=seconds, cpu_seconds=cpu_seconds, steps=steps,
                 launches=launches, n_ops=len(ops), t_cur=stats["t_cur"],
-                queries=len(answers), compared=n_cmp, stats=stats)
+                queries=len(answers), compared=n_cmp, stats=stats), memory
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: durable, indexed sessions; one crash on the card
+# ---------------------------------------------------------------------------
+
+# phase 8's child dies right after the drain record of this swap
+CRASH_AT_DRAIN = 2
+CHILD_TIMEOUT_S = 600
+
+
+def root_bytes(root: str) -> dict:
+    """What a durable root holds on disk: bytes and files of its
+    manifest, WAL and sealed segments, and the total."""
+    files = {}
+    for d, _, names in os.walk(root):
+        for f in names:
+            path = os.path.join(d, f)
+            files[os.path.relpath(path, root)] = os.path.getsize(path)
+    wal = [k for k in files if k.startswith("wal_")]
+    seg = [k for k in files if k.startswith("segments" + os.sep)]
+    return dict(manifest=files.get("MANIFEST.json", 0),
+                wal=sum(files[k] for k in wal), wal_files=len(wal),
+                segments=sum(files[k] for k in seg), segment_files=len(seg),
+                total=sum(files.values()))
+
+
+# the trace spans of ``open_store`` on an existing root, by the step of
+# the reopen's split each one times
+RECOVERY_SPANS = {"recovery": "recovery_s",
+                  "recovery.segments": "segments_s",
+                  "recovery.tree": "tree_s",
+                  "recovery.wal_read": "wal_read_s",
+                  "recovery.host_rebuild": "host_rebuild_s",
+                  "recovery.card_rebuild": "card_rebuild_s",
+                  "recovery.replay": "replay_s"}
+
+
+def recovery_split(events: list[dict], open_s: float) -> dict:
+    """The reopen's host seconds by step, from the spans of one
+    ``GraphSession.open`` and its total ``open_s``: manifest and
+    segment load (``load_s``: what recovery spent outside the host
+    rebuild, card rebuild and replay; of it ``segments_s`` for mapping
+    and CRC-checking the segment files, ``tree_s`` for rebuilding the
+    merged-delta tree over them, ``wal_read_s`` for reading the WAL),
+    host rebuild (mirror and slot registry), card rebuild (the log onto
+    the card, ``current`` and anchors by LWW reconstruction from the
+    empty graph; recovery synchronizes the card at its end), WAL
+    replay, and the serving state (``serve_s``: the frozen engine and
+    the node-centric index)."""
+    steps = dict.fromkeys(RECOVERY_SPANS.values(), 0.0)
+    for e in events:
+        if e["name"] in RECOVERY_SPANS:
+            steps[RECOVERY_SPANS[e["name"]]] += e["dur"] / 1e6
+    rec = steps.pop("recovery_s")
+    steps["load_s"] = rec - sum(steps[k] for k in (
+        "host_rebuild_s", "card_rebuild_s", "replay_s"))
+    steps["serve_s"] = open_s - rec
+    steps["open_s"] = open_s
+    return steps
+
+
+def reopen(root: str, device, steps: dict):
+    """``GraphSession.open(root, indexed=True)`` — crash recovery on
+    ``device`` — with its host time split by ``recovery_split`` from a
+    tracer installed for the call."""
+    from repro_torch import api
+    from repro_torch.obs.trace import (Tracer, active_tracer,
+                                       install_tracer, uninstall_tracer)
+    before, tracer = active_tracer(), install_tracer(Tracer())
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        s = api.GraphSession.open(root, device=device, indexed=True,
+                                  slow_query_ms=None)
+        _sync(device)
+        open_s = time.perf_counter() - t0
+    finally:
+        uninstall_tracer(tracer)
+        if before is not None:
+            install_tracer(before)
+    steps.update(recovery_split(tracer.events(), open_s))
+    return s
+
+
+def held_to(name: str, memory: dict, qmix, answers, sweep_out, snap,
+            current=None) -> list:
+    """What of a durable run differs from the in-memory session's
+    (``memory``, from phase 3 or 4): answers, sweeps, snapshot and,
+    given, ``current`` — every one bit for bit."""
+    bad = differing([q for q, _ in qmix], answers, memory["answers"])
+    bad += differing(list(range(len(sweep_out))), sweep_out,
+                     memory["sweeps"])
+    if not same_graph(_to_cpu(snap), memory["snapshot"]):
+        bad.append("snapshot")
+    if current is not None and not same_graph(_to_cpu(current),
+                                              memory["current"]):
+        bad.append("current")
+    return [f"{name}: {b}" for b in bad]
+
+
+# phase 7's indexed-against-unindexed groups: node queries of each
+# measure-only plan, at a group size a loaded server batches
+INDEXED_AB_QUERIES = 512
+
+
+def node_queries(engine, n: int, seed: int) -> dict:
+    """``n`` node-degree queries of each measure-only plan (hybrid
+    points, delta-only diffs) over nodes with 1 to ``node_cap`` ops —
+    the nodes the planner would send through the node-centric index."""
+    import numpy as np
+    from repro_torch.core.plans import Query
+    counts = np.diff(engine.index.row_ptr.cpu().numpy())
+    nodes = np.flatnonzero((counts >= 1) & (counts <= engine.node_cap))
+    rng = np.random.default_rng(seed)
+    vs = rng.choice(nodes, size=2 * n)
+    ts = rng.integers(1, engine.t_cur + 1, size=(2 * n, 2))
+    lo, hi = ts.min(1), ts.max(1)
+    return {"hybrid": [Query(kind="point", scope="node", measure="degree",
+                             t_k=int(t), v=int(v))
+                       for t, v in zip(lo[:n], vs[:n])],
+            "delta_only": [Query(kind="diff", scope="node",
+                                 measure="degree", t_k=int(a), t_l=int(b),
+                                 v=int(v))
+                           for a, b, v in zip(lo[n:], hi[n:], vs[n:])]}
+
+
+def indexed_ab(engine, device, seed: int, reps: int = 5) -> dict:
+    """Each plan's group of ``INDEXED_AB_QUERIES`` node queries forced
+    indexed and unindexed, in turn: the host ms of one
+    ``evaluate_many`` (the card synchronized; the median of ``reps``
+    after one untimed call each), the answers equal bit for bit, and
+    each indexed call one indexed group."""
+    import statistics
+    out, bad = {}, []
+    for plan, qs in node_queries(engine, INDEXED_AB_QUERIES, seed).items():
+        ms, answers = {True: [], False: []}, {}
+        for rep in range(reps + 1):
+            for ix in (True, False):
+                _sync(device)
+                t0 = time.perf_counter()
+                answers[ix] = engine.evaluate_many(qs, plan=plan,
+                                                   indexed=ix)
+                _sync(device)
+                if rep:
+                    ms[ix].append(1e3 * (time.perf_counter() - t0))
+                if ix and [k.indexed for k, _ in
+                           engine.last_group_stats] != [True]:
+                    bad.append(f"{plan}: the forced group ran unindexed")
+        bad += [f"{plan} indexed: query {i}" for i in differing(
+            range(len(qs)), answers[True], answers[False])]
+        out[plan] = dict(queries=len(qs),
+                         indexed_ms=statistics.median(ms[True]),
+                         unindexed_ms=statistics.median(ms[False]))
+    if bad:
+        raise AssertionError("; ".join(sorted(set(bad))))
+    return out
+
+
+def phase_durable(name: str, ops, n_cap: int, layout: str, seed: int,
+                  memory: dict, expect: dict, recovery_kernel: str,
+                  root: str, e_cap=None, device="cuda") -> dict:
+    """Phase 7 on one layout: the session of phase 3 / 4, durable at
+    ``root`` and indexed, then closed and reopened (recovery on
+    ``device``), the same mix answered before the close and after the
+    reopen, both held bit for bit to the in-memory session's answers,
+    ``current`` to its ``current``; the reopen must launch
+    ``recovery_kernel`` and indexed groups must run."""
+    from repro_torch.core.plans import Query
+    from repro_torch.kernels import build
+    t_cur = ops[-1].t
+    qmix = query_mix(t_cur, n_cap, layout == "dense", seed)
+    sw = sweeps(t_cur, qmix[0][0]["v"])
+    build.reset_launches()
+    run = run_session(ops, n_cap, layout, device, qmix, sw, e_cap=e_cap,
+                      path=root, indexed=True)
+    s, steps = run["session"], run["steps"]
+    indexed = sum(b for k, b in run["groups"] if k.indexed)
+    bad = held_to(f"{name} durable", memory, qmix, run["answers"],
+                  run["sweeps"], run["snapshot"], s.store.current)
+    t0 = time.perf_counter()
+    s.close()
+    steps["close_s"] = time.perf_counter() - t0
+    del run, s
+    durable_launches = dict(build.LAUNCHES)
+    disk = root_bytes(root)
+
+    build.reset_launches()
+    s = reopen(root, device, steps)
+    open_launches = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    answers = s.query_many([Query(**q) for q, _ in qmix])
+    _sync(device)
+    steps["first_query_s"] = time.perf_counter() - t0
+    indexed_reopen = sum(b for k, b in s.live.engine.last_group_stats
+                         if k.indexed)
+    sweep_out = [s.sweep(**w) for w in sw]
+    snap = s.snapshot_at(qmix[0][0]["t_k"])
+    _sync(device)
+    reopen_launches = dict(build.LAUNCHES)
+    bad += held_to(f"{name} reopened", memory, qmix, answers, sweep_out,
+                   snap, s.store.current)
+    ab = indexed_ab(s.live.engine, device, seed)
+    s.close()
+    del s
+    print(f"{name} durable session: {len(ops)} ops, root {disk['total']} "
+          f"bytes (manifest {disk['manifest']}, WAL {disk['wal']} in "
+          f"{disk['wal_files']} file, segments {disk['segments']} in "
+          f"{disk['segment_files']} files); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+          + f"; indexed queries {indexed} (after the reopen "
+          f"{indexed_reopen}); launches durable {durable_launches}, "
+          f"reopen {open_launches}, reopen + mix {reopen_launches}; "
+          "groups of node queries, ms indexed / unindexed: "
+          + ", ".join(f"{p} x{r['queries']} {r['indexed_ms']:.3f} / "
+                      f"{r['unindexed_ms']:.3f}" for p, r in ab.items()),
+          flush=True)
+    for k, want in expect.items():
+        if want and durable_launches[k] == 0:
+            bad.append(f"{name} durable: kernel {k} never launched")
+        for run_name, got in (("durable", durable_launches),
+                              ("reopen", reopen_launches)):
+            if not want and got[k] != 0:
+                bad.append(f"{name} {run_name}: kernel {k} launched "
+                           f"{got[k]} times on a path that must not use it")
+    if open_launches[recovery_kernel] == 0:
+        bad.append(f"{name}: the reopen did not launch {recovery_kernel}")
+    if not (indexed and indexed_reopen):
+        bad.append(f"{name}: no query ran through the node-centric index")
+    if bad:
+        raise AssertionError("; ".join(map(str, bad)))
+    print(f"{name} durable session: {len(qmix)} answers, {len(sw)} sweeps, "
+          "a snapshot and current equal the in-memory session's bit for "
+          "bit, before the close and after the reopen", flush=True)
+    return dict(steps=steps, root_bytes=disk, indexed_queries=indexed,
+                indexed_queries_reopened=indexed_reopen, indexed_ab=ab,
+                launches=durable_launches, reopen_launches=reopen_launches,
+                open_launches=open_launches)
+
+
+def read_acks(path: str) -> tuple[list[int], list[int]]:
+    """The crash child's acknowledgements: the last time of every
+    acknowledged batch and every watermark it served."""
+    batch_ts, swap_ws = [], []
+    with open(path) as fh:
+        for line in fh:
+            kind, value = line.split()
+            (batch_ts if kind == "batch" else swap_ws).append(int(value))
+    return batch_ts, swap_ws
+
+
+def crash_child(root: str, n_nodes: int, seed: int, device="cuda") -> int:
+    """Phase 8's child: the dense configuration durably on ``device``,
+    one flushed batch after another, acknowledging each batch and each
+    served watermark in ``root/acks.log``; it SIGKILLs itself right
+    after the drain record of swap ``CRASH_AT_DRAIN`` is in the WAL.
+    Returns 3 if it lived to the end."""
+    import signal
+
+    from repro_torch.api import GraphSession
+    s = GraphSession(path=root, n_cap=n_nodes, layout="dense",
+                     device=device, indexed=True, slow_query_ms=None)
+    persist = s.store.persist
+    log_drain, drains = persist.log_drain, [0]
+
+    def drain_then_die(*args, **kw):
+        log_drain(*args, **kw)
+        drains[0] += 1
+        if drains[0] == CRASH_AT_DRAIN:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    persist.log_drain = drain_then_die
+    with open(os.path.join(root, "acks.log"), "a") as acks:
+        def ack(line: str) -> None:
+            acks.write(line + "\n")
+            acks.flush()
+            os.fsync(acks.fileno())
+
+        for b in batches(make_ops(n_nodes, seed), 4):
+            s.ingest(b)
+            ack(f"batch {b[-1][3]}")
+            s.flush()
+            ack(f"swap {s.watermark}")
+    return 3
+
+
+def uncounted(fn):
+    """``fn()`` with the launch counters left as they were: the
+    from-scratch session phase 8 compares with is not the path it
+    reads."""
+    from repro_torch.kernels import build
+    saved = dict(build.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        build.LAUNCHES.update(saved)
+
+
+def log_prefix_equal(store, oracle_store, t: int) -> bool:
+    """``store``'s whole log (sealed segments and tail) is, op for op,
+    the oracle's log up to time ``t``."""
+    import numpy as np
+    keep = int(np.searchsorted(oracle_store._t, t, side="right"))
+    return all(np.array_equal(getattr(store, c),
+                              getattr(oracle_store, c)[:keep])
+               for c in ("_op", "_u", "_v", "_slot", "_t"))
+
+
+def phase_crash(ops, n_cap: int, seed: int, root: str, device="cuda",
+                child_cmd=None) -> dict:
+    """Phase 8: a child process (``child_cmd``; default this script's
+    ``--crash-child``) runs the dense configuration durably and dies
+    mid-swap; reopened on ``device``, the store must hold every
+    acknowledged batch, its log must be the from-scratch session's up to
+    the watermark, and every query of the mix at t ≤ the recovered
+    watermark, ``current`` and a snapshot must bit-match a from-scratch
+    in-memory session over the same ops — before and after a flush."""
+    import signal
+
+    from repro_torch.api import GraphSession
+    from repro_torch.core.plans import Query
+    from repro_torch.kernels import build
+    cmd = child_cmd or [sys.executable, os.path.abspath(__file__),
+                        "--crash-child", root, "--dense-nodes", str(n_cap),
+                        "--seed", str(seed)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"crash child exited {proc.returncode}, not "
+                             f"by SIGKILL: {proc.stderr[-2000:]}")
+    batch_ts, swap_ws = read_acks(os.path.join(root, "acks.log"))
+    oracle = GraphSession(n_cap=n_cap, layout="dense", device=device,
+                          slow_query_ms=None)
+    for b in batches(ops, 4):
+        oracle.ingest(b)
+        oracle.flush()
+    steps = {}
+    build.reset_launches()
+    s = reopen(root, device, steps)
+    open_launches = dict(build.LAUNCHES)
+    bad, checked = [], 0
+    for when in ("before flush", "after flush"):
+        if when == "after flush":
+            s.flush()
+        w = s.watermark
+        if w < max(swap_ws, default=0):
+            bad.append(f"{when}: watermark {w} behind a served "
+                       f"{max(swap_ws)}")
+        if when == "after flush" and w < max(batch_ts, default=0):
+            bad.append(f"{when}: watermark {w} misses an acknowledged "
+                       f"batch up to t={max(batch_ts)}")
+        if not log_prefix_equal(s.store, oracle.store, w):
+            bad.append(f"{when}: the log is not the oracle's up to t={w}")
+        qmix = query_mix(w, n_cap, True, seed)
+        qs = [Query(**q) for q, _ in qmix]
+        t_snap = qmix[0][0]["t_k"]
+        want = uncounted(lambda: (oracle.query_many(qs),
+                                  oracle.snapshot_at(w),
+                                  oracle.snapshot_at(t_snap)))
+        bad += [f"{when}: {q}" for q in differing(
+            [q for q, _ in qmix], s.query_many(qs), want[0])]
+        if not same_graph(s.store.current, want[1]):
+            bad.append(f"{when}: current differs from SG_{w}")
+        if not same_graph(s.snapshot_at(t_snap), want[2]):
+            bad.append(f"{when}: snapshot at {t_snap} differs")
+        checked += len(qs) + 2
+    _sync(device)
+    launches = dict(build.LAUNCHES)
+    s.close()
+    print(f"crash: the child died by SIGKILL after the drain record of "
+          f"swap {CRASH_AT_DRAIN} ({child_s:.1f} s, {len(batch_ts)} "
+          f"batches and {len(swap_ws)} swaps acknowledged); reopened at "
+          f"watermark {w} "
+          + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+          + f"; {checked} answers checked; launches reopen "
+          f"{open_launches}, reopen + checks {launches}", flush=True)
+    if open_launches["delta_apply"] == 0:
+        bad.append("the reopen did not launch delta_apply")
+    if bad:
+        raise AssertionError("crash: " + "; ".join(map(str, bad)))
+    return dict(child_s=child_s, acked_batches=batch_ts, acked_swaps=swap_ws,
+                watermark=w, steps=steps, checked=checked,
+                open_launches=open_launches, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1315,7 +1798,7 @@ def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dense-nodes", type=int, default=8192)
     ap.add_argument("--edge-nodes", type=int, default=131072)
@@ -1326,9 +1809,17 @@ def main(argv=None) -> int:
     ap.add_argument("--first-call", action="store_true",
                     help="build with ptxas's report, run small kernel "
                          "cases against their plain versions and stop")
+    ap.add_argument("--crash-child", metavar="ROOT",
+                    help="phase 8's child: run the dense configuration "
+                         "durably at ROOT and die mid-swap (the parent "
+                         "starts it)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
@@ -1343,6 +1834,8 @@ def main(argv=None) -> int:
         return fail("TF32 matmul is on; the f32 measures need it off")
     if args.first_call:
         return first_call(args.seed)
+    if args.crash_child:
+        return crash_child(args.crash_child, args.dense_nodes, args.seed)
     phases = {}
 
     t0 = time.perf_counter()
@@ -1373,16 +1866,42 @@ def main(argv=None) -> int:
     kernels = main_rows(rows)
 
     # phases 3 and 4 — the main path, counters zeroed just before each
-    dense = phase_session(
-        "dense", dense_ops, args.dense_nodes, "dense", args.seed,
-        expect={"delta_apply": True, "edge_delta_apply": True,
-                "degree_series": True,
-                "sweep_series": True})
-    edge = phase_session(
-        "edge", edge_ops, args.edge_nodes, "edge", args.seed,
-        expect={"delta_apply": False, "edge_delta_apply": True,
-                "degree_series": True, "sweep_series": True},
-        e_cap=args.edge_e_cap)
+    dense_expect = {"delta_apply": True, "edge_delta_apply": True,
+                    "degree_series": True, "sweep_series": True}
+    edge_expect = {"delta_apply": False, "edge_delta_apply": True,
+                   "degree_series": True, "sweep_series": True}
+    dense, dense_mem = phase_session("dense", dense_ops, args.dense_nodes,
+                                     "dense", args.seed, dense_expect)
+    edge, edge_mem = phase_session("edge", edge_ops, args.edge_nodes, "edge",
+                                   args.seed, edge_expect,
+                                   e_cap=args.edge_e_cap)
+
+    # phases 7 and 8 — durable and indexed, reopened on the card; one
+    # crash.  The roots live in a temporary directory, removed after.
+    work = tempfile.mkdtemp(prefix="chip_smoke_roots_")
+    try:
+        t0 = time.perf_counter()
+        durable = {
+            "dense": phase_durable(
+                "dense", dense_ops, args.dense_nodes, "dense", args.seed,
+                dense_mem, dense_expect, "delta_apply",
+                os.path.join(work, "dense")),
+            "edge": phase_durable(
+                "edge", edge_ops, args.edge_nodes, "edge", args.seed,
+                edge_mem, edge_expect, "edge_delta_apply",
+                os.path.join(work, "edge"), e_cap=args.edge_e_cap)}
+        phases["durable_s"] = time.perf_counter() - t0
+        del dense_mem, edge_mem
+        t0 = time.perf_counter()
+        crash = phase_crash(dense_ops, args.dense_nodes, args.seed,
+                            os.path.join(work, "crash"))
+        phases["crash_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the sessions' graphs of objects hold card memory until the cycle
+    # collector runs; the LM phases read their peak memory from here
+    gc.collect()
+    torch.cuda.empty_cache()
     lms = {}
     profile_device(lambda: torch.zeros(1, device="cuda") + 1)  # CUPTI start-up
     for arch, kernel in (("smollm-360m", "flash_attention"),
@@ -1397,6 +1916,10 @@ def main(argv=None) -> int:
     # launches on the main path: the two sessions, and each LM's
     # prefill + decode
     runs = {"dense": dense["launches"], "edge": edge["launches"]}
+    for layout, d in durable.items():
+        runs[f"{layout} durable"] = d["launches"]
+        runs[f"{layout} reopen"] = d["reopen_launches"]
+    runs["crash reopen"] = crash["launches"]
     for arch, r in lms.items():
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
@@ -1413,7 +1936,8 @@ def main(argv=None) -> int:
 
     report = dict(card=smi, torch=torch.__version__,
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
-                  dense=dense, edge=edge, lms=lms, args=vars(args))
+                  dense=dense, edge=edge, durable=durable, crash=crash,
+                  lms=lms, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)

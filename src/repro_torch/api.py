@@ -1,27 +1,37 @@
 """``GraphSession`` — the one front door to the temporal graph system,
-the PyTorch mirror of ``repro.api`` (in memory, single device)::
+the PyTorch mirror of ``repro.api`` (single device)::
 
     from repro_torch.api import GraphSession
 
-    s = GraphSession(n_cap=1024)                 # device="cuda"
-    s.ingest([(ADD_NODE, 0, 0, 1), (ADD_NODE, 1, 1, 1),
-              (ADD_EDGE, 0, 1, 2)])
-    s.query("degree", t=2, v=0)            # -> 1
-    s.query_many([Query("point", "global", "num_edges", t_k=2)])
-    s.sweep("avg_degree", t_lo=1, t_hi=2)  # evolve series
-    s.snapshot_at(2)                       # DenseGraph/EdgeGraph
-    s.flush()                              # absorb pending ops
+    with GraphSession.open("/data/graph", n_cap=1024) as s:  # "cuda"
+        s.ingest([(ADD_NODE, 0, 0, 1), (ADD_NODE, 1, 1, 1),
+                  (ADD_EDGE, 0, 1, 2)])
+        s.query("degree", t=2, v=0)            # -> 1
+        s.query_many([Query("point", "global", "num_edges", t_k=2)])
+        s.sweep("avg_degree", t_lo=1, t_hi=2)  # evolve series
+        s.snapshot_at(2)                       # DenseGraph/EdgeGraph
+        s.flush()                              # durable checkpoint
+    # kill -9 anywhere above: GraphSession.open(path) recovers
+    # bit-exactly, on the card
 
+* ``path=...`` makes the session durable (``repro_torch.persist``, the
+  same on-disk format as ``repro.persist``): every acknowledged
+  ``ingest`` is WAL'd first, every swap checkpoints the sealed segments
+  + anchor manifest before the watermark moves, and ``open`` on an
+  existing path crash-recovers (the pending ops that never made it
+  into an epoch included).  ``path=None`` is the same system in memory.
 * Queries route through the micro-batching frontend (exact result
   cache, duplicate coalescing) over the live store's watermark
   semantics.  The default ``stale="block"`` swaps synchronously when a
   query needs times newer than the frozen epoch.
+* ``indexed=True`` (a ``LiveGraphStore`` keyword, with ``node_cap``)
+  serves node-scope delta-only / hybrid queries through the
+  node-centric index.
 * ``device`` defaults to ``"cuda"`` and raises without a card;
   ``device="cpu"`` runs the plain PyTorch versions of the kernels.
-* Off the in-memory single-device path, and raising
-  ``NotImplementedError`` naming the ROADMAP step that ports them:
-  ``path=`` (durability, A10), ``mesh=`` (A12), ``indexed=True`` (A4),
-  ``publish_to`` / ``open_replica`` / ``open_router`` (A11).
+* Not ported yet, and raising ``NotImplementedError`` naming the
+  ROADMAP step that ports them: ``mesh=`` (A12) and ``publish_to`` /
+  ``open_replica`` / ``open_router`` (A11).
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from repro_torch.core.store import Op, TemporalGraphStore
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.trace import (Tracer, active_tracer, install_tracer,
                                    uninstall_tracer)
+from repro_torch.persist import open_store
 from repro_torch.serving.frontend import MicroBatchFrontend
 from repro_torch.serving.ingest import (LiveGraphStore, SwapRecord,
                                         WatermarkError)
@@ -43,13 +54,16 @@ __all__ = ["GraphSession", "Query", "Op", "WatermarkError"]
 
 
 class GraphSession:
-    """One handle over store + live serving + frontend.
+    """One handle over store + live serving + frontend (+ durability).
 
-    Keywords: **shape** ``n_cap``/``e_cap``/``layout``; **serving**
-    ``policy`` (materialization), ``stale`` (watermark behavior, default
-    ``"block"``), ``max_batch``/``max_delay_ms``/``cache_entries``
-    (frontend coalescing + exact cache); ``device`` (default
-    ``"cuda"``).  Remaining keywords pass through to
+    Keywords: **identity** ``path`` (durable root; None = in memory),
+    ``n_cap``/``e_cap``/``layout`` (graph shape; recovered from the
+    manifest when reopening); **serving** ``policy`` (materialization),
+    ``stale`` (watermark behavior, default ``"block"``),
+    ``max_batch``/``max_delay_ms``/``cache_entries`` (frontend
+    coalescing + exact cache); **durability** ``fsync`` (per-record WAL
+    sync, default True); ``device`` (default ``"cuda"``).  Remaining
+    keywords (``indexed``, ``node_cap``, ...) pass through to
     ``LiveGraphStore``.
     """
 
@@ -57,34 +71,41 @@ class GraphSession:
                  e_cap: int | None = None, layout: str | None = None,
                  policy=None, mesh=None, stale: str = "block",
                  max_batch: int = 64, max_delay_ms: float = 0.0,
-                 cache_entries: int = 4096,
+                 cache_entries: int = 4096, fsync: bool = True,
                  max_pending: int | None = None, overload: str = "raise",
                  shed_after_ms: float | None = None,
                  segment_min_ops: int | None = None,
                  segment_device_budget: int | None = None,
                  metrics=None, slow_query_ms: float | None = 250.0,
-                 indexed: bool = False, device="cuda", **live_kw):
-        if path is not None:
-            not_ported("path= (durable sessions)", "A10")
+                 device="cuda", **live_kw):
         if mesh is not None:
             not_ported("mesh= (multi-device serving)", "A12")
-        if indexed:
-            not_ported("indexed=True (node-centric index variants)", "A4")
-        if n_cap is None:
-            raise ValueError("an in-memory session needs n_cap")
-        self.path = None
+        self.path = path
         self._metrics = (default_registry() if metrics is None
                          else metrics)
         self._tracer: Tracer | None = None
-        store_kw = {}
-        if segment_min_ops is not None:
-            store_kw["segment_min_ops"] = segment_min_ops
-        store = TemporalGraphStore(
-            n_cap, e_cap=e_cap, layout=layout or "dense",
-            segment_device_budget=segment_device_budget, device=device,
-            **store_kw)
+        pending: list[Op] = []
+        if path is not None:
+            # ``policy`` here is the SERVING rebalance policy (it goes to
+            # LiveGraphStore below); open_store's policy keyword is the
+            # core MaterializationPolicy and stays unset
+            rec = open_store(path, n_cap=n_cap, e_cap=e_cap, layout=layout,
+                             fsync=fsync, segment_min_ops=segment_min_ops,
+                             segment_device_budget=segment_device_budget,
+                             metrics=self._metrics, device=device)
+            store, pending = rec.store, rec.pending
+        else:
+            if n_cap is None:
+                raise ValueError("an in-memory session needs n_cap")
+            store_kw = {}
+            if segment_min_ops is not None:
+                store_kw["segment_min_ops"] = segment_min_ops
+            store = TemporalGraphStore(
+                n_cap, e_cap=e_cap, layout=layout or "dense",
+                segment_device_budget=segment_device_budget, device=device,
+                **store_kw)
         self.live = LiveGraphStore(store=store, policy=policy,
-                                   metrics=self._metrics,
+                                   pending=pending, metrics=self._metrics,
                                    slow_query_ms=slow_query_ms, **live_kw)
         self.frontend = MicroBatchFrontend(
             self.live, max_batch=max_batch, max_delay_ms=max_delay_ms,
@@ -97,21 +118,24 @@ class GraphSession:
 
     @classmethod
     def open(cls, path: str | None = None, **kw) -> "GraphSession":
-        """An in-memory session (``path`` must be None: durable
-        sessions are not ported yet)."""
+        """Open a durable session at ``path`` (creating it with the
+        given config, or crash-recovering whatever is there, on
+        ``device``), or an in-memory one when ``path`` is None."""
         return cls(path=path, **kw)
 
     def flush(self) -> SwapRecord:
-        """Absorb every pending op into a new served epoch: on return,
-        all acknowledged ingest is queryable."""
+        """Absorb every pending op into a new served epoch and (for a
+        durable session) checkpoint: on return, all acknowledged ingest
+        is queryable AND replay-free on the next open."""
         return self.live.swap()
 
     def close(self) -> None:
-        """Stop the frontend's scheduler thread (if started).  Safe to
-        call twice."""
+        """Stop the frontend, checkpoint, release the WAL.  Safe to
+        call twice; the session is unusable for writes afterwards."""
         if self._closed:
             return
-        self.frontend.stop()
+        self.frontend.stop()             # no-op unless start()ed
+        self.live.close()
         self._closed = True
 
     def __enter__(self) -> "GraphSession":
@@ -144,7 +168,8 @@ class GraphSession:
 
     def ingest(self, ops: Iterable[Op | tuple]) -> int:
         """Append time-annotated ops (``Op`` or ``(op, u, v, t)``
-        tuples).  They become queryable at the next ``flush``/swap — or
+        tuples).  Durable sessions WAL the batch before acknowledging.
+        They become queryable at the next ``flush``/swap — or
         transparently, since the default ``stale="block"`` swaps on
         demand when a query asks for newer times."""
         return self.live.append(ops)

@@ -58,7 +58,7 @@ class Delta:
 
     @property
     def capacity(self) -> int:
-        return self.op.shape[0]
+        return self.op.shape[-1]
 
     @property
     def device(self) -> torch.device:

@@ -18,9 +18,8 @@ the PyTorch mirror of ``repro.core.engine`` (single device).
   stands in for ``vmap``; batched results bit-match the single-query
   path.
 
-Off the single-device in-memory path, and raising
-``NotImplementedError``: multi-device meshes and the node-centric index
-variants (``indexed=True``).
+Off the single-device path, and raising ``NotImplementedError``:
+multi-device meshes.
 """
 from __future__ import annotations
 
@@ -34,7 +33,8 @@ import torch
 from repro_torch import not_ported
 from repro_torch.core.delta import Delta, pow2_capacity as _pow2
 from repro_torch.core.graph import DenseGraph, EdgeGraph, dense_to_edge
-from repro_torch.core.index import count_window_ops, gather_window
+from repro_torch.core.index import (NodeIndex, count_window_ops,
+                                    gather_nodes_ops, gather_window)
 from repro_torch.core.partial import partial_reconstruct_many, seed_mask
 from repro_torch.core.plans import (Query, applicable_plans,
                                     delta_only_degree_diff,
@@ -153,6 +153,7 @@ class PlanChoice:
     plan: str                 # two_phase | delta_only | hybrid
     anchor_id: int = -1       # -1 = current snapshot
     t_anchor: int = 0
+    indexed: bool = False     # node-centric index (§3.3.2)
     windowed: bool = False    # temporal-index window slice (§3.3.2)
     partial: bool = False     # partial reconstruction (§3.3.1)
     layout: str = "dense"     # dense (N² adjacency) | edge (E slots)
@@ -170,13 +171,14 @@ class Planner:
     """
 
     def __init__(self, selector: AnchorSelector, *, n_cap: int,
-                 index=None,
+                 index: NodeIndex | None = None, node_cap: int = 1024,
                  selection: Literal["time", "ops"] = "ops",
                  e_cap: int = 0, dense_available: bool = True,
                  edge_available: bool = False, seg_view=None):
         self.selector = selector
         self.n_cap = int(n_cap)
         self.index = index
+        self.node_cap = int(node_cap)
         self.selection = selection
         self.e_cap = int(e_cap)
         self.dense_available = bool(dense_available)
@@ -254,11 +256,17 @@ class Planner:
                 if c < best_cost:
                     best_plan, best_cost = "delta_only", c
 
+        # the index gathers a node's ops by position: only for node
+        # scope, the measure-only plans, and nodes within node_cap ops
+        indexed = (self.index is not None and q.scope == "node"
+                   and best_plan in ("delta_only", "hybrid")
+                   and (self._node_ops(q.v) or 0) <= self.node_cap)
         windowed = (best_plan == "two_phase"
                     and _pow2(anchor.cost, 64) * 2 <= delta.capacity)
         layout = self.layout_for(q, best_plan)
         return PlanChoice(plan=best_plan, anchor_id=anchor.anchor_id,
-                          t_anchor=anchor.t, windowed=windowed,
+                          t_anchor=anchor.t, indexed=indexed,
+                          windowed=windowed,
                           partial=(use_partial and best_plan == "two_phase"
                                    and layout == "dense"),
                           layout=layout, cost=best_cost)
@@ -406,6 +414,31 @@ def batch_hybrid_diff(current, delta: Delta, vs, tks, tls, t_cur):
     return torch.abs(d_l - d_k)
 
 
+# The indexed executors: each query's node ops gathered through the
+# node-centric index in one step for the group (``gather_nodes_ops``, at
+# most ``cap`` of them, a [B, cap] sub-delta in place of ``vmap``), then
+# the same batched plan as the unindexed group.
+
+
+def batch_hybrid_point_indexed(current, delta: Delta, index: NodeIndex,
+                               vs, tks, t_cur, cap: int):
+    return hybrid_point_degree(current,
+                               gather_nodes_ops(delta, index, vs, cap),
+                               vs, tks, t_cur)
+
+
+def batch_hybrid_diff_indexed(current, delta: Delta, index: NodeIndex,
+                              vs, tks, tls, t_cur, cap: int):
+    return batch_hybrid_diff(current, gather_nodes_ops(delta, index, vs, cap),
+                             vs, tks, tls, t_cur)
+
+
+def batch_delta_only_diff_indexed(delta: Delta, index: NodeIndex, vs, tks,
+                                  tls, cap: int):
+    return delta_only_degree_diff(gather_nodes_ops(delta, index, vs, cap),
+                                  vs, tks, tls)
+
+
 def batch_hybrid_agg_per_node(current, delta: Delta, vs, tks, tls,
                               w_q: int, agg: str):
     """Fallback for groups whose union window is too wide to
@@ -453,6 +486,7 @@ class _GroupKey:
     measure: str
     agg: str            # "" unless kind == "agg"
     anchor_id: int
+    indexed: bool
     windowed: bool
     partial: bool
     layout: str = "dense"
@@ -480,6 +514,7 @@ class HistoricalQueryEngine:
     def __init__(self, current: DenseGraph | None, delta, t_cur: int, *,
                  mat_times: Sequence[int] = (),
                  mat_snapshots: Sequence[DenseGraph] = (),
+                 index: NodeIndex | None = None, node_cap: int = 1024,
                  selection: Literal["time", "ops"] = "ops",
                  passes: int = 2, series_budget: int = 1 << 24,
                  current_edge: EdgeGraph | None = None,
@@ -495,6 +530,10 @@ class HistoricalQueryEngine:
         self.delta = delta
         self.view = delta if isinstance(delta, SegmentedDeltaView) else None
         self.t_cur = int(t_cur)
+        # node-centric index (§3.3.2) over the full log, by position;
+        # indexed groups gather at most node_cap ops of their node
+        self.index = index
+        self.node_cap = int(node_cap)
         self.passes = int(passes)
         # max elements of the shared all-nodes degree series one agg
         # group may materialize (i32; 1<<24 ≈ 64 MB)
@@ -530,7 +569,7 @@ class HistoricalQueryEngine:
             current=current if current is not None else current_edge,
             t_host=self.t_host)
         self.planner = Planner(
-            self.selector, n_cap=n_cap,
+            self.selector, n_cap=n_cap, index=index, node_cap=node_cap,
             selection=selection,
             e_cap=current_edge.e_cap if current_edge is not None else 0,
             dense_available=current is not None,
@@ -538,15 +577,25 @@ class HistoricalQueryEngine:
             seg_view=self.view)
 
     @classmethod
-    def from_store(cls, store, *, selection: Literal["time", "ops"] = "ops"):
+    def from_store(cls, store, *, indexed: bool = False,
+                   node_cap: int = 1024,
+                   selection: Literal["time", "ops"] = "ops"):
         current = store.current
         if not isinstance(current, DenseGraph):
             current = None  # edge-layout store: no N² state anywhere
-        return cls(current, store.delta_view(), store.t_cur,
+        if store.segmented:
+            # the segment view: no full-log device conversion, no O(M)
+            # host timestamp copy
+            dref, t_host = store.delta_view(), None
+        else:
+            dref, t_host = store.delta(), store.op_times_host()
+        return cls(current, dref, store.t_cur,
                    mat_times=store.materialized.times,
                    mat_snapshots=store.materialized.snapshots,
-                   selection=selection,
-                   current_edge=store.current_edge_snapshot())
+                   index=store.node_index() if indexed else None,
+                   node_cap=node_cap, selection=selection,
+                   current_edge=store.current_edge_snapshot(),
+                   t_host=t_host)
 
     # ------------------------------------------------------ edge anchors
 
@@ -602,7 +651,8 @@ class HistoricalQueryEngine:
             "groups": [
                 {"plan": k.plan, "kind": k.kind, "measure": k.measure,
                  "layout": k.layout, "anchor_id": k.anchor_id,
-                 "windowed": k.windowed, "partial": k.partial, "batch": b}
+                 "indexed": k.indexed, "windowed": k.windowed,
+                 "partial": k.partial, "batch": b}
                 for k, b in self.last_group_stats],
         }
         tracer = active_tracer()
@@ -660,8 +710,8 @@ class HistoricalQueryEngine:
     def plan(self, q: Query) -> PlanChoice:
         return self.planner.choose(q, self.delta, self.t_cur)
 
-    def _resolve(self, q: Query, plan: str, partial_rows: bool | None,
-                 windowed: bool | None,
+    def _resolve(self, q: Query, plan: str, indexed: bool | None,
+                 partial_rows: bool | None, windowed: bool | None,
                  layout: str | None = None) -> PlanChoice:
         """Forced-plan / forced-variant resolution (mirrors the
         ``plans.evaluate`` kwargs).  ``layout="edge"`` falls back to
@@ -677,6 +727,9 @@ class HistoricalQueryEngine:
             c = PlanChoice(plan=plan, anchor_id=anchor.anchor_id,
                            t_anchor=anchor.t,
                            layout=self.planner.layout_for(q, plan))
+        if indexed is not None:
+            c = dataclasses.replace(
+                c, indexed=indexed and self.index is not None)
         if partial_rows is not None:
             c = dataclasses.replace(c, partial=partial_rows)
         if windowed is not None:
@@ -686,7 +739,7 @@ class HistoricalQueryEngine:
             anchor = self.selector.select(q.t_k, self.delta)
             c = dataclasses.replace(
                 c, plan="two_phase", anchor_id=anchor.anchor_id,
-                t_anchor=anchor.t,
+                t_anchor=anchor.t, indexed=False,
                 layout=self.planner.layout_for(q, "two_phase"))
         if c.plan != "two_phase":
             c = dataclasses.replace(c, partial=False, windowed=False,
@@ -711,14 +764,15 @@ class HistoricalQueryEngine:
             # partial reconstruction is a dense-rows concept
             c = dataclasses.replace(c, partial=False)
         if q.kind == "evolve":
-            c = dataclasses.replace(c, windowed=False, partial=False)
+            c = dataclasses.replace(c, indexed=False, windowed=False,
+                                    partial=False)
         return c
 
     def _group_key(self, q: Query, c: PlanChoice) -> _GroupKey:
         return _GroupKey(plan=c.plan, kind=q.kind, scope=q.scope,
                          measure=q.measure, agg=q.agg if q.kind == "agg"
                          else "", anchor_id=c.anchor_id,
-                         windowed=c.windowed,
+                         indexed=c.indexed, windowed=c.windowed,
                          partial=c.partial, layout=c.layout,
                          stride=q.stride if q.kind == "evolve" else 0)
 
@@ -756,9 +810,13 @@ class HistoricalQueryEngine:
                     tls: np.ndarray) -> Delta:
         """The delta operand of one delta-only / hybrid group: the union
         window — (min t_k, max t_l] for delta-only, the (min t_k, log
-        end] suffix for hybrid (its correction runs against SG_tcur)."""
+        end] suffix for hybrid (its correction runs against SG_tcur).
+        Indexed groups gather by log position, so they take the full
+        (position-stable) log."""
         if self.view is None:
             return self.delta
+        if key.indexed:
+            return self.view.full_delta()
         if key.plan == "delta_only":
             return self.view.window_delta(int(tks.min()), int(tls.max()))
         return self.view.window_delta(int(tks.min()), None)
@@ -794,11 +852,22 @@ class HistoricalQueryEngine:
         if key.plan in ("delta_only", "hybrid"):
             with trace_span("window_delta", plan=key.plan):
                 dlt = self._plan_delta(key, tks, tls)
+            cap = self.node_cap
             if key.plan == "delta_only":
+                if key.indexed:
+                    return batch_delta_only_diff_indexed(
+                        dlt, self.index, vs, tks, tls, cap)
                 return delta_only_degree_diff(dlt, vs, tks, tls)
             if key.kind == "point":
+                if key.indexed:
+                    return batch_hybrid_point_indexed(
+                        cur, dlt, self.index, vs, tks, self.t_cur, cap)
                 return hybrid_point_degree(cur, dlt, vs, tks, self.t_cur)
             if key.kind == "diff":
+                if key.indexed:
+                    return batch_hybrid_diff_indexed(
+                        cur, dlt, self.index, vs, tks, tls, self.t_cur,
+                        cap)
                 return batch_hybrid_diff(cur, dlt, vs, tks, tls,
                                          self.t_cur)
             # agg: one shared series over the union window; per-query
@@ -909,18 +978,17 @@ class HistoricalQueryEngine:
         """Evaluate B historical queries, grouped by (plan, anchor) and
         executed as one batched dispatch per group.
 
-        ``plan``/``partial_rows``/``windowed``/``layout`` force the
-        planner's choice uniformly; the default lets the cost model
-        decide per query.  Returns a list of numpy values in query order
-        (and the per-query ``PlanChoice`` list when ``return_choices``).
-        ``indexed=True`` and ``mesh`` are not ported yet and raise.
+        ``plan``/``indexed``/``partial_rows``/``windowed``/``layout``
+        force the planner's choice uniformly (``indexed`` only where the
+        engine carries the node-centric index); the default lets the
+        cost model decide per query.  Returns a list of numpy values in
+        query order (and the per-query ``PlanChoice`` list when
+        ``return_choices``).  ``mesh`` is not ported yet and raises.
 
         A watermarked engine (``t_served`` set by the serving layer)
         refuses queries past the watermark with ``WatermarkError``;
         ``enforce_watermark=False`` bypasses the check.
         """
-        if indexed:
-            not_ported("indexed=True (node-centric index variants)", "A4")
         if mesh is not None:
             not_ported("mesh= (multi-device serving)", "A12")
         if self.t_served is not None and enforce_watermark:
@@ -940,8 +1008,8 @@ class HistoricalQueryEngine:
         t_call = _clock.now()
         with trace_span("query", n=len(queries)) as top:
             with trace_span("plan", n=len(queries)):
-                choices = [self._resolve(q, plan, partial_rows, windowed,
-                                         layout)
+                choices = [self._resolve(q, plan, indexed, partial_rows,
+                                         windowed, layout)
                            for q in queries]
                 groups: dict[_GroupKey, list[int]] = {}
                 for i, (q, c) in enumerate(zip(queries, choices)):

@@ -74,11 +74,23 @@ class NodeIndex:
 
     def ops_of(self, v, cap: int):
         """Up to ``cap`` op indices touching node v (padded with -1)."""
-        start = int(self.row_ptr[v])
-        count = min(int(self.row_ptr[v + 1]) - start, cap)
-        out = torch.full((cap,), -1, dtype=I32, device=self.op_idx.device)
-        out[:count] = self.op_idx[start:start + count]
-        return out, count
+        ids = self.ops_of_many([int(v)], cap)[0]
+        return ids, int((ids >= 0).sum())
+
+    def ops_of_many(self, vs, cap: int) -> torch.Tensor:
+        """i32[B, cap]: row b holds up to ``cap`` op indices touching
+        node vs[b] (padded with -1) — gathered on the index's device,
+        with no read back to the host."""
+        dev = self.op_idx.device
+        vv = torch.as_tensor(vs, dtype=torch.int64).to(dev)
+        start = self.row_ptr[vv].to(torch.int64)
+        count = self.row_ptr[vv + 1].to(torch.int64) - start
+        k = torch.arange(cap, dtype=torch.int64, device=dev)
+        keep = k < count.unsqueeze(-1)
+        if self.op_idx.numel() == 0:
+            return torch.full(keep.shape, -1, dtype=I32, device=dev)
+        ids = (start.unsqueeze(-1) + k).clamp(max=self.op_idx.numel() - 1)
+        return torch.where(keep, self.op_idx[ids], -1).to(I32)
 
 
 def _csr(op: torch.Tensor, u: torch.Tensor, v: torch.Tensor, n_ops: int,
@@ -119,10 +131,7 @@ def build_node_index_host(delta: Delta, n_cap: int) -> NodeIndex:
                      op_idx=op_idx.to(delta.device), n_cap=n_cap)
 
 
-def gather_node_ops(delta: Delta, index: NodeIndex, v, cap: int) -> Delta:
-    """Delta restricted to ops touching node v, via the node index —
-    O(deg_ops) gathers instead of an O(M) scan."""
-    ids, n = index.ops_of(v, cap)
+def _gather(delta: Delta, ids: torch.Tensor, n_ops: int) -> Delta:
     safe = ids.clamp(min=0).to(torch.int64)
     good = ids >= 0
 
@@ -130,4 +139,20 @@ def gather_node_ops(delta: Delta, index: NodeIndex, v, cap: int) -> Delta:
         return torch.where(good, x[safe], torch.full_like(ids, fill))
 
     return Delta(op=g(delta.op, NOP), u=g(delta.u, 0), v=g(delta.v, 0),
-                 slot=g(delta.slot, 0), t=g(delta.t, T_PAD), n_ops=n)
+                 slot=g(delta.slot, 0), t=g(delta.t, T_PAD), n_ops=n_ops)
+
+
+def gather_node_ops(delta: Delta, index: NodeIndex, v, cap: int) -> Delta:
+    """Delta restricted to ops touching node v, via the node index —
+    O(deg_ops) gathers instead of an O(M) scan."""
+    ids, n = index.ops_of(v, cap)
+    return _gather(delta, ids, n)
+
+
+def gather_nodes_ops(delta: Delta, index: NodeIndex, vs, cap: int) -> Delta:
+    """``gather_node_ops`` for a batch of nodes in one step on the
+    delta's device: a Delta whose columns are [B, cap], row b holding
+    node vs[b]'s ops.  Padding entries are NOP at T_PAD, so every
+    entry counts as valid (``n_ops == cap``) — the batched plans
+    (``plans._signed_touch``) skip NOPs by their op code."""
+    return _gather(delta, index.ops_of_many(vs, cap), cap)

@@ -123,6 +123,35 @@ class Segment:
 
     # ----------------------------------------------------------- serialize
 
+    _COLS = ("op", "u", "v", "slot", "t")
+
+    def host_columns(self) -> dict[str, np.ndarray]:
+        """The compact host columns, for serialization
+        (``persist.manifest.save_segment_file`` writes them as one
+        (5, n) int32 block)."""
+        return {c: getattr(self, c) for c in self._COLS}
+
+    def save(self, path: str) -> int:
+        """Persist this segment atomically; returns the block crc32."""
+        from repro_torch.persist.manifest import save_segment_file
+        return save_segment_file(path, self.host_columns())
+
+    @classmethod
+    def load(cls, path: str, *, mmap: bool = True,
+             expected_crc: int | None = None,
+             device="cuda") -> "Segment":
+        """Rehydrate a sealed segment from disk.  With ``mmap`` (the
+        default) the host columns are read-only mmap-backed views —
+        construction reads only the header and boundary pages.  The
+        device ``Delta`` is always an explicit copy (``delta`` pads or
+        copies before ``.to(device)``), never a tensor sharing the
+        mapping.  ``expected_crc`` re-checks the manifest's CRC32 stamp
+        against the block content before the segment is trusted."""
+        from repro_torch.persist.manifest import load_segment_file
+        cols = load_segment_file(path, mmap=mmap, expected_crc=expected_crc)
+        return cls(cols["op"], cols["u"], cols["v"], cols["slot"],
+                   cols["t"], device=device)
+
     # ------------------------------------------------------------- stats
 
     @property

@@ -1,5 +1,6 @@
 """The temporal graph store: current snapshot + interval delta — the
-PyTorch mirror of ``repro.core.store`` (in memory, segmented log).
+PyTorch mirror of ``repro.core.store`` (segmented or monolithic log,
+optionally durable through ``repro_torch.persist``).
 
 Implements the paper's storage model (§2.2) and update loop
 (Algorithm 3): updates for the running time unit are accumulated in a
@@ -24,12 +25,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.delta import (ADD_EDGE, ADD_NODE, REM_EDGE, REM_NODE,
-                                    Delta, pow2_capacity)
+from repro_torch.core.delta import (ADD_EDGE, ADD_NODE, NOP, REM_EDGE,
+                                    REM_NODE, T_PAD, Delta, pow2_capacity)
 from repro_torch.core.engine import HistoricalQueryEngine
 from repro_torch.core.graph import (DenseGraph, EdgeGraph, dense_to_edge,
                                     empty_dense, empty_edge)
-from repro_torch.core.index import NodeIndex, build_node_index_host
+from repro_torch.core.index import (NodeIndex, build_node_index_host,
+                                    count_window_ops, gather_window)
 from repro_torch.core.materialize import (MaterializationPolicy,
                                           MaterializedStore)
 from repro_torch.core.plans import Query, evaluate
@@ -52,18 +54,22 @@ class TemporalGraphStore:
     def __init__(self, n_cap: int, e_cap: int | None = None,
                  policy: MaterializationPolicy | None = None,
                  enforce_invertible: bool = True,
-                 layout: str = "dense", segment_min_ops: int = 64,
+                 layout: str = "dense", segmented: bool = True,
+                 segment_min_ops: int = 64,
                  segment_device_budget: int | None = None,
                  device="cuda"):
         """``layout="edge"`` keeps the current snapshot in edge-slot
         form only — O(E + N) state, no N² array anywhere in the store.
         Materialization policies need the dense layout.
 
-        The host log is a sequence of immutable ``Segment``s split at
-        materialized-anchor and epoch-swap boundaries
-        (``core.segments``): ingest appends to one open tail, an epoch
-        swap seals + converts only that tail, and queries materialize
-        only the segments overlapping their (anchor, t) window.
+        ``segmented=True`` (default) keeps the host log as a sequence
+        of immutable ``Segment``s split at materialized-anchor and
+        epoch-swap boundaries (``core.segments``): ingest appends to one
+        open tail, an epoch swap seals + converts only that tail, and
+        queries materialize only the segments overlapping their
+        (anchor, t) window.  ``segmented=False`` is the monolithic
+        baseline (one device log rebuilt from the full history) — the
+        layout a durable root written with it recovers into.
         ``segment_min_ops`` is the minimum tail size worth sealing;
         ``segment_device_budget`` caps the device bytes sealed segments
         may occupy (cold ones are spilled to host and reloaded on
@@ -81,6 +87,7 @@ class TemporalGraphStore:
         self.e_cap = e_cap or 8 * n_cap
         self.t0 = 0
         self.t_cur = 0
+        self.segmented = bool(segmented)
         self.segment_min_ops = int(segment_min_ops)
         self.segment_device_budget = segment_device_budget
         self._segments: list[Segment] = []
@@ -120,6 +127,11 @@ class TemporalGraphStore:
         self._tail_cache: dict | None = None
         self._host_cache: dict | None = None
         self._view_cache: SegmentedDeltaView | None = None
+        # Durability hooks (repro_torch.persist.StorePersistence):
+        # attached by persist.open_store — ingest/advance/seal then log
+        # to the WAL and sealed segments are checkpointed to disk.  None
+        # (the default) keeps the store process-resident.
+        self.persist = None
 
     # ---------------------------------------------------------------- ingest
 
@@ -180,6 +192,22 @@ class TemporalGraphStore:
         return self._host("op")
 
     @property
+    def _u(self) -> np.ndarray:
+        return self._host("u")
+
+    @property
+    def _v(self) -> np.ndarray:
+        return self._host("v")
+
+    @property
+    def _slot(self) -> np.ndarray:
+        return self._host("slot")
+
+    @property
+    def _t(self) -> np.ndarray:
+        return self._host("t")
+
+    @property
     def log_len(self) -> int:
         """Total ops across sealed segments + the open tail."""
         return sum(s.n_ops for s in self._segments) + len(self._op_l)
@@ -222,7 +250,7 @@ class TemporalGraphStore:
         """Record a batch of update operations (paper Algorithm 3 lines
         1–6).  Ops must be time-ordered and strictly past ``t_cur``
         (closed time units are immutable).  Returns #accepted."""
-        accepted = 0
+        accepted: list[Op] = []
         try:
             for o in ops:
                 if not isinstance(o, Op):
@@ -245,16 +273,22 @@ class TemporalGraphStore:
                         if live and (a == o.u or b == o.u):
                             if self._apply_host(REM_EDGE, a, b):
                                 self._append(REM_EDGE, a, b, o.t)
-                                accepted += 1
+                                accepted.append(Op(REM_EDGE, a, b, o.t))
                 if self._apply_host(o.op, o.u, o.v):
                     self._append(o.op, o.u, o.v, o.t)
-                    accepted += 1
+                    accepted.append(o)
         finally:
             # invalidate even when a mid-batch op raises: the accepted
-            # prefix is already in the log and the host mirror
+            # prefix is already in the log and the host mirror.  The WAL
+            # records exactly what was appended (expansions included),
+            # so replay re-accepts it verbatim; a crash between the
+            # mutation and the log write loses only ops this call never
+            # acknowledged.
             if accepted:
                 self._invalidate()
-        return accepted
+                if self.persist is not None:
+                    self.persist.log_ops(accepted)
+        return len(accepted)
 
     def advance_to(self, t_next: int) -> None:
         """Close the current time unit (Algorithm 3 lines 7–9): apply the
@@ -263,11 +297,17 @@ class TemporalGraphStore:
         if t_next < self.t_cur:
             raise ValueError(f"cannot advance back to t={t_next} from "
                              f"t_cur={self.t_cur}")
+        if self.persist is not None:
+            self.persist.log_advance(t_next)
         tail_t = self._tail_host()["t"]
         new_ops = int(np.searchsorted(tail_t, t_next, side="right")
                       - np.searchsorted(tail_t, self.t_cur, side="right"))
-        # only the segments overlapping (t_cur, t_next] are materialized
-        delta = self.delta_view().window_delta(self.t_cur, t_next)
+        if self.segmented:
+            # only the segments overlapping (t_cur, t_next] — the open
+            # tail plus at most a boundary segment — are materialized
+            delta = self.delta_view().window_delta(self.t_cur, t_next)
+        else:
+            delta = self.delta()
         if self.layout == "edge":
             # rebase the anchor onto the latest (append-only) registry
             # first, so ops on newly registered slots land in range
@@ -301,7 +341,9 @@ class TemporalGraphStore:
         ``t_cur``) into an immutable ``Segment``.  Tails smaller than
         ``segment_min_ops`` stay open unless ``force`` (a volatile
         snapshot segment represents them in ``delta_view``).  Returns
-        #ops sealed."""
+        #ops sealed (always 0 for a monolithic store)."""
+        if not self.segmented:
+            return 0
         t_seal = self.t_cur if t_seal is None else int(t_seal)
         if t_seal > self.t_cur:
             raise ValueError(f"cannot seal at t={t_seal} past "
@@ -324,6 +366,11 @@ class TemporalGraphStore:
         self._t_sealed = t_seal
         # grow the merged-delta tree: O(log S) new nodes per seal
         build_merged_nodes(self._segments, self._merged)
+        if self.persist is not None:
+            # sealed-segment write hook: the cut is WAL-logged, then the
+            # immutable segment's compact arrays go to disk once
+            self.persist.on_seal(self, self._segments[-1],
+                                 len(self._segments) - 1, t_seal, k, force)
         # log content is unchanged — only the host partitioning moved
         self._tail_cache = None
         self._host_cache = None
@@ -335,6 +382,9 @@ class TemporalGraphStore:
         tail is non-empty) one volatile segment snapshotting the tail.
         The snapshot is immutable, so a frozen engine holding this view
         never observes later ingest."""
+        if not self.segmented:
+            raise ValueError("monolithic store has no segment view "
+                             "(segmented=False)")
         if self._view_cache is None:
             segs = list(self._segments)
             if self._op_l:
@@ -358,15 +408,32 @@ class TemporalGraphStore:
         if capacity is not None and capacity < n:
             raise ValueError(f"capacity {capacity} < n_ops {n}")
         cap = capacity or pow2_capacity(n)
-        d = self.delta_view().full_delta(cap)
+        if self.segmented:
+            d = self.delta_view().full_delta(cap)
+        else:
+            pad = cap - n
+
+            def col(x, fill):
+                return torch.from_numpy(np.concatenate(
+                    [x, np.full(pad, fill, np.int32)])).to(self.device)
+
+            d = Delta(op=col(self._op, NOP), u=col(self._u, 0),
+                      v=col(self._v, 0), slot=col(self._slot, 0),
+                      t=col(self._t, T_PAD), n_ops=n)
         if capacity is None:
             self._delta_cache = d
         return d
 
+    def op_times_host(self) -> np.ndarray:
+        """Sorted host copy of the log timestamps (sorted by
+        construction: ingest is append-only and time-ordered)."""
+        return self._t
+
     def op_count_source(self):
         """The cheapest object answering "#ops between two times": the
-        segment view (O(log S) per window)."""
-        return self.delta_view()
+        segment view (O(log S) per window) for segmented stores, the
+        cached host timestamps otherwise."""
+        return self.delta_view() if self.segmented else self.op_times_host()
 
     def node_index(self) -> NodeIndex:
         if self._index_cache is None:
@@ -415,9 +482,10 @@ class TemporalGraphStore:
         """Reconstruct SG_t (anchored at the best materialized snapshot
         if available, else at SG_tcur — Theorem 1).  Unwindowed calls
         route through the engine's per-anchor reconstruction LRU;
-        ``windowed=True`` materializes only the anchor→t segments.  An
+        ``windowed=True`` materializes only the anchor→t segments (a
+        monolithic store slices its log by the temporal index).  An
         edge-layout store returns an ``EdgeGraph``."""
-        view = self.delta_view()
+        view = self.delta_view() if self.segmented else self.delta()
         anchor_id = -1
         if use_materialized and self.materialized.times:
             selector = self.engine().selector
@@ -429,58 +497,104 @@ class TemporalGraphStore:
         if not windowed:
             return self.engine().reconstruct_cached(anchor_id, t,
                                                     layout=self.layout)
-        # the single LWW reconstruction masks exactly at the window
-        # bounds, so fully-covered leaf runs may come from the tree
-        delta = view.window_delta(min(t, t_a), max(t, t_a), merged=True)
+        if self.segmented:
+            # the single LWW reconstruction masks exactly at the window
+            # bounds, so fully-covered leaf runs may come from the tree
+            delta = view.window_delta(min(t, t_a), max(t, t_a),
+                                      merged=True)
+        else:
+            delta = view
+            cap = pow2_capacity(
+                count_window_ops(view, min(t, t_a), max(t, t_a)), 64)
+            if cap < view.capacity:
+                delta = gather_window(view, min(t, t_a), max(t, t_a), cap)
         if self.layout == "edge":
             return reconstruct_edge(self.current_edge_snapshot()
                                     if anchor_id == -1 else g_a,
                                     delta, t_a, t)
         return reconstruct_dense(g_a, delta, t_a, t)
 
-    def engine(self) -> HistoricalQueryEngine:
+    def engine(self, *, indexed: bool = False,
+               node_cap: int = 1024) -> HistoricalQueryEngine:
         """The historical-query engine over the current store state
         (cached; invalidated by ingest/advance, by a change to the
-        materialized-snapshot set)."""
+        materialized-snapshot set, by a different ``node_cap``, or by
+        asking for the node-centric index the cached engine lacks).  An
+        engine built with an index keeps it for later unindexed calls —
+        the planner simply has more statistics."""
         e = self._engine_cache
-        if (e is None
+        if (e is None or (indexed and e.index is None)
+                or e.node_cap != node_cap
                 or e.selector.times != self.materialized.times):
-            e = HistoricalQueryEngine.from_store(self)
+            keep_index = indexed or (e is not None and e.index is not None)
+            e = HistoricalQueryEngine.from_store(self, indexed=keep_index,
+                                                 node_cap=node_cap)
             self._engine_cache = e
         return e
 
-    def freeze_serving_state(self) -> HistoricalQueryEngine:
+    def freeze_serving_state(self, *, indexed: bool = False,
+                             node_cap: int = 1024) -> HistoricalQueryEngine:
         """Build the frozen serving view of the current store state —
         the epoch-swap hook for ``repro_torch.serving``: seal the epoch's
         tail and convert ONLY it (the sealed history is already on the
-        device from earlier freezes), spill cold segments past the byte
-        budget, rebase the edge snapshot onto the grown registry, and
-        build the engine.  The engine is immutable with respect to later
-        ``ingest`` calls."""
-        self.seal_tail(self.t_cur)
-        self.delta_view().ensure_device(self.segment_device_budget)
+        device from earlier freezes; a monolithic store converts its
+        whole log), spill cold segments past the byte budget, rebase the
+        edge snapshot onto the grown registry, and build the engine
+        (with the node-centric index when ``indexed``).  The engine is
+        immutable with respect to later ``ingest`` calls."""
+        if self.segmented:
+            self.seal_tail(self.t_cur)
+            self.delta_view().ensure_device(self.segment_device_budget)
+        else:
+            self.delta()
         if self.layout == "edge":
             self.current = self.current_edge_snapshot()
-        return self.engine()
+        return self.engine(indexed=indexed, node_cap=node_cap)
 
-    def query(self, q: Query, plan: str = "auto", **kw):
+    # ------------------------------------------------------------ durability
+
+    def flush(self) -> None:
+        """Checkpoint the durable state (no-op for a process-resident
+        store): rotate the WAL behind a fresh manifest so recovery
+        replays only what happened after this call.  The WAL itself is
+        fsync'd per record — flush bounds recovery *time*, it is not
+        needed for recovery *correctness*."""
+        if self.persist is not None:
+            self.persist.checkpoint(self)
+
+    def close(self) -> None:
+        """Flush and release the durability layer.  The store stays
+        queryable (its state is in memory); later mutations would no
+        longer be logged, so treat it as read-only after."""
+        if self.persist is not None:
+            self.persist.checkpoint(self)
+            self.persist.close()
+
+    def query(self, q: Query, plan: str = "auto", indexed: bool = False,
+              **kw):
         """Single-query compat shim (prefer ``repro_torch.api.
         GraphSession`` or ``evaluate_many``)."""
+        index = self.node_index() if indexed else None
         if plan == "auto":
             plan = self.engine().planner.choose(q, self.delta(),
                                                 self.t_cur).plan
         cur = (self.current_edge_snapshot() if self.layout == "edge"
                else self.current)
-        return evaluate(cur, self.delta(), self.t_cur, q, plan=plan, **kw)
+        return evaluate(cur, self.delta(), self.t_cur, q, index=index,
+                        plan=plan, **kw)
 
     def evaluate_many(self, queries, plan: str = "auto", *,
-                      layout: str | None = None, **kw):
+                      indexed: bool = False, layout: str | None = None,
+                      **kw):
         """Batched multi-query serving through the engine's grouped
         executor (one device dispatch per (plan, anchor, layout)
-        group).  ``layout`` forces dense/edge execution ("auto"/None
-        lets the planner's N²-vs-E cost term decide)."""
-        return self.engine().evaluate_many(queries, plan, layout=layout,
-                                           **kw)
+        group).  ``indexed`` builds the node-centric index and forces
+        the indexed variants of delta-only / hybrid groups; ``layout``
+        forces dense/edge execution ("auto"/None lets the planner's
+        N²-vs-E cost term decide)."""
+        return self.engine(indexed=indexed).evaluate_many(
+            queries, plan, indexed=True if indexed else None,
+            layout=layout, **kw)
 
     def evolve(self, measure: str, t_lo: int, t_hi: int, *,
                stride: int = 1, v: int | None = None,

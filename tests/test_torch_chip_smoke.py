@@ -1,4 +1,7 @@
-"""``chip_smoke.py``'s kernel comparison, read on CPU tensors.
+"""``chip_smoke.py``'s host side, read on CPU tensors: the kernel
+comparison, the design counts, and phases 7 and 8 rehearsed at a small
+size (root layout, answer comparison, acknowledgements, the crash
+child and its arguments).
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -173,3 +176,153 @@ def test_degree_series_design_counts_match_work_list(small_store,
         torch.clamp((counts + 99) // 100, min=1).sum())
     assert got["heaviest_block_events"] == int(sizes.max()) <= 100
     assert got["split_tiles"] == int((counts > 100).sum())
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8's host side: root layout, answers, acks, the crash child
+# ---------------------------------------------------------------------------
+
+
+N_DURABLE = 256
+
+
+def _memory(layout, n, ops, qmix, sw):
+    """What phase 3 / 4 hands phase 7: the in-memory session's answers,
+    snapshot and current (here on the CPU)."""
+    run = chip_smoke.run_session(ops, n, layout, "cpu", qmix, sw,
+                                 e_cap=8 * n if layout == "edge" else None)
+    return dict(answers=run["answers"], sweeps=run["sweeps"],
+                snapshot=chip_smoke._to_cpu(run["snapshot"]),
+                current=chip_smoke._to_cpu(run["session"].store.current))
+
+
+def test_root_bytes_counts_a_durable_root(tmp_path):
+    from repro_torch.api import GraphSession
+    from repro_torch.persist import read_manifest
+    root = str(tmp_path / "g")
+    s = GraphSession(path=root, n_cap=N_DURABLE, device="cpu",
+                     segment_min_ops=8)
+    for b in chip_smoke.batches(chip_smoke.make_ops(200, 7), 3):
+        s.ingest(b)
+        s.flush()
+    s.close()
+    got = chip_smoke.root_bytes(root)
+    man = read_manifest(root)
+    assert got["manifest"] == os.path.getsize(os.path.join(root,
+                                                           "MANIFEST.json"))
+    assert got["wal_files"] == 1
+    assert got["segment_files"] == len(man["segments"]) == 3
+    assert got["total"] == got["manifest"] + got["wal"] + got["segments"]
+    assert got["total"] == sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, fs in os.walk(root) for f in fs)
+
+
+def test_reopen_split_reads_the_recovery_spans(tmp_path):
+    """``reopen`` reads its split from ``open_store``'s trace spans: a
+    root with sealed segments and unflushed WAL records splits into
+    steps that are each non-negative and add up to the whole open, and
+    a tracer installed before the reopen is installed again after."""
+    from repro_torch.api import GraphSession
+    from repro_torch.obs.trace import Tracer, active_tracer, \
+        install_tracer, uninstall_tracer
+    root = str(tmp_path / "g")
+    s = GraphSession(path=root, n_cap=N_DURABLE, device="cpu",
+                     segment_min_ops=8)
+    parts = chip_smoke.batches(chip_smoke.make_ops(200, 7), 3)
+    for b in parts[:2]:
+        s.ingest(b)
+        s.flush()
+    s.ingest(parts[2])                     # left in the WAL: replayed
+    del s
+    outer = install_tracer(Tracer())
+    try:
+        steps = {}
+        got = chip_smoke.reopen(root, "cpu", steps)
+        assert active_tracer() is outer
+    finally:
+        uninstall_tracer(outer)
+    got.close()
+    keys = {"segments_s", "tree_s", "wal_read_s", "host_rebuild_s",
+            "card_rebuild_s", "replay_s", "load_s", "serve_s", "open_s"}
+    assert set(steps) == keys
+    assert all(v >= 0 for v in steps.values()), steps
+    assert steps["load_s"] >= (steps["segments_s"] + steps["tree_s"]
+                               + steps["wal_read_s"])
+    whole = sum(steps[k] for k in ("load_s", "host_rebuild_s",
+                                   "card_rebuild_s", "replay_s",
+                                   "serve_s"))
+    assert whole == pytest.approx(steps["open_s"])
+    assert steps["segments_s"] > 0 and steps["replay_s"] > 0
+
+
+def test_crash_child_arguments():
+    args = chip_smoke.parse_args(["--crash-child", "/data/graph",
+                                  "--dense-nodes", "64", "--seed", "3"])
+    assert (args.crash_child, args.dense_nodes, args.seed) == (
+        "/data/graph", 64, 3)
+    default = chip_smoke.parse_args([])
+    assert default.crash_child is None and default.dense_nodes == 8192
+
+
+def test_read_acks(tmp_path):
+    path = tmp_path / "acks.log"
+    path.write_text("batch 12\nswap 12\nbatch 30\n")
+    assert chip_smoke.read_acks(str(path)) == ([12, 30], [12])
+
+
+def test_answer_comparison_is_bit_for_bit():
+    import numpy as np
+    names = ["a", "b", "c"]
+    got = [np.int32(3), np.float32(0.0), np.arange(3)]
+    assert chip_smoke.differing(names, got, list(got)) == []
+    # -0.0 == 0.0 numerically, not in bits; a dtype or a length differs
+    assert chip_smoke.differing(
+        names, got, [np.int32(3), np.float32(-0.0), np.arange(3)]) == ["b"]
+    assert chip_smoke.differing(
+        names, got, [np.int64(3), got[1], got[2]]) == ["a"]
+    assert chip_smoke.differing(names, got, got[:2]) == ["count"]
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_phase_durable_on_the_cpu(tmp_path, layout):
+    """Phase 7 rehearsed at a small size on the CPU: every check of the
+    answers, snapshot, current and index holds; only the launch check
+    fails, since no kernel runs on the CPU."""
+    n = N_DURABLE if layout == "dense" else 4 * N_DURABLE
+    ops = chip_smoke.make_ops(n, 7)
+    qmix = chip_smoke.query_mix(ops[-1].t, n, layout == "dense", 7)
+    sw = chip_smoke.sweeps(ops[-1].t, qmix[0][0]["v"])
+    mem = _memory(layout, n, ops, qmix, sw)
+    kernel = "delta_apply" if layout == "dense" else "edge_delta_apply"
+    with pytest.raises(AssertionError) as exc:
+        chip_smoke.phase_durable(
+            layout, ops, n, layout, 7, mem, {}, kernel,
+            str(tmp_path / layout), device="cpu",
+            e_cap=8 * n if layout == "edge" else None)
+    assert str(exc.value) == f"{layout}: the reopen did not launch {kernel}"
+    # one changed answer is caught, and named
+    answers = list(mem["answers"])
+    mem["answers"][0] = mem["answers"][0] + 1
+    assert chip_smoke.held_to("x", mem, qmix, answers, mem["sweeps"],
+                              mem["snapshot"]) == [f"x: {qmix[0][0]}"]
+
+
+def test_phase_crash_on_the_cpu(tmp_path):
+    """Phase 8 rehearsed on the CPU: the child dies by SIGKILL after the
+    second swap's drain record, with two batches and one swap
+    acknowledged; the reopened store passes every check but the launch
+    check."""
+    import sys
+    n, root = N_DURABLE, str(tmp_path / "crash")
+    os.makedirs(root)
+    cmd = [sys.executable, "-c",
+           "import sys; sys.path[:0] = [%r, %r]; import chip_smoke; "
+           "sys.exit(chip_smoke.crash_child(%r, %d, 7, 'cpu'))"
+           % (ROOT, os.path.join(ROOT, "src"), root, n)]
+    with pytest.raises(AssertionError) as exc:
+        chip_smoke.phase_crash(chip_smoke.make_ops(n, 7), n, 7, root,
+                               device="cpu", child_cmd=cmd)
+    assert str(exc.value) == "crash: the reopen did not launch delta_apply"
+    batch_ts, swap_ws = chip_smoke.read_acks(os.path.join(root, "acks.log"))
+    assert len(batch_ts) == 2 and swap_ws == batch_ts[:1]

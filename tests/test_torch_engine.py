@@ -159,10 +159,10 @@ def test_plan_choices_match(dense_pair):
     _, ct = t.engine().evaluate_many([Query(**s) for s in specs],
                                      return_choices=True)
     for a, b in zip(cj, ct):
-        assert (a.plan, a.anchor_id, a.t_anchor, a.windowed, a.partial,
-                a.layout, a.cost) == (b.plan, b.anchor_id, b.t_anchor,
-                                      b.windowed, b.partial, b.layout,
-                                      b.cost)
+        assert (a.plan, a.anchor_id, a.t_anchor, a.indexed, a.windowed,
+                a.partial, a.layout, a.cost) == (
+            b.plan, b.anchor_id, b.t_anchor, b.indexed, b.windowed,
+            b.partial, b.layout, b.cost)
 
 
 def test_materialized_anchors(dense_pair):
@@ -286,10 +286,75 @@ def test_store_query_shim(dense_pair):
 def test_off_slice_engine_arguments_raise(dense_pair):
     _, t = dense_pair
     q = [Query("point", "global", "num_edges", t_k=3)]
-    with pytest.raises(NotImplementedError, match="A4"):
-        t.engine().evaluate_many(q, indexed=True)
     with pytest.raises(NotImplementedError, match="A12"):
         t.engine().evaluate_many(q, mesh=object())
+
+
+def _indexed_specs(tc, v_small, v_big):
+    """Node-scope degree queries on a node within ``node_cap`` ops and
+    one past it (point → hybrid, diff → delta-only or hybrid, agg →
+    hybrid agg), plus queries the index never serves."""
+    specs = []
+    for v in (v_small, v_big):
+        specs += [
+            dict(kind="point", scope="node", measure="degree", t_k=tc // 3,
+                 v=v),
+            dict(kind="point", scope="node", measure="degree", t_k=tc - 2,
+                 v=v),
+            dict(kind="diff", scope="node", measure="degree", t_k=tc // 4,
+                 t_l=tc // 4 + 3, v=v),
+            dict(kind="diff", scope="node", measure="degree", t_k=tc // 2,
+                 t_l=tc - 1, v=v),
+            dict(kind="agg", scope="node", measure="degree", t_k=tc // 2,
+                 t_l=tc // 2 + 6, v=v, agg="max"),
+        ]
+    return specs + [
+        dict(kind="point", scope="global", measure="num_edges", t_k=tc // 2),
+        dict(kind="evolve", scope="node", measure="degree", t_k=1,
+             t_l=tc - 1, stride=2, v=v_small)]
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_indexed_answers_and_choices_match(layout):
+    """The node-centric index (paper §3.3.2): with the index built and a
+    ``node_cap`` between two nodes' op counts, the planner's choices
+    (``indexed`` included) and the answers equal ``repro``'s; the node
+    past ``node_cap`` stays unindexed in both.  Forcing ``indexed=True``
+    on every query gives ``repro``'s answers too."""
+    j, t = _pair(layout)
+    counts = np.diff(np.asarray(j.node_index().row_ptr))
+    np.testing.assert_array_equal(
+        counts, np.diff(t.node_index().row_ptr.numpy()))
+    order = np.argsort(counts, kind="stable")
+    v_small, v_big = int(order[len(order) // 2]), int(order[-1])
+    node_cap = int(counts[v_small])
+    assert counts[v_big] > node_cap
+    specs = _indexed_specs(j.t_cur, v_small, v_big)
+    a, cj = j.engine(indexed=True, node_cap=node_cap).evaluate_many(
+        [JQuery(**s) for s in specs], return_choices=True)
+    b, ct = t.engine(indexed=True, node_cap=node_cap).evaluate_many(
+        [Query(**s) for s in specs], return_choices=True)
+    for s, x, y, c1, c2 in zip(specs, a, b, cj, ct):
+        eq(x, y)
+        assert (c1.plan, c1.anchor_id, c1.t_anchor, c1.indexed,
+                c1.windowed, c1.partial, c1.layout, c1.cost) == (
+            c2.plan, c2.anchor_id, c2.t_anchor, c2.indexed, c2.windowed,
+            c2.partial, c2.layout, c2.cost), s
+    assert any(c.indexed for c in ct)
+    big = [c for s, c in zip(specs, ct) if s.get("v") == v_big
+           and s["kind"] != "evolve"]
+    assert any(c.plan in ("hybrid", "delta_only") for c in big)
+    assert not any(c.indexed for c in big)
+    assert any(k.indexed for k, _ in t.engine(
+        indexed=True, node_cap=node_cap).last_group_stats)
+    _both(j, t, specs, indexed=True)
+    # the planner's cost ties go to hybrid: force the indexed delta-only
+    diffs = [s for s in specs if s["kind"] == "diff"]
+    _both(j, t, diffs, plan="delta_only", indexed=True)
+    # the single-query shim through the index (plans.evaluate)
+    for s in specs[:4]:
+        eq(j.query(JQuery(**s), indexed=True),
+           t.query(Query(**s), indexed=True))
 
 
 def test_single_query_plans(dense_pair):

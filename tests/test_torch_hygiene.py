@@ -55,6 +55,8 @@ def test_port_has_every_module_of_the_slice():
             "core/segments.py", "core/store.py", "core/generate.py",
             "core/engine.py", "serving/policy.py", "serving/ingest.py",
             "serving/frontend.py", "api.py", "convert.py",
+            "persist/__init__.py", "persist/manifest.py", "persist/wal.py",
+            "persist/recovery.py",
             "kernels/delta_apply/delta_apply.cu",
             "kernels/edge_delta_apply/edge_delta_apply.cu",
             "kernels/degree_series/degree_series.cu",
@@ -72,10 +74,11 @@ def test_port_has_every_module_of_the_slice():
     assert not missing
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch import resolve_device
     from repro_torch.api import GraphSession
     from repro_torch.core.store import TemporalGraphStore
+    from repro_torch.persist import open_store
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
@@ -83,6 +86,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
         GraphSession(n_cap=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TemporalGraphStore(8)
+    # a durable root: neither created nor recovered off the card
+    root = str(tmp_path / "g")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphSession(path=root, n_cap=8)
+    open_store(root, n_cap=8, device="cpu").store.close()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        open_store(root)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphSession.open(root)
     from repro_torch.config import reduced
     from repro_torch.configs import get_config
     from repro_torch.models import api as lm_api

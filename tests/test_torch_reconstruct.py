@@ -447,3 +447,25 @@ def test_indexes(hist):
     for v in (0, 5, 33):
         _eq_delta(JI.gather_node_ops(d, ji, v, 32),
                   TI.gather_node_ops(td, ti, v, 32))
+
+
+@pytest.mark.parametrize("cap", [4, 32])
+def test_gather_nodes_ops_rows_match_jax(hist, cap):
+    """The batched on-device gather: row b of the [B, cap] sub-delta is
+    JAX's ``gather_node_ops`` of node vs[b], for nodes over the cap,
+    within it and with no ops at all."""
+    from repro.core import index as JI
+    from repro_torch.core import index as TI
+    st, d, td = hist
+    ji = JI.build_node_index(d, st.n_cap)
+    ti = TI.build_node_index(td, st.n_cap)
+    counts = np.diff(np.asarray(ji.row_ptr))
+    vs = np.asarray([0, 5, 33, int(counts.argmax()), int(counts.argmin()),
+                     5], np.int32)
+    assert counts[vs].max() > cap and counts[vs].min() < cap
+    got = TI.gather_nodes_ops(td, ti, vs, cap)
+    assert got.n_ops == cap and got.capacity == cap
+    for b, v in enumerate(vs):
+        want = JI.gather_node_ops(d, ji, int(v), cap)
+        for c in ("op", "u", "v", "slot", "t"):
+            eq(getattr(want, c), getattr(got, c)[b])
