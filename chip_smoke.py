@@ -69,11 +69,37 @@ Phases, in order (any failure exits non-zero):
    must hold every acknowledged batch, and every query of the mix at
    t ≤ the recovered watermark, ``current`` and a snapshot must
    bit-match a from-scratch card session over the same ops, before and
-   after a ``flush``.
+   after a ``flush``;
+9. replication — on both layouts, at the configurations of phases 3 and
+   4: a durable writer publishes every swap (``publish_to``) into a
+   publish root; replica A (``GraphSession.open_replica``) syncs after
+   each flush and must catch up by diff (``rotate`` / ``incremental``,
+   no full rebuild); replica B opens after the last flush — readonly
+   recovery on the card, which must launch dense (dense) or edge-slot
+   (edge) LWW — on dense with an anchor budget, whose
+   ``refresh_anchors`` after the routed mix must launch dense LWW; a
+   router (``open_router``) over both serves the mix twice (A, then B),
+   A is stopped and the mix routed again (failover to B), and a batch
+   past every watermark must raise ``WatermarkError``: every answer and
+   each replica's ``current`` must equal the in-memory session's bit for
+   bit.  On dense also replica T, synced by its own poll thread
+   (``start``, after each of A's syncs) while the main thread serves
+   the covered queries of the mix from it, again and again, until it
+   reaches the new watermark (engines built on the card while older
+   ones answer; the thread is stopped then, before any launch count is
+   read), a replica whose transport
+   flips a bit of the first segment fetch (one payload quarantined,
+   answers exact), and a kill -9: a child (``--replica-child``) reopens a copy of A's mirror
+   from an earlier swap, syncs and SIGKILLs itself after the new segment
+   files reach the mirror and before its manifest rename; the mirror,
+   reopened on the card, must serve its old watermark before any fetch
+   and rejoin by diff.  Printed: publish seconds and bytes a swap, sync
+   seconds by mode, bytes fetched, B's open split (``recovery.*``
+   spans), routed and failover seconds, peak device memory.
 
-Phases 7 and 8 run right after phase 4.
+Phases 7, 8 and 9 run right after phase 4.
 
-Phases 3, 4, 7 and 8 zero the launch counters before driving each
+Phases 3, 4, 7, 8 and 9 zero the launch counters before driving each
 session (and each reopen) and read them after: each kernel the layout
 should use must have launched.
 A sample of the answers must equal, bit for bit, those of the same
@@ -1190,26 +1216,35 @@ def recovery_split(events: list[dict], open_s: float) -> dict:
     return steps
 
 
-def reopen(root: str, device, steps: dict):
-    """``GraphSession.open(root, indexed=True)`` — crash recovery on
-    ``device`` — with its host time split by ``recovery_split`` from a
-    tracer installed for the call."""
-    from repro_torch import api
+def traced(fn, device):
+    """``fn()`` under a ``Tracer`` installed for the call (the one
+    installed before, if any, is put back after): its result, the
+    recorded trace events and its host seconds, the card synchronized
+    before and after."""
     from repro_torch.obs.trace import (Tracer, active_tracer,
                                        install_tracer, uninstall_tracer)
     before, tracer = active_tracer(), install_tracer(Tracer())
     try:
         _sync(device)
         t0 = time.perf_counter()
-        s = api.GraphSession.open(root, device=device, indexed=True,
-                                  slow_query_ms=None)
+        out = fn()
         _sync(device)
-        open_s = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
     finally:
         uninstall_tracer(tracer)
         if before is not None:
             install_tracer(before)
-    steps.update(recovery_split(tracer.events(), open_s))
+    return out, tracer.events(), seconds
+
+
+def reopen(root: str, device, steps: dict):
+    """``GraphSession.open(root, indexed=True)`` — crash recovery on
+    ``device`` — with its host time split by ``recovery_split`` from a
+    tracer installed for the call."""
+    from repro_torch import api
+    s, events, open_s = traced(lambda: api.GraphSession.open(
+        root, device=device, indexed=True, slow_query_ms=None), device)
+    steps.update(recovery_split(events, open_s))
     return s
 
 
@@ -1516,6 +1551,484 @@ def phase_crash(ops, n_cap: int, seed: int, root: str, device="cuda",
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: replication — a durable writer publishing, read replicas on
+# the card, a watermark-aware router
+# ---------------------------------------------------------------------------
+
+# the dense anchor-budget replica may hold this many snapshots of its own
+REPLICA_ANCHORS = 4
+
+
+class CountingTransport:
+    """A transport that counts its fetches (the restarted replica must
+    serve before it makes one)."""
+
+    def __init__(self, inner):
+        self.inner, self.fetches = inner, 0
+
+    def fetch(self, relpath: str, *, timeout=None) -> bytes:
+        self.fetches += 1
+        return self.inner.fetch(relpath, timeout=timeout)
+
+
+class Stoppable:
+    """A router target that can be stopped, as a replica whose host went
+    away: once stopped, its heartbeat and its queries fail."""
+
+    def __init__(self, target):
+        self.target, self.stopped = target, False
+
+    def _alive(self) -> None:
+        if self.stopped:
+            raise ConnectionError("replica stopped")
+
+    @property
+    def watermark(self) -> int:
+        return self.target.watermark
+
+    def status(self) -> dict:
+        self._alive()
+        return self.target.status()
+
+    def evaluate_many(self, queries, plan="auto", **kw):
+        self._alive()
+        return self.target.evaluate_many(queries, plan, **kw)
+
+
+def served(answers) -> list:
+    """Answers boxed as a session's frontend returns them (a 0-d result
+    as its Python scalar), so they compare with a session's bit for
+    bit."""
+    import numpy as np
+    out = []
+    for a in answers:
+        a = np.asarray(a)
+        out.append(a.item() if a.ndim == 0 else a)
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    """Launches of each kernel since the counters read ``before`` (the
+    kernels launched at least once)."""
+    from repro_torch.kernels import build
+    return {k: n - before.get(k, 0) for k, n in build.LAUNCHES.items()
+            if n > before.get(k, 0)}
+
+
+def replica_child(publish_root: str, local_root: str, device="cuda") -> int:
+    """Phase 9's child: reopen the replica mirror at ``local_root`` (on
+    ``device``) and sync it from ``publish_root``; it SIGKILLs itself
+    inside that sync, after the new segment files and WAL reach the
+    mirror and before the mirror's manifest rename.  Returns 3 if it
+    lived to the end."""
+    import signal
+
+    from repro_torch.persist import manifest as mf
+    from repro_torch.replica import LocalDirTransport, ReadReplica
+    write_manifest = mf.write_manifest
+
+    def die_before_rename(root, manifest):
+        if os.path.abspath(root) == os.path.abspath(local_root):
+            os.kill(os.getpid(), signal.SIGKILL)
+        return write_manifest(root, manifest)
+
+    mf.write_manifest = die_before_rename
+    replica = ReadReplica(LocalDirTransport(publish_root), local_root,
+                          name="child", device=device)
+    replica.sync()
+    return 3
+
+
+def _replica_kill(pub: str, mirror: str, w_old: int, memory: dict, qmix,
+                  device, child_cmd) -> dict:
+    """The kill -9 of phase 9: a child reopens ``mirror`` (a replica's
+    mirror at watermark ``w_old``) and dies mid-sync; the mirror is then
+    reopened here before any fetch, must serve ``w_old`` (the mix's
+    queries at t ≤ ``w_old``), and rejoins by diff."""
+    import signal
+
+    from repro_torch.core.plans import Query
+    from repro_torch.kernels import build
+    from repro_torch.persist import manifest as mf
+    from repro_torch.replica import LocalDirTransport, ReadReplica
+    t0 = time.perf_counter()
+    proc = subprocess.run(child_cmd(pub, mirror), capture_output=True,
+                          text=True, timeout=CHILD_TIMEOUT_S)
+    out = dict(child_s=time.perf_counter() - t0, child_rc=proc.returncode,
+               w_old=w_old, bad=[])
+    if proc.returncode != -signal.SIGKILL:
+        out["bad"].append(f"replica child exited {proc.returncode}, not by "
+                          f"SIGKILL: {proc.stderr[-2000:]}")
+        return out
+    named = {e["file"] for e in mf.read_manifest(mirror)["segments"]}
+    on_disk = {os.path.join(mf.SEGMENT_DIR, f)
+               for f in os.listdir(os.path.join(mirror, mf.SEGMENT_DIR))}
+    out["segments_beyond_manifest"] = len(on_disk - named)
+    guard = CountingTransport(LocalDirTransport(pub))
+    before = dict(build.LAUNCHES)
+    _sync(device)
+    t0 = time.perf_counter()
+    rep = ReadReplica(guard, mirror, name="restarted", device=device)
+    _sync(device)
+    out["restart_s"] = time.perf_counter() - t0
+    out["restart_launches"] = launches_since(before)
+    out["fetches_before_serving"] = guard.fetches
+    out["watermark_restart"] = rep.watermark
+    old = [(q, a) for (q, _), a in zip(qmix, memory["answers"])
+           if max(q["t_k"], q.get("t_l") or 0) <= w_old]
+    out["old_queries"] = len(old)
+    got = served(rep.evaluate_many([Query(**q) for q, _ in old]))
+    out["bad"] += [f"restart at {w_old}: {q}" for q in differing(
+        [q for q, _ in old], got, [a for _, a in old])]
+    t0 = time.perf_counter()
+    rec = rep.sync()
+    _sync(device)
+    out["rejoin_s"] = time.perf_counter() - t0
+    out["rejoin_mode"] = rec["mode"]
+    out["stats"] = rep.stats.asdict()
+    out["watermark"] = rep.watermark
+    got = served(rep.evaluate_many([Query(**q) for q, _ in qmix]))
+    out["bad"] += [f"rejoined: {q}" for q in differing(
+        [q for q, _ in qmix], got, memory["answers"])]
+    if not same_graph(_to_cpu(rep.store.current), memory["current"]):
+        out["bad"].append("rejoined: current")
+    return out
+
+
+def serve_while_syncing(rep, qmix, memory: dict, target: int, out: dict,
+                        timeout: float = CHILD_TIMEOUT_S) -> None:
+    """Start ``rep``'s poll thread and, until it reaches watermark
+    ``target``, answer the queries of the mix it covers, again and
+    again; then stop the thread.  History at or below a watermark is
+    immutable, so each answer must equal the in-memory session's
+    whichever engine served it.  Counts the answers checked and the
+    watermarks seen into ``out``, and whether the thread ended."""
+    from repro_torch.core.plans import Query
+    rep.start(0.01)
+    thread = rep._poll_thread
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            w = rep.watermark
+            cover = [(q, a) for (q, _), a in zip(qmix, memory["answers"])
+                     if max(q["t_k"], q.get("t_l") or 0) <= w]
+            if cover:
+                got = served(rep.evaluate_many([Query(**q)
+                                                for q, _ in cover]))
+                out["bad"] += [f"at {w}: {q}" for q in differing(
+                    [q for q, _ in cover], got, [a for _, a in cover])]
+                out["checked"] += len(cover)
+            out["watermarks"] = sorted(set(out["watermarks"]) | {w})
+            if w >= target:
+                break
+            if time.monotonic() > deadline:
+                out["bad"].append(f"never reached t={target} (at {w})")
+                break
+    finally:
+        rep.stop()
+    out["stopped"] = out.get("stopped", True) and not thread.is_alive()
+
+
+def phase_replication(name: str, ops, n_cap: int, layout: str, seed: int,
+                      memory: dict, work: str, e_cap=None, device="cuda",
+                      child_cmd=None) -> dict:
+    """Phase 9 on one layout: a durable writer publishes every swap
+    (``publish_to`` before its first batch); replica A syncs after each
+    flush; replica B opens after the last (readonly recovery on
+    ``device``; on dense with an anchor budget); a router over both
+    serves the mix of phase 3 / 4 twice (load spreads: A, then B), B's
+    anchors follow its traffic (dense), A is stopped and the mix routed
+    again (failover to B), and a batch past every watermark must raise.
+    On dense also replica T, syncing on its poll thread while this
+    thread serves the mix's covered queries from it after every flush, a
+    replica behind a transport that flips a bit of the first segment
+    fetch, and a kill -9 of a replica mid-sync
+    (``child_cmd(publish_root, mirror)``; default this script's
+    ``--replica-child``).  Returns what ``replication_failures`` reads;
+    raises ``AssertionError`` naming every failed check."""
+    import shutil
+
+    import torch
+
+    from repro_torch.api import GraphSession
+    from repro_torch.core.engine import WatermarkError, _snapshot_bytes
+    from repro_torch.core.plans import Query
+    from repro_torch.kernels import build
+    from repro_torch.persist import manifest as mf
+    from repro_torch.replica import (FaultInjector, FaultyTransport,
+                                     LocalDirTransport)
+    dense = layout == "dense"
+    child_cmd = child_cmd or (lambda pub, mirror: [
+        sys.executable, os.path.abspath(__file__), "--replica-child", pub,
+        mirror])
+    W, P = os.path.join(work, "writer"), os.path.join(work, "publish")
+    qmix = query_mix(ops[-1].t, n_cap, dense, seed)
+    qs = [Query(**q) for q, _ in qmix]
+    names = [q for q, _ in qmix]
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res = dict(bad=[], sync=[])
+
+    build.reset_launches()
+    s = GraphSession(path=W, n_cap=n_cap, e_cap=e_cap, layout=layout,
+                     device=device, slow_query_ms=None)
+    pub = s.publish_to(P)
+    a = GraphSession.open_replica(P, os.path.join(work, "A"), device=device,
+                                  name="A")
+    res["sync"].append(dict(mode="initial",
+                            seconds=a.stats.last_sync_seconds,
+                            records=a.stats.records_applied))
+    if dense:
+        # replica T syncs on its own poll thread, run after each of A's
+        # syncs, while this thread serves from it: new frozen engines
+        # are built on the card while the old ones answer
+        t_rep = GraphSession.open_replica(P, os.path.join(work, "T"),
+                                          device=device, name="T")
+        res["threaded"] = dict(checked=0, watermarks=[], bad=[])
+    res["writer_s"] = []
+    for i, b in enumerate(batches(ops, 4)):
+        t0 = time.perf_counter()
+        s.ingest(b)
+        s.flush()
+        _sync(device)
+        res["writer_s"].append(time.perf_counter() - t0)
+        rec = a.sync()
+        _sync(device)
+        res["sync"].append(dict(mode=rec["mode"], seconds=rec["seconds"],
+                                records=rec["records_applied"]))
+        if dense and i == 1:
+            # the kill -9's mirror: A's, as it stands between syncs
+            shutil.copytree(os.path.join(work, "A"),
+                            os.path.join(work, "K"))
+            w_old = a.watermark
+        if dense:
+            serve_while_syncing(t_rep, qmix, memory, s.watermark,
+                                res["threaded"])
+    if dense:
+        th = res["threaded"]
+        th.update(stats=t_rep.stats.asdict(), watermark=t_rep.watermark)
+        th["bad"] += [f"stopped: {q}" for q in differing(
+            names, served(t_rep.evaluate_many(qs)), memory["answers"])]
+        if not same_graph(_to_cpu(t_rep.store.current), memory["current"]):
+            th["bad"].append("stopped: current")
+        del t_rep
+    res["publish"] = [dict(epoch=r.epoch, segments=r.segments_shipped,
+                           bytes=r.bytes_shipped, seconds=r.seconds)
+                      for r in pub.history]
+    res["writer_watermark"] = s.watermark
+    res["a_watermark"] = a.watermark
+
+    before = dict(build.LAUNCHES)
+    budget = (REPLICA_ANCHORS * _snapshot_bytes(s.store.current)
+              if dense else None)
+    b, events, open_s = traced(lambda: GraphSession.open_replica(
+        P, os.path.join(work, "B"), device=device, name="B",
+        anchor_budget_bytes=budget), device)
+    res["b_open"] = recovery_split(events, open_s)
+    res["b_open_launches"] = launches_since(before)
+    for rep in (a, b):
+        if not same_graph(_to_cpu(rep.store.current), memory["current"]):
+            res["bad"].append(f"replica {rep.name}: current")
+
+    targets = {"A": Stoppable(a), "B": Stoppable(b)}
+    router = GraphSession.open_router(targets)
+    res["route_s"], res["routed_to"] = [], []
+    for _ in range(2):
+        served_before = {k: t.target.stats.queries_served
+                         for k, t in targets.items()}
+        _sync(device)
+        t0 = time.perf_counter()
+        got = router.evaluate_many(qs)
+        _sync(device)
+        res["route_s"].append(time.perf_counter() - t0)
+        res["routed_to"] += [k for k, t in targets.items()
+                             if t.target.stats.queries_served
+                             > served_before[k]]
+        res["bad"] += [f"routed: {q}" for q in differing(
+            names, served(got), memory["answers"])]
+    if dense:
+        before = dict(build.LAUNCHES)
+        b.refresh_anchors()
+        _sync(device)
+        res["anchor_launches"] = launches_since(before)
+        res["anchors"] = list(b.store.materialized.times)
+
+    targets["A"].stopped = True
+    _sync(device)
+    t0 = time.perf_counter()
+    got = router.evaluate_many(qs)
+    _sync(device)
+    res["failover_s"] = time.perf_counter() - t0
+    res["failovers"] = router.failovers
+    res["bad"] += [f"failover: {q}" for q in differing(
+        names, served(got), memory["answers"])]
+    try:
+        router.evaluate_many([Query("point", "global", "num_edges",
+                                    t_k=b.watermark + 1)])
+        res["watermark_error"] = False
+    except WatermarkError:
+        res["watermark_error"] = True
+    res["launches"] = launches_since({})
+    res["a_stats"], res["b_stats"] = a.stats.asdict(), b.stats.asdict()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    s.close()
+    del s, a, b, router, targets
+
+    if dense:
+        inj = FaultInjector(seed=seed)
+        inj.add(f"fetch:{mf.segment_name(0)}", "bit_flip", nth=1)
+        c = GraphSession.open_replica(
+            FaultyTransport(LocalDirTransport(P), inj),
+            os.path.join(work, "C"), device=device, name="C",
+            backoff_base=0.001)
+        res["fault"] = dict(fired=list(inj.fired),
+                            quarantined=c.stats.quarantined,
+                            files=len(os.listdir(os.path.join(
+                                work, "C", "quarantine"))))
+        res["bad"] += [f"faulty transport: {q}" for q in differing(
+            names, served(c.evaluate_many(qs)), memory["answers"])]
+        if not same_graph(_to_cpu(c.store.current), memory["current"]):
+            res["bad"].append("faulty transport: current")
+        del c
+        res["kill"] = _replica_kill(P, os.path.join(work, "K"), w_old,
+                                    memory, qmix, device, child_cmd)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    print(replication_line(name, res), flush=True)
+    bad = replication_failures(res, layout)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    print(f"{name} replication: {len(qs)} answers a route (A, B, then "
+          "failover to B) and each replica's current equal the in-memory "
+          "session's bit for bit", flush=True)
+    return res
+
+
+def replication_failures(res: dict, layout: str) -> list:
+    """Phase 9's verdict on one layout's results (``phase_replication``):
+    every failed check, named; empty when the phase passed."""
+    name = f"{layout} replication"
+    bad = [f"{name}: {b}" for b in res["bad"]]
+    modes = [r["mode"] for r in res["sync"]]
+    if not {"rotate", "incremental"} & set(modes):
+        bad.append(f"{name}: replica A never caught up by diff ({modes})")
+    if res["a_stats"]["full_rebuilds"]:
+        bad.append(f"{name}: replica A fell back to "
+                   f"{res['a_stats']['full_rebuilds']} full rebuilds")
+    if res["a_watermark"] != res["writer_watermark"]:
+        bad.append(f"{name}: replica A at {res['a_watermark']}, the writer "
+                   f"at {res['writer_watermark']}")
+    kernel = "delta_apply" if layout == "dense" else "edge_delta_apply"
+    if res["b_open_launches"].get(kernel, 0) == 0:
+        bad.append(f"{name}: replica B's open did not launch {kernel}")
+    for k in ("edge_delta_apply", "degree_series") + (
+            ("delta_apply",) if layout == "dense" else ()):
+        if res["launches"].get(k, 0) == 0:
+            bad.append(f"{name}: kernel {k} never launched")
+    if layout == "edge" and res["launches"].get("delta_apply", 0):
+        bad.append(f"{name}: kernel delta_apply launched "
+                   f"{res['launches']['delta_apply']} times on a path that "
+                   "must not use it")
+    if "anchor_launches" in res and not res["anchor_launches"].get(
+            "delta_apply", 0):
+        bad.append(f"{name}: replica B's refresh_anchors did not launch "
+                   "delta_apply")
+    if sorted(res["routed_to"]) != ["A", "B"]:
+        bad.append(f"{name}: the two routes went to {res['routed_to']}, "
+                   "not A and B")
+    if res["failovers"] != 1:
+        bad.append(f"{name}: {res['failovers']} failovers, not 1")
+    if not res["watermark_error"]:
+        bad.append(f"{name}: a batch past every watermark was answered")
+    th = res.get("threaded")
+    if th is not None:
+        bad += [f"{name}: threaded replica: {b}" for b in th["bad"]]
+        if not th["stopped"]:
+            bad.append(f"{name}: threaded replica: the poll thread did not "
+                       "stop")
+        if th["watermark"] != res["writer_watermark"] or th["stats"][
+                "full_rebuilds"]:
+            bad.append(f"{name}: threaded replica at {th['watermark']} "
+                       f"after {th['stats']['full_rebuilds']} full rebuilds")
+    if "fault" in res and (res["fault"]["quarantined"], res["fault"]["files"]
+                           ) != (1, 1):
+        bad.append(f"{name}: the bit flip quarantined "
+                   f"{res['fault']['quarantined']} payloads, not 1")
+    k = res.get("kill")
+    if k is not None:
+        bad += [f"{name}: kill -9: {b}" for b in k["bad"]]
+    if k is not None and "stats" in k:
+        if k["segments_beyond_manifest"] == 0:
+            bad.append(f"{name}: the child died before a new segment file "
+                       "reached its mirror")
+        if (k["fetches_before_serving"], k["watermark_restart"]) != (
+                0, k["w_old"]):
+            bad.append(f"{name}: the restart served watermark "
+                       f"{k['watermark_restart']} after "
+                       f"{k['fetches_before_serving']} fetches (the mirror "
+                       f"held {k['w_old']}, served before any fetch)")
+        if k["stats"]["segments_reused"] == 0 or k["stats"]["full_rebuilds"]:
+            bad.append(f"{name}: the restart did not rejoin by diff "
+                       f"({k['stats']})")
+        if k["watermark"] != res["writer_watermark"]:
+            bad.append(f"{name}: the restart rejoined at {k['watermark']}")
+        if not k["restart_launches"].get(kernel, 0):
+            bad.append(f"{name}: the restart from the mirror did not "
+                       f"launch {kernel}")
+    return bad
+
+
+def replication_line(name: str, res: dict) -> str:
+    """Phase 9's printed line: the writer's seconds a batch (ingest and
+    flush, the publish included), publish seconds and bytes a swap, sync
+    seconds by mode, bytes fetched, replica B's open split, routed and
+    failover seconds, peak device memory."""
+    by_mode: dict = {}
+    for r in res["sync"]:
+        by_mode.setdefault(r["mode"], []).append(r["seconds"])
+    line = (f"{name} replication: writer ingest + flush s a batch "
+            + " ".join(f"{x:.3f}" for x in res["writer_s"])
+            + "; publish s/bytes a swap "
+            + ", ".join(f"{p['seconds']:.3f}/{p['bytes']}"
+                        for p in res["publish"])
+            + "; A syncs " + ", ".join(
+                f"{m} {' '.join(f'{x:.3f}' for x in v)} s"
+                for m, v in by_mode.items())
+            + f", fetched {res['a_stats']['bytes_fetched']} bytes; B open "
+            + ", ".join(f"{k} {v:.3f}" for k, v in res["b_open"].items())
+            + f", fetched {res['b_stats']['bytes_fetched']} bytes, launches "
+            f"{res['b_open_launches']}; routed query_many "
+            + " / ".join(f"{x:.3f}" for x in res["route_s"])
+            + f" s to {res['routed_to']}, failover {res['failover_s']:.3f} s"
+            + (f"; anchors {res['anchors']} (launches "
+               f"{res['anchor_launches']})" if "anchors" in res else "")
+            + f"; launches {res['launches']}; peak device memory "
+            + (f"{res['peak_bytes'] / 2**30:.2f} GiB"
+               if res["peak_bytes"] is not None else "not measured"))
+    th = res.get("threaded")
+    if th is not None:
+        line += (f"; threaded replica T: {th['checked']} answers checked "
+                 f"while it synced, watermarks {th['watermarks']}, "
+                 f"{th['stats']['syncs']} syncs")
+    if "fault" in res:
+        line += (f"; bit flip {res['fault']['fired']} quarantined "
+                 f"{res['fault']['quarantined']}")
+    k = res.get("kill")
+    if k and "stats" in k:
+        line += (f"; kill -9 child {k['child_s']:.1f} s, restart at "
+                 f"{k['watermark_restart']} in {k['restart_s']:.3f} s "
+                 f"({k['fetches_before_serving']} fetches, launches "
+                 f"{k['restart_launches']}, {k['old_queries']} old "
+                 "queries), rejoin "
+                 f"{k['rejoin_mode']} {k['rejoin_s']:.3f} s, segments "
+                 f"reused {k['stats']['segments_reused']} fetched "
+                 f"{k['stats']['segments_fetched']}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 and 6: the decoder LMs
 # ---------------------------------------------------------------------------
 
@@ -1813,6 +2326,11 @@ def parse_args(argv=None):
                     help="phase 8's child: run the dense configuration "
                          "durably at ROOT and die mid-swap (the parent "
                          "starts it)")
+    ap.add_argument("--replica-child", nargs=2,
+                    metavar=("PUBLISH_ROOT", "MIRROR"),
+                    help="phase 9's child: reopen the replica mirror, "
+                         "sync it from the publish root and die mid-sync "
+                         "(the parent starts it)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
     return ap.parse_args(argv)
@@ -1836,6 +2354,8 @@ def main(argv=None) -> int:
         return first_call(args.seed)
     if args.crash_child:
         return crash_child(args.crash_child, args.dense_nodes, args.seed)
+    if args.replica_child:
+        return replica_child(*args.replica_child)
     phases = {}
 
     t0 = time.perf_counter()
@@ -1891,13 +2411,27 @@ def main(argv=None) -> int:
                 edge_mem, edge_expect, "edge_delta_apply",
                 os.path.join(work, "edge"), e_cap=args.edge_e_cap)}
         phases["durable_s"] = time.perf_counter() - t0
-        del dense_mem, edge_mem
         t0 = time.perf_counter()
         crash = phase_crash(dense_ops, args.dense_nodes, args.seed,
                             os.path.join(work, "crash"))
         phases["crash_s"] = time.perf_counter() - t0
+        # phase 9 — replication: a writer, replicas on the card, a router
+        gc.collect()
+        torch.cuda.empty_cache()
+        replication = {}
+        for layout, ops, n, e_cap, mem in (
+                ("dense", dense_ops, args.dense_nodes, None, dense_mem),
+                ("edge", edge_ops, args.edge_nodes, args.edge_e_cap,
+                 edge_mem)):
+            t0 = time.perf_counter()
+            os.makedirs(os.path.join(work, f"replication_{layout}"))
+            replication[layout] = phase_replication(
+                layout, ops, n, layout, args.seed, mem,
+                os.path.join(work, f"replication_{layout}"), e_cap=e_cap)
+            phases[f"replication_{layout}_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    del dense_mem, edge_mem
     # the sessions' graphs of objects hold card memory until the cycle
     # collector runs; the LM phases read their peak memory from here
     gc.collect()
@@ -1920,11 +2454,14 @@ def main(argv=None) -> int:
         runs[f"{layout} durable"] = d["launches"]
         runs[f"{layout} reopen"] = d["reopen_launches"]
     runs["crash reopen"] = crash["launches"]
+    for layout, r in replication.items():
+        runs[f"{layout} replication"] = r["launches"]
     for arch, r in lms.items():
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
     for k in kernels:
-        k["launches_by_run"] = {run: n[k["name"]] for run, n in runs.items()}
+        k["launches_by_run"] = {run: n.get(k["name"], 0)
+                               for run, n in runs.items()}
         k["launches"] = sum(k["launches_by_run"].values())
         print(f"kernel {k['name']}: {k['ms']:.4f} ms (host "
               f"{k['host_ms']:.4f} ms)  plain "
@@ -1937,7 +2474,7 @@ def main(argv=None) -> int:
     report = dict(card=smi, torch=torch.__version__,
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
                   dense=dense, edge=edge, durable=durable, crash=crash,
-                  lms=lms, args=vars(args))
+                  replication=replication, lms=lms, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)

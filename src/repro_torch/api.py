@@ -27,11 +27,14 @@ the PyTorch mirror of ``repro.api`` (single device)::
 * ``indexed=True`` (a ``LiveGraphStore`` keyword, with ``node_cap``)
   serves node-scope delta-only / hybrid queries through the
   node-centric index.
+* ``publish_to`` makes a durable session a replication source;
+  ``open_replica`` mirrors one into a ``ReadReplica`` on its own
+  ``device`` and ``open_router`` fronts replicas with a watermark-aware
+  ``QueryRouter`` (``repro_torch.replica``).
 * ``device`` defaults to ``"cuda"`` and raises without a card;
   ``device="cpu"`` runs the plain PyTorch versions of the kernels.
 * Not ported yet, and raising ``NotImplementedError`` naming the
-  ROADMAP step that ports them: ``mesh=`` (A12) and ``publish_to`` /
-  ``open_replica`` / ``open_router`` (A11).
+  ROADMAP step that ports it: ``mesh=`` (A12).
 """
 from __future__ import annotations
 
@@ -84,6 +87,7 @@ class GraphSession:
         self._metrics = (default_registry() if metrics is None
                          else metrics)
         self._tracer: Tracer | None = None
+        self._publisher = None
         pending: list[Op] = []
         if path is not None:
             # ``policy`` here is the SERVING rebalance policy (it goes to
@@ -278,12 +282,50 @@ class GraphSession:
     # --------------------------------------------------------- replication
 
     def publish_to(self, publish_root: str):
-        not_ported("publish_to (replication)", "A11")
+        """Make this (durable) session a replication source: every
+        epoch swap ships its checkpoint's manifest diff — new sealed
+        segments, the current WAL, the manifest last — into
+        ``publish_root``.  Returns the ``SegmentPublisher``; hand
+        ``publisher.transport()`` (or just the directory) to
+        ``GraphSession.open_replica`` on the read side."""
+        if self.path is None:
+            raise ValueError("an in-memory session has no checkpoint "
+                             "artifacts to publish; open with path=...")
+        from repro_torch.replica import SegmentPublisher
+        pub = SegmentPublisher(self.path, publish_root).attach(self.live)
+        pub.publish()                    # ship the current state eagerly
+        self._publisher = pub
+        return pub
 
     @classmethod
-    def open_replica(cls, source, local_root: str, **kw):
-        not_ported("open_replica (replication)", "A11")
+    def open_replica(cls, source, local_root: str, device="cuda", **kw):
+        """Open a ``ReadReplica`` of a writer on ``device``: ``source``
+        is a writer's publish/store directory (string) or any
+        ``Transport``.  The replica mirrors into ``local_root``, serves
+        at its own watermark, and keyword args (``fetch_timeout``,
+        ``anchor_budget_bytes``, ``seed``, ...) pass through.  Call
+        ``.sync()`` per poll or ``.start(interval)`` for a background
+        fetch loop."""
+        from repro_torch.replica import LocalDirTransport, ReadReplica
+        transport = (LocalDirTransport(source) if isinstance(source, str)
+                     else source)
+        replica = ReadReplica(transport, local_root, device=device, **kw)
+        try:
+            replica.sync()
+        except Exception:
+            # source unreachable at open: a replica with a local mirror
+            # still serves its old watermark; a fresh one waits for the
+            # first successful sync (stats carry the error)
+            if replica.store is None:
+                raise
+        return replica
 
     @staticmethod
     def open_router(replicas: dict | None = None, **kw):
-        not_ported("open_router (replication)", "A11")
+        """A watermark-aware ``QueryRouter``; ``replicas`` maps name ->
+        target (``ReadReplica`` or anything with its serving surface)."""
+        from repro_torch.replica import QueryRouter
+        router = QueryRouter(**kw)
+        for name, target in (replicas or {}).items():
+            router.register(name, target)
+        return router

@@ -365,7 +365,8 @@ def open_store(root: str, *, n_cap: int | None = None,
                policy=None, segment_min_ops: int | None = None,
                segment_device_budget: int | None = None,
                enforce_invertible: bool | None = None,
-               fsync: bool = True, metrics=None,
+               fsync: bool = True, verify: bool = False,
+               readonly: bool = False, metrics=None,
                device="cuda") -> Recovered:
     """Open (or create) a durable store root.
 
@@ -380,7 +381,17 @@ def open_store(root: str, *, n_cap: int | None = None,
     Segment files whose manifest entry carries a ``crc32`` stamp are
     re-verified against it at open — a bit-flipped block raises
     ``SegmentCorruptError`` instead of serving silently wrong history.
-    The WAL is CRC-framed per record.
+    ``verify=True`` additionally cross-checks each file's (n_ops,
+    t_min, t_max) against its manifest entry; the WAL is CRC-framed
+    per record regardless.
+
+    ``readonly=True`` is the replica open: it recovers the exact state
+    the artifacts describe (manifest -> segments -> WAL-prefix replay,
+    torn tails tolerated) but attaches NO persistence — the WAL is
+    never repaired, truncated, or reopened for append, no stray-file
+    cleanup runs, and the returned store has ``persist=None`` so its
+    mutation paths log nothing.  The root may be another process's
+    live directory or a replica's local mirror of one.
 
     ``device`` holds the store (default ``"cuda"``, which raises
     without a card): sealed segments go there as explicit copies of
@@ -389,6 +400,9 @@ def open_store(root: str, *, n_cap: int | None = None,
     """
     manifest = mf.read_manifest(root) if os.path.isdir(root) else None
     if manifest is None:
+        if readonly:
+            raise ValueError(f"{root!r} has no manifest — a readonly "
+                             "open cannot create a store")
         if n_cap is None:
             raise ValueError(f"{root!r} has no manifest and no n_cap was "
                              "given to create a fresh store")
@@ -413,12 +427,13 @@ def open_store(root: str, *, n_cap: int | None = None,
         return _recover(root, manifest, n_cap=n_cap, e_cap=e_cap,
                         layout=layout, policy=policy,
                         segment_device_budget=segment_device_budget,
-                        fsync=fsync, metrics=metrics, device=device)
+                        fsync=fsync, verify=verify, readonly=readonly,
+                        metrics=metrics, device=device)
 
 
 def _recover(root: str, manifest: dict, *, n_cap, e_cap, layout, policy,
-             segment_device_budget, fsync: bool, metrics,
-             device) -> Recovered:
+             segment_device_budget, fsync: bool, verify: bool,
+             readonly: bool, metrics, device) -> Recovered:
     """``open_store`` on an existing root: manifest -> segments -> WAL
     base record -> host and device rebuild -> replay of the rest of the
     WAL.  Each step is a ``recovery.*`` trace span."""
@@ -436,9 +451,15 @@ def _recover(root: str, manifest: dict, *, n_cap, e_cap, layout, policy,
 
     with trace_span("recovery.segments", n=len(manifest["segments"])):
         for entry in manifest["segments"]:
-            store._segments.append(Segment.load(
-                os.path.join(root, entry["file"]),
-                expected_crc=entry.get("crc32"), device=store.device))
+            seg = Segment.load(os.path.join(root, entry["file"]),
+                               expected_crc=entry.get("crc32"),
+                               device=store.device)
+            if verify and (seg.n_ops != entry["n_ops"]
+                           or seg.t_min != entry["t_min"]
+                           or seg.t_max != entry["t_max"]):
+                raise ValueError(f"{entry['file']}: content does not "
+                                 "match its manifest entry")
+            store._segments.append(seg)
     store._t_sealed = int(manifest["t_sealed"])
     with trace_span("recovery.tree"):
         build_merged_nodes(store._segments, store._merged)
@@ -468,6 +489,14 @@ def _recover(root: str, manifest: dict, *, n_cap, e_cap, layout, policy,
         _rebuild_device_state(store, manifest["anchors"])
 
     pending: list = []
+    if readonly:
+        # no persistence attached: replay through the public mutation
+        # API exactly as below (store.persist is None, so nothing
+        # logs), leave the artifacts byte-untouched
+        with trace_span("recovery.replay", records=len(records) - 1):
+            _replay(store, records[1:], pending)
+        return Recovered(store=store, pending=pending)
+
     persist = StorePersistence(root, fsync=fsync, metrics=metrics)
     persist.wal_seq = wal_seq
     for i, entry in enumerate(manifest["segments"]):

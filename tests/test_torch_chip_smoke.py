@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s host side, read on CPU tensors: the kernel
-comparison, the design counts, and phases 7 and 8 rehearsed at a small
+comparison, the design counts, phases 7 and 8 rehearsed at a small
 size (root layout, answer comparison, acknowledgements, the crash
-child and its arguments).
+child and its arguments), and phase 9's replica child, its verdict and
+a rehearsal.
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -326,3 +327,142 @@ def test_phase_crash_on_the_cpu(tmp_path):
     assert str(exc.value) == "crash: the reopen did not launch delta_apply"
     batch_ts, swap_ws = chip_smoke.read_acks(os.path.join(root, "acks.log"))
     assert len(batch_ts) == 2 and swap_ws == batch_ts[:1]
+
+
+# ---------------------------------------------------------------------------
+# Phase 9's host side: the replica child, the verdict, a CPU rehearsal
+# ---------------------------------------------------------------------------
+
+
+def test_replica_child_arguments():
+    args = chip_smoke.parse_args(["--replica-child", "/data/pub",
+                                  "/data/mirror"])
+    assert args.replica_child == ["/data/pub", "/data/mirror"]
+    assert args.crash_child is None
+    assert chip_smoke.parse_args([]).replica_child is None
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_args(["--replica-child", "/data/pub"])
+
+
+def _passing(layout):
+    """Phase 9's results on one layout as a passing run leaves them."""
+    res = dict(
+        bad=[], sync=[dict(mode="initial", seconds=0.0, records=0)]
+        + [dict(mode="rotate", seconds=0.5, records=10)] * 4,
+        writer_watermark=40, a_watermark=40,
+        a_stats=dict(full_rebuilds=0), b_stats=dict(full_rebuilds=0),
+        b_open_launches={"delta_apply" if layout == "dense"
+                         else "edge_delta_apply": 1},
+        launches={"edge_delta_apply": 9, "degree_series": 3},
+        routed_to=["A", "B"], failovers=1, watermark_error=True)
+    if layout == "dense":
+        res["launches"]["delta_apply"] = 7
+        res["anchor_launches"] = {"delta_apply": 4}
+        res["fault"] = dict(quarantined=1, files=1)
+        res["threaded"] = dict(checked=30, watermarks=[0, 20, 40], bad=[],
+                               stopped=True, watermark=40,
+                               stats=dict(syncs=50, full_rebuilds=0))
+        res["kill"] = dict(bad=[], w_old=20, segments_beyond_manifest=2,
+                           fetches_before_serving=0, watermark_restart=20,
+                           watermark=40, restart_launches={
+                               "delta_apply": 1},
+                           stats=dict(segments_reused=3, full_rebuilds=0))
+    return res
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_replication_verdict_passes_a_passing_run(layout):
+    assert chip_smoke.replication_failures(_passing(layout), layout) == []
+
+
+@pytest.mark.parametrize("change,message", [
+    (lambda r: r["bad"].append("routed: q"), "routed: q"),
+    (lambda r: [x.update(mode="rebuild") for x in r["sync"][1:]],
+     "replica A never caught up by diff"),
+    (lambda r: r["a_stats"].update(full_rebuilds=1),
+     "replica A fell back to 1 full rebuilds"),
+    (lambda r: r.update(a_watermark=39), "replica A at 39, the writer at 40"),
+    (lambda r: r.update(b_open_launches={}),
+     "replica B's open did not launch delta_apply"),
+    (lambda r: r["launches"].pop("degree_series"),
+     "kernel degree_series never launched"),
+    (lambda r: r.update(anchor_launches={}),
+     "replica B's refresh_anchors did not launch delta_apply"),
+    (lambda r: r.update(routed_to=["A", "A"]),
+     "the two routes went to ['A', 'A'], not A and B"),
+    (lambda r: r.update(failovers=0), "0 failovers, not 1"),
+    (lambda r: r.update(watermark_error=False),
+     "a batch past every watermark was answered"),
+    (lambda r: r["fault"].update(quarantined=2, files=2),
+     "the bit flip quarantined 2 payloads, not 1"),
+    (lambda r: r["kill"].update(segments_beyond_manifest=0),
+     "the child died before a new segment file reached its mirror"),
+    (lambda r: r["kill"].update(fetches_before_serving=1),
+     "the restart served watermark 20 after 1 fetches"),
+    (lambda r: r["kill"]["stats"].update(segments_reused=0),
+     "the restart did not rejoin by diff"),
+    (lambda r: r["kill"].update(watermark=30), "the restart rejoined at 30"),
+    (lambda r: r["kill"]["bad"].append("rejoined: current"),
+     "kill -9: rejoined: current"),
+    (lambda r: r["kill"].update(restart_launches={}),
+     "the restart from the mirror did not launch delta_apply"),
+    (lambda r: r["threaded"]["bad"].append("at 20: q"),
+     "threaded replica: at 20: q"),
+    (lambda r: r["threaded"].update(stopped=False),
+     "threaded replica: the poll thread did not stop"),
+    (lambda r: r["threaded"].update(watermark=20),
+     "threaded replica at 20 after 0 full rebuilds"),
+], ids=["answers", "modes", "rebuilds", "lag", "open-launch", "launch",
+        "anchors", "spread", "failover", "watermark", "quarantine",
+        "mirror", "restart", "diff", "rejoin", "kill-answers",
+        "restart-launch", "threaded-answers", "threaded-stop",
+        "threaded-lag"])
+def test_replication_verdict_names_each_failed_check(change, message):
+    res = _passing("dense")
+    change(res)
+    bad = chip_smoke.replication_failures(res, "dense")
+    assert len(bad) == 1 and bad[0].startswith("dense replication: ")
+    assert message in bad[0]
+
+
+def test_replication_verdict_refuses_b1_on_the_edge_layout():
+    res = _passing("edge")
+    res["launches"]["delta_apply"] = 2
+    assert chip_smoke.replication_failures(res, "edge") == [
+        "edge replication: kernel delta_apply launched 2 times on a path "
+        "that must not use it"]
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_phase_replication_on_the_cpu(tmp_path, layout):
+    """Phase 9 rehearsed at a small size on the CPU (the dense kill -9
+    child too): every check holds but the launch checks, since no kernel
+    runs on the CPU."""
+    import sys
+    n = N_DURABLE if layout == "dense" else 4 * N_DURABLE
+    e_cap = 8 * n if layout == "edge" else None
+    ops = chip_smoke.make_ops(n, 7)
+    qmix = chip_smoke.query_mix(ops[-1].t, n, layout == "dense", 7)
+    sw = chip_smoke.sweeps(ops[-1].t, qmix[0][0]["v"])
+    mem = _memory(layout, n, ops, qmix, sw)
+
+    def child_cmd(pub, mirror):
+        return [sys.executable, "-c",
+                "import sys; sys.path[:0] = [%r, %r]; import chip_smoke; "
+                "sys.exit(chip_smoke.replica_child(%r, %r, 'cpu'))"
+                % (ROOT, os.path.join(ROOT, "src"), pub, mirror)]
+
+    with pytest.raises(AssertionError) as exc:
+        chip_smoke.phase_replication(layout, ops, n, layout, 7, mem,
+                                     str(tmp_path), e_cap=e_cap,
+                                     device="cpu", child_cmd=child_cmd)
+    kernel = "delta_apply" if layout == "dense" else "edge_delta_apply"
+    want = [f"replica B's open did not launch {kernel}",
+            "kernel edge_delta_apply never launched",
+            "kernel degree_series never launched"]
+    if layout == "dense":
+        want += ["kernel delta_apply never launched",
+                 "replica B's refresh_anchors did not launch delta_apply",
+                 "the restart from the mirror did not launch delta_apply"]
+    assert str(exc.value) == "; ".join(f"{layout} replication: {w}"
+                                       for w in want)

@@ -56,7 +56,9 @@ def test_port_has_every_module_of_the_slice():
             "core/engine.py", "serving/policy.py", "serving/ingest.py",
             "serving/frontend.py", "api.py", "convert.py",
             "persist/__init__.py", "persist/manifest.py", "persist/wal.py",
-            "persist/recovery.py",
+            "persist/recovery.py", "replica/__init__.py",
+            "replica/faults.py", "replica/shipping.py", "replica/replica.py",
+            "replica/router.py",
             "kernels/delta_apply/delta_apply.cu",
             "kernels/edge_delta_apply/edge_delta_apply.cu",
             "kernels/degree_series/degree_series.cu",
@@ -95,6 +97,15 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         open_store(root)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GraphSession.open(root)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        open_store(root, readonly=True)
+    # a replica: neither opened over a transport nor restarted from its
+    # mirror off the card
+    from repro_torch.replica import LocalDirTransport, ReadReplica
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphSession.open_replica(root, str(tmp_path / "rep"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReadReplica(LocalDirTransport(root), str(tmp_path / "rep"))
     from repro_torch.config import reduced
     from repro_torch.configs import get_config
     from repro_torch.models import api as lm_api

@@ -25,28 +25,13 @@ import sys
 
 import numpy as np
 
-# the harness's constants and stream parameters, repeated here so the
+# the harness's constants and stream, from the port's generator: the
 # child never imports the harness (which generates with ``repro``)
-N_CAP = 48
-N_NODES = 32
-SEED = 11
-SWAP_EVERY = 3
-SEGMENT_MIN_OPS = 8
-STREAM = dict(m_attach=3, lam_extra=1.0, lam_remove=1.0,
-              p_remove_node=0.02, events_per_unit=6)
+from torch_harness import N_CAP, N_NODES, SEED, SEGMENT_MIN_OPS, SWAP_EVERY
+from torch_harness import grid as _grid
+from torch_harness import proposal_units
+
 COLS = ("op", "u", "v", "slot", "t")
-
-
-def proposal_units() -> list[list[tuple]]:
-    """``persist_harness.proposal_units`` from the port's generator, as
-    ``(op, u, v, t)`` tuples (``test_stream_matches_harness`` holds the
-    two streams equal)."""
-    from repro_torch.core.generate import EvolutionParams, generate_ops
-    ops = generate_ops(N_NODES, EvolutionParams(**STREAM), seed=SEED)
-    units: dict[int, list] = {}
-    for o in ops:
-        units.setdefault(o.t, []).append((o.op, o.u, o.v, o.t))
-    return [units[t] for t in sorted(units)]
 
 
 # ---------------------------------------------------------------------------
@@ -165,26 +150,6 @@ def _child_env():
                          + env.get("PYTHONPATH", ""))
     env.setdefault("JAX_PLATFORMS", "cpu")
     return env
-
-
-def _grid(t_lo: int, t_hi: int) -> list[dict]:
-    """``test_persist._grid``: global counts, node degrees, a diff range
-    at every unit of [t_lo, t_hi], and the degree distribution."""
-    qs = []
-    for t in range(t_lo, t_hi + 1):
-        qs.append(dict(kind="point", scope="global", measure="num_edges",
-                       t_k=t))
-        qs.append(dict(kind="point", scope="global", measure="num_nodes",
-                       t_k=t))
-        for v in (0, 3, 7):
-            qs.append(dict(kind="point", scope="node", measure="degree",
-                           t_k=t, v=v))
-        if t > t_lo:
-            qs.append(dict(kind="diff", scope="node", measure="degree",
-                           t_k=t_lo, t_l=t, v=1))
-    qs.append(dict(kind="point", scope="global",
-                   measure="degree_distribution", t_k=t_hi))
-    return qs
 
 
 _ORACLES: dict = {}
@@ -461,7 +426,7 @@ def test_reopen_without_close_replays_wal(tmp_path):
         store.ingest(unit)
         store.advance_to(unit[-1][3])
     # ... process dies here (no flush/close)
-    got = tpersist.open_store(root, device="cpu").store
+    got = tpersist.open_store(root, verify=True, device="cpu").store
     assert got.t_cur == store.t_cur
     _matches_oracle(got, "dense", 1, got.t_cur)
 
@@ -486,6 +451,9 @@ def test_open_config_guards(tmp_path):
     root = str(tmp_path / "g")
     with pytest.raises(ValueError, match="no manifest"):
         tpersist.open_store(root, device="cpu")
+    with pytest.raises(ValueError, match="no manifest"):
+        tpersist.open_store(root, n_cap=16, readonly=True, device="cpu")
+    assert not os.path.exists(root)      # a readonly open creates nothing
     store = tpersist.open_store(root, n_cap=16, layout="dense",
                                 device="cpu").store
     store.close()
@@ -518,6 +486,77 @@ def test_segment_bitflip_raises(tmp_path):
         fh.write(bytes([b[0] ^ 0x10]))
     with pytest.raises(tpersist.SegmentCorruptError, match="crc32 mismatch"):
         tpersist.open_store(root, device="cpu")
+    with pytest.raises(tpersist.SegmentCorruptError):
+        tpersist.open_store(root, readonly=True, device="cpu")
+
+
+def test_verify_cross_checks_the_manifest_entries(tmp_path):
+    """``verify=True`` holds each segment's (n_ops, t_min, t_max) to its
+    manifest entry, as the reference does; an entry that disagrees with
+    an intact file (its CRC stamp still right) passes the default open
+    and fails the verified one, in both packages."""
+    root = str(tmp_path / "g")
+    store = tpersist.open_store(root, n_cap=16, segment_min_ops=1,
+                                device="cpu").store
+    store.ingest([Op(ADD_NODE, i, i, i + 1) for i in range(6)])
+    store.advance_to(6)
+    store.seal_tail(6)
+    store.close()
+    tpersist.open_store(root, verify=True, device="cpu").store.close()
+    man = tmf.read_manifest(root)
+    man["segments"][0]["t_max"] += 1
+    tmf.write_manifest(root, {k: v for k, v in man.items()
+                              if k != "version"})
+    tpersist.open_store(root, readonly=True, device="cpu")
+    for open_verified in (
+            lambda: tpersist.open_store(root, verify=True, readonly=True,
+                                        device="cpu"),
+            lambda: jpersist.open_store(root, verify=True, readonly=True)):
+        with pytest.raises(ValueError, match="does not match its manifest"):
+            open_verified()
+
+
+def _snapshot_files(root: str) -> dict[str, bytes]:
+    return {rel: open(p, "rb").read() for rel, p in _tree(root).items()}
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_readonly_open_leaves_the_root_byte_identical(tmp_path, layout):
+    """A readonly open of a live root — sealed segments, a rotated WAL
+    with records past its base and a torn frame at its end — recovers
+    the WAL's intact prefix (the reference oracle's answers) with no
+    persistence attached, and leaves every file as it was: the torn
+    tail is not truncated, no stray file is swept, nothing is added."""
+    root = str(tmp_path / "g")
+    units = proposal_units()
+    store = tpersist.open_store(root, n_cap=N_CAP, layout=layout,
+                                segment_min_ops=SEGMENT_MIN_OPS,
+                                device="cpu").store
+    for unit in units[:6]:
+        store.ingest(unit)
+        store.advance_to(unit[-1][3])
+    store.flush()
+    for unit in units[6:9]:
+        store.ingest(unit)
+        store.advance_to(unit[-1][3])
+    wal_path = os.path.join(root, tmf.wal_name(
+        tmf.read_manifest(root)["wal_seq"]))
+    with open(wal_path, "ab") as fh:     # half a frame: a torn append
+        fh.write(b"\x40\x00\x00\x00\x12\x34")
+    stray = os.path.join(root, tmf.wal_name(99))
+    with open(stray, "wb") as fh:        # what _clean_stray_wals removes
+        fh.write(twal.MAGIC)
+    before = _snapshot_files(root)
+
+    rec = tpersist.open_store(root, readonly=True, device="cpu")
+    got = rec.store
+    assert got.persist is None and rec.pending == []
+    assert got.t_cur == store.t_cur
+    _matches_oracle(got, layout, 1, got.t_cur, ctx="readonly")
+    got.ingest([Op(ADD_NODE, N_CAP - 1, N_CAP - 1, got.t_cur + 1)])
+    got.advance_to(got.t_cur + 1)        # mutations log nothing
+    got.seal_tail(got.t_cur, force=True)
+    assert _snapshot_files(root) == before
 
 
 def test_recovers_exact_prefix_at_every_wal_cut(tmp_path):

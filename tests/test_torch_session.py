@@ -298,11 +298,35 @@ def test_off_slice_keywords_raise(kw, step):
         GraphSession(n_cap=8, device="cpu", **kw)
 
 
-def test_replication_entry_points_raise():
-    s = GraphSession(n_cap=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        s.publish_to("/nonexistent/publish")
-    with pytest.raises(NotImplementedError, match="A11"):
-        GraphSession.open_replica("/nonexistent/src", "/nonexistent/local")
-    with pytest.raises(NotImplementedError, match="A11"):
-        GraphSession.open_router({})
+def test_replication_entry_points_work(tmp_path):
+    """``publish_to`` / ``open_replica`` / ``open_router`` on the CPU: a
+    durable session publishes every swap, a replica opened on its
+    publish root answers like the writer at the writer's watermark, and
+    a router in front of it does too; an in-memory session has nothing
+    to publish."""
+    with pytest.raises(ValueError, match="in-memory"):
+        GraphSession(n_cap=8, device="cpu").publish_to(str(tmp_path / "x"))
+    s = GraphSession(path=str(tmp_path / "w"), n_cap=N_CAP, device="cpu")
+    pub = s.publish_to(str(tmp_path / "pub"))
+    replica = GraphSession.open_replica(str(tmp_path / "pub"),
+                                        str(tmp_path / "rep"), device="cpu")
+    router = GraphSession.open_router({"rep": replica})
+    assert replica.device.type == "cpu"
+    for chunk in _chunks(_ops()):
+        s.ingest(chunk)
+        s.flush()
+        replica.sync()
+        router.heartbeat()
+        assert replica.watermark == s.watermark == chunk[-1][3]
+        qs = [Query(**q) for q in _specs(s.watermark)
+              if max(q["t_k"], q.get("t_l") or 0) <= s.watermark]
+        want = s.store.evaluate_many(qs)
+        for got in (replica.evaluate_many(qs), router.evaluate_many(qs)):
+            for g, w in zip(got, want):
+                eq(np.asarray(w), np.asarray(g))
+    assert len(pub.history) == 4         # the eager publish + 3 swaps
+    assert replica.stats.full_rebuilds == 0
+    with pytest.raises(WatermarkError):
+        router.evaluate_many([Query("point", "global", "num_edges",
+                                    t_k=s.watermark + 1)])
+    s.close()
