@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, run the GraphSession end to end on
-both layouts — in memory, then durable and indexed, reopened and
-crashed — and serve two decoder LMs (prefill + greedy decode) at their
-published width and depth.
+both layouts — in memory, sharded over a mesh, durable and indexed,
+reopened and crashed, replicated — and serve two decoder LMs (prefill +
+greedy decode) at their published width and depth.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -23,7 +23,11 @@ Phases, in order (any failure exits non-zero):
    other paths of dense LWW reconstruction (per-query anchors and
    windows both ways, a ``row_mask``, N = 1000 and 1008), of edge-slot
    LWW reconstruction (per-query anchors and windows both ways, the
-   dense session's slot layout, a ragged E), of the hybrid degree
+   dense session's slot layout, a ragged E), the block forms a sharded
+   group runs — dense LWW on four row blocks of N/4 rows (timed) and on
+   the 125-row blocks of N = 1000 over 8 shards, edge-slot LWW on four
+   slot blocks of E/4 (timed) and on a ragged split — each also equal
+   to its block of the whole-graph kernel's output, of the hybrid degree
    series (B = 512 with the nets in global memory, a ragged N) and of
    the degree sweep (four windows, the dense session's N, B = 512), the
    kernel lines carrying the counts the designs turn on; flash
@@ -97,9 +101,28 @@ Phases, in order (any failure exits non-zero):
    seconds by mode, bytes fetched, B's open split (``recovery.*``
    spans), routed and failover seconds, peak device memory.
 
-Phases 7, 8 and 9 run right after phase 4.
+10. sharded — on a mesh of four shards over the visible cards in turn:
+   ``graph_mesh(["cuda:0"] * 4)`` on one card (the card named four
+   times, each shard a tensor of its own), cuda:0..3 on four: a dense
+   ``GraphSession(n_cap=8192, mesh=)`` ingests phase 3's ops in the
+   same four flushed batches and serves the mix, the sweeps and a
+   snapshot; phase 4's store is placed on the mesh (``place_on_mesh``).
+   On both the mix runs again with ``shard="force"`` (dense: also with
+   every layout pinned dense) and with ``shard="never"``; every answer (dense: the sweeps, forced too, and
+   the snapshot) must equal the in-memory session's bit for bit.  No
+   group of the ``"auto"`` mix may shard; the forced groups must all
+   shard, in ``rows`` and ``batch`` modes (dense)
+   or ``slots`` and ``batch`` with an ``evolve`` group through
+   ``evolve_slots`` (edge); dense LWW must launch on row blocks (dense),
+   edge-slot LWW on slot blocks and dense LWW never (edge).  On dense,
+   ``dist_reconstruct``, ``dist_triangles`` and
+   ``dist_batch_point_degree`` must equal their single-device values.
+   Printed: each step's host seconds (card synchronized), the modes,
+   launches (on blocks apart) and peak device memory.
 
-Phases 3, 4, 7, 8 and 9 zero the launch counters before driving each
+Phase 10 runs right after phase 4, and phases 7, 8 and 9 after it.
+
+Phases 3, 4, 7, 8, 9 and 10 zero the launch counters before driving each
 session (and each reopen) and read them after: each kernel the layout
 should use must have launched.
 A sample of the answers must equal, bit for bit, those of the same
@@ -419,11 +442,14 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     def i32(xs):
         return torch.tensor(xs, dtype=torch.int32, device=dev)
 
-    def b1_case(adj, d, ta, tq, row_mask=None, timed=False, what=""):
-        n = adj.shape[-1]
-        ent, tst = bucket_ops(d, n, *window_of(ta, tq))
+    def b1_case(adj, d, ta, tq, row_mask=None, timed=False, what="",
+                row0=0, whole=None):
+        r, n = adj.shape[-2:]
+        ent, tst = bucket_ops(d, n, *window_of(ta, tq), row0=row0,
+                              n_rows=r)
         q = tq.numel()
         lo, hi = torch.minimum(ta, tq), torch.maximum(ta, tq)
+        block = f" R={r} row0={row0}" if r != n else ""
         return dict(
             name="delta_apply", route="cuda",
             source="src/repro_torch/kernels/delta_apply/delta_apply.cu",
@@ -431,11 +457,22 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
             kernel=lambda: delta_apply(adj, ent, tst, ta, tq, row_mask),
             plain=lambda: delta_apply_ref(adj, ent, tst, ta, tq, row_mask,
                                           DA_TILE),
-            bytes=nbytes(adj, ent, tst, ta, tq) + q * n * n
+            bytes=nbytes(adj, ent, tst, ta, tq) + q * r * n
             + (nbytes(row_mask) if row_mask is not None else 0),
-            ops=in_window(ent[:, 1], lo, hi) + q * n * n, timed=timed,
-            design=delta_apply_design(ent, tst, ta, tq),
-            shape=f"Q={q} N={n} entries={ent.shape[0]}{what}")
+            ops=in_window(ent[:, 1], lo, hi) + q * r * n, timed=timed,
+            design=delta_apply_design(ent, tst, ta, tq), whole=whole,
+            shape=f"Q={q} N={n}{block} entries={ent.shape[0]}{what}")
+
+    def once(fn):
+        """``fn()``, computed at the first call and kept: the whole-graph
+        kernel output that every block case of a group is sliced from."""
+        memo = []
+
+        def get():
+            if not memo:
+                memo.append(fn())
+            return memo[0]
+        return get
 
     def b4_case(deg0, d, t_lo, widths, stride, nb, timed=False, what=""):
         q, n = deg0.shape
@@ -455,9 +492,11 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
             timed=timed, design=sweep_design(tst, ev.shape[0]),
             shape=f"Q={q} B={nb} N={n} events={ev.shape[0]}{what}")
 
-    def b2_case(anchor, d, ta, tq, timed=False, one_query=False, what=""):
+    def b2_case(anchor, d, ta, tq, timed=False, one_query=False, what="",
+                slot0=None, whole=None):
         e = anchor.shape[-1]
-        ent, tst = bucket_slot_ops(d, e, *window_of(ta, tq))
+        ent, tst = bucket_slot_ops(d, e, *window_of(ta, tq),
+                                   slot0=slot0 or 0)
         q = tq.numel()
         lo, hi = torch.minimum(ta, tq), torch.maximum(ta, tq)
         # the same buckets at Q = 1: does the time still scale with Q?
@@ -478,7 +517,10 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
             bytes=nbytes(anchor, ent, tst, ta, tq) + q * e,
             ops=in_window(ent[:, 0], lo, hi) + q * e, timed=timed,
             design=edge_delta_apply_design(ent, tst, ta, tq), parts=parts,
-            shape=f"Q={q} E={e} entries={ent.shape[0]}"
+            whole=whole,
+            shape=f"Q={q} E={e}"
+                  f"{'' if slot0 is None else f' slot0={slot0}'} "
+                  f"entries={ent.shape[0]}"
                   f"{' per-query anchors' if anchor.dim() == 2 else ''}"
                   f"{what}")
 
@@ -507,6 +549,17 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     n = dense_store.n_cap
     adj = dense_store.current.adj
     cases.append(b1_case(adj, d, ta, tq, timed=True))
+    # B1 on row blocks, as a row-sharded group runs it: the same windows
+    # over four blocks of N/4 rows, each also held against the rows of
+    # the whole-graph kernel's output
+    whole_b1 = once(lambda: delta_apply(
+        adj, *bucket_ops(d, n, *window_of(ta, tq)), ta, tq))
+    rb = n // 4
+    for row0 in range(0, n, rb):
+        cases.append(b1_case(
+            adj[row0:row0 + rb], d, ta, tq, timed=True, row0=row0,
+            whole=lambda r0=row0: whole_b1()[:, r0:r0 + rb],
+            what=" row block"))
 
     # B2: an edge two-phase point group (node degree at six times)
     ts2 = sorted({q["t_k"] for q, _ in edge_q if q["kind"] == "point"})
@@ -516,6 +569,25 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     d = edge_store.delta_view().window_delta(min(ts2), t_cur_e)
     cur = edge_store.current_edge_snapshot()
     cases.append(b2_case(cur.emask, d, ta2, tq2, timed=True, one_query=True))
+    # B2 on slot blocks, as a slot-sharded group runs it: E/4 at each
+    # slot0, each also held against the whole-mask kernel's slots
+    whole_b2 = once(lambda: edge_delta_apply(
+        cur.emask, *bucket_slot_ops(d, cur.e_cap, *window_of(ta2, tq2)),
+        ta2, tq2))
+    sb = cur.e_cap // 4
+    for slot0 in range(0, cur.e_cap, sb):
+        cases.append(b2_case(
+            cur.emask[slot0:slot0 + sb], d, ta2, tq2, timed=True,
+            slot0=slot0, whole=lambda s0=slot0: whole_b2()[:, s0:s0 + sb],
+            what=" slot block"))
+    # a ragged split: blocks neither a multiple of 16 slots nor of the
+    # tile, the second starting off a 16-byte boundary
+    sr = cur.e_cap // 3 + 5
+    for slot0, w in ((0, sr), (sr, sr), (2 * sr, cur.e_cap - 2 * sr)):
+        cases.append(b2_case(
+            cur.emask[slot0:slot0 + w], d, ta2, tq2, slot0=slot0,
+            whole=lambda s0=slot0, w=w: whole_b2()[:, s0:s0 + w],
+            what=" ragged slot block"))
 
     # B3: the hybrid agg group's shared degree series
     aggs = [q for q, _ in edge_q if q["kind"] == "agg"
@@ -572,14 +644,25 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     cases.append(b1_case(adj, d, ta, tq, row_mask=rm, what=" row_mask"))
     # ragged tiles: N = 1000 moves bytes, N = 1008 16-byte words with a
     # partial last tile; a row_mask and windows both ways
+    ta_r, tq_r = i32([t_cur, ts[0], ts[0]]), i32([ts[1], ts[2], 1])
     for nr in (1000, 1008):
         sub = adj[:nr, :nr].contiguous()
         rm_r = torch.rand((3, nr), generator=gen, device=dev) < 0.2
-        cases.append(b1_case(sub, d1, i32([t_cur, ts[0], ts[0]]),
-                             i32([ts[1], ts[2], 1]),
+        cases.append(b1_case(sub, d1, ta_r, tq_r,
                              row_mask=rm_r if nr == 1008 else None,
                              what=" ragged" + (" row_mask" if nr == 1008
                                                else "")))
+    # ragged row blocks: N = 1000 over 8 shards, 125 rows a block (the
+    # last tile row of each is a pad band the next block's entries must
+    # not reach), against the whole 1000 × 1000 kernel output's rows
+    sub = adj[:1000, :1000].contiguous()
+    whole_r = once(lambda: delta_apply(
+        sub, *bucket_ops(d1, 1000, *window_of(ta_r, tq_r)), ta_r, tq_r))
+    for row0 in range(0, 1000, 125):
+        cases.append(b1_case(
+            sub[row0:row0 + 125], d1, ta_r, tq_r, row0=row0,
+            whole=lambda r0=row0: whole_r()[:, r0:r0 + 125],
+            what=" ragged row block"))
 
     # --- B4's other paths ---
     # four sweeps of different windows at the edge session's N
@@ -710,6 +793,12 @@ def phase_kernels(cases) -> list[dict]:
         torch.cuda.synchronize()
         err, share = _compare(out_k, out_p, c.get("tol"))
         tol_text = c.get("tol_text", "bit-exact")
+        if c.get("whole") is not None:
+            # a block case: also the block of the whole-graph output
+            if not torch.equal(out_k, c["whole"]()):
+                raise AssertionError(f"{c['name']} ({c['shape']}) differs "
+                                     "from the whole-graph kernel's block")
+            tol_text += ", equal to the whole-graph kernel's block"
         extra = {}
         if c.get("library"):
             extra["library_max_abs_err"] = _compare(c["library"](), out_p)[0]
@@ -986,15 +1075,17 @@ def first_call(seed: int) -> int:
 
 
 def _sync(device) -> None:
+    """Wait for every visible card (a mesh may span several)."""
     import torch
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def run_session(ops, n_cap: int, layout: str, device: str, qmix, sw,
                 e_cap=None, sample_only: bool = False, **session_kw):
     """Ingest in flushed batches, then the mixed batch, sweeps and a
-    snapshot (``session_kw``: ``path`` for a durable session,
+    snapshot (``session_kw``: ``mesh``; ``path`` for a durable session,
     ``indexed``).  Returns a dict: answers, sweeps, snapshot, stats,
     session, seconds per step, and the executor groups of the mixed
     batch."""
@@ -1148,9 +1239,11 @@ def phase_session(name: str, ops, n_cap: int, layout: str, seed: int,
         raise AssertionError(f"{name}: GPU and CPU answers differ: {bad}")
     print(f"{name} session: {n_cmp} sampled answers equal the CPU port "
           f"bit for bit (CPU side {cpu_seconds:.2f} s)", flush=True)
-    # what phase 7's durable session is held to, kept on the host
+    # what phases 7-10 are held to, kept on the host (and the store,
+    # which phase 10 places on its mesh)
     memory = dict(answers=answers, sweeps=sweep_out,
-                  snapshot=_to_cpu(snap), current=_to_cpu(s.store.current))
+                  snapshot=_to_cpu(snap), current=_to_cpu(s.store.current),
+                  store=s.store)
     return dict(seconds=seconds, cpu_seconds=cpu_seconds, steps=steps,
                 launches=launches, n_ops=len(ops), t_cur=stats["t_cur"],
                 queries=len(answers), compared=n_cmp, stats=stats), memory
@@ -1309,7 +1402,7 @@ def indexed_ab(engine, device, seed: int, reps: int = 5) -> dict:
                 _sync(device)
                 if rep:
                     ms[ix].append(1e3 * (time.perf_counter() - t0))
-                if ix and [k.indexed for k, _ in
+                if ix and [k.indexed for k, *_ in
                            engine.last_group_stats] != [True]:
                     bad.append(f"{plan}: the forced group ran unindexed")
         bad += [f"{plan} indexed: query {i}" for i in differing(
@@ -1340,7 +1433,7 @@ def phase_durable(name: str, ops, n_cap: int, layout: str, seed: int,
     run = run_session(ops, n_cap, layout, device, qmix, sw, e_cap=e_cap,
                       path=root, indexed=True)
     s, steps = run["session"], run["steps"]
-    indexed = sum(b for k, b in run["groups"] if k.indexed)
+    indexed = sum(b for k, b, _ in run["groups"] if k.indexed)
     bad = held_to(f"{name} durable", memory, qmix, run["answers"],
                   run["sweeps"], run["snapshot"], s.store.current)
     t0 = time.perf_counter()
@@ -1357,7 +1450,7 @@ def phase_durable(name: str, ops, n_cap: int, layout: str, seed: int,
     answers = s.query_many([Query(**q) for q, _ in qmix])
     _sync(device)
     steps["first_query_s"] = time.perf_counter() - t0
-    indexed_reopen = sum(b for k, b in s.live.engine.last_group_stats
+    indexed_reopen = sum(b for k, b, _ in s.live.engine.last_group_stats
                          if k.indexed)
     sweep_out = [s.sweep(**w) for w in sw]
     snap = s.snapshot_at(qmix[0][0]["t_k"])
@@ -2029,6 +2122,213 @@ def replication_line(name: str, res: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: multi-device serving on a mesh that names the card four times
+# ---------------------------------------------------------------------------
+
+# phase 10's mesh: the one card, four times (four shards of their own)
+SHARDS = 4
+
+
+def group_modes(stats) -> list:
+    """The shard modes of an engine's ``last_group_stats``, one a group."""
+    return [mode for _, _, mode in stats]
+
+
+def phase_sharded(name: str, ops, n_cap: int, layout: str, seed: int,
+                  memory: dict, store=None, device="cuda") -> dict:
+    """Phase 10 on one layout, on a mesh of ``SHARDS`` shards: the
+    visible cards in turn (``device`` repeated on one card or the CPU).
+
+    Dense: a ``GraphSession(mesh=)`` ingests the ops of phase 3 in the
+    same four flushed batches and serves the mix (auto), the sweeps and
+    a snapshot; edge: phase 4's ``store`` is placed on the mesh
+    (``place_on_mesh``) and serves the mix (auto).  Then, on both, the
+    mix with ``shard="force"`` (on dense also with every layout pinned
+    dense: the row blocks) and with ``shard="never"``: every answer
+    (and on dense every sweep, forced too, and the snapshot) must equal
+    the in-memory session's (``memory``) bit for bit.  On dense also
+    ``dist_reconstruct``, ``dist_triangles`` and
+    ``dist_batch_point_degree`` against their single-device values.
+    The launch counters are zeroed before the session / placement and
+    read after the mix.  Returns what ``sharded_failures`` reads;
+    raises ``AssertionError`` naming every failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import queries as TQ
+    from repro_torch.core.plans import Query
+    from repro_torch.kernels import build
+    from repro_torch.sharding import graph_mesh, shard_rows
+    dense = layout == "dense"
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    n_cards = torch.cuda.device_count() if cuda else 1
+    mesh = graph_mesh([torch.device("cuda", i % n_cards) if n_cards > 1
+                       else dev for i in range(SHARDS)])
+    t_cur = ops[-1].t
+    qmix = query_mix(t_cur, n_cap, dense, seed)
+    sw = sweeps(t_cur, qmix[0][0]["v"])
+    qs = [Query(**q) for q, _ in qmix]
+    names = [str(q) for q, _ in qmix]
+    res = dict(bad=[], steps={}, modes={}, mesh=[str(d) for d in
+                                                 mesh.devices])
+    steps = res["steps"]
+
+    def timed(step, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        steps[step] = time.perf_counter() - t0
+        return out
+
+    def check(what, got, want):
+        res["bad"] += [f"{what}: {q}" for q in differing(names, got, want)]
+
+    cards = sorted({d.index for d in mesh.devices}) if cuda else []
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    build.reset_launches()
+    if dense:
+        run = run_session(ops, n_cap, layout, device, qmix, sw, mesh=mesh)
+        steps.update(run["steps"])
+        store, engine = run["session"].store, run["session"].live.engine
+        res["modes"]["auto"] = group_modes(run["groups"])
+        check("auto", run["answers"], memory["answers"])
+        res["bad"] += [f"sweep {w}" for w, x, y in zip(
+            sw, run["sweeps"], memory["sweeps"]) if not same(x, y)]
+        if not same_graph(_to_cpu(run["snapshot"]), memory["snapshot"]):
+            res["bad"].append("snapshot")
+    else:
+        engine = timed("place_on_mesh_s", lambda: store.place_on_mesh(mesh))
+        check("auto", timed("query_many_s", lambda: served(
+            engine.evaluate_many(qs))), memory["answers"])
+        res["modes"]["auto"] = group_modes(engine.last_group_stats)
+    # forced: the planner's layouts (global counts go to the slot
+    # layout), and on dense every layout pinned dense (the row blocks)
+    res["groups"] = {}
+    for run_name, kw in (("force", {}),) + (
+            (("force_dense", dict(layout="dense")),) if dense else ()):
+        check(run_name, timed(f"{run_name}_s", lambda: served(
+            engine.evaluate_many(qs, shard="force", **kw))),
+            memory["answers"])
+        res["modes"][run_name] = group_modes(engine.last_group_stats)
+        res["groups"][run_name] = [
+            dict(plan=k.plan, kind=k.kind, measure=k.measure,
+                 layout=k.layout, batch=b, mode=m)
+            for k, b, m in engine.last_group_stats]
+    res["evolve_slots"] = any(g["kind"] == "evolve" and g["mode"] == "slots"
+                              for g in res["groups"]["force"])
+    check("never", timed("never_s", lambda: served(
+        engine.evaluate_many(qs, shard="never"))), memory["answers"])
+    res["modes"]["never"] = group_modes(engine.last_group_stats)
+    if dense:
+        forced_sw = timed("forced_sweeps_s", lambda: [
+            store.evolve(**w, shard="force") for w in sw])
+        res["bad"] += [f"forced sweep {w}" for w, x, y in zip(
+            sw, forced_sw, memory["sweeps"]) if not same(x, y)]
+    res["launches"] = dict(build.LAUNCHES)
+    res["block_launches"] = dict(build.BLOCK_LAUNCHES)
+    if dense:
+        # the primitives, against their single-device values
+        rows = shard_rows(store.current, mesh)
+        d = store.delta()
+        t_q = qmix[0][0]["t_k"]
+        want = store.snapshot_at(t_q)
+        g_t = timed("dist_reconstruct_s", lambda: D.dist_reconstruct(
+            mesh, rows, d, store.t_cur, t_q))
+        if not (torch.equal(torch.cat([b.adj.cpu() for b in g_t]),
+                            want.adj.cpu())
+                and torch.equal(torch.cat([b.nodes.cpu() for b in g_t]),
+                                want.nodes.cpu())):
+            res["bad"].append("dist_reconstruct")
+        del g_t
+        tri = timed("dist_triangles_s", lambda: int(D.dist_triangles(
+            mesh, shard_rows(want, mesh))))
+        tri_one = int(TQ.triangle_count(want))
+        res["triangles"] = [tri, tri_one]
+        if tri != tri_one:
+            res["bad"].append(f"dist_triangles {tri} != {tri_one}")
+        pts = [(q["v"], q["t_k"]) for q, _ in qmix
+               if q["kind"] == "point" and q["measure"] == "degree"]
+        vs = np.asarray([v for v, _ in pts], np.int32)
+        ts = np.asarray([t for _, t in pts], np.int32)
+        deg = timed("dist_batch_point_degree_s",
+                    lambda: D.dist_batch_point_degree(
+                        mesh, rows, d, vs, ts, store.t_cur).cpu().numpy())
+        one = engine.evaluate_many(
+            [Query("point", "node", "degree", t_k=int(t), v=int(v))
+             for v, t in zip(vs, ts)], shard="never")
+        if [int(x) for x in deg] != [int(x) for x in one]:
+            res["bad"].append(f"dist_batch_point_degree {deg} != {one}")
+        del rows, d, want
+    res["peak_bytes"] = (sum(torch.cuda.max_memory_allocated(i)
+                             for i in cards) if cuda else None)
+    print(sharded_line(name, res), flush=True)
+    bad = sharded_failures(res, layout)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    print(f"{name} sharded: {len(qs)} answers each auto, forced and never "
+          f"sharded over {SHARDS} shards equal the in-memory session's bit "
+          "for bit" + (", the sweeps and snapshot too, and the dist_* "
+                       "primitives their single-device values"
+                       if dense else ""), flush=True)
+    return res
+
+
+def sharded_failures(res: dict, layout: str) -> list:
+    """Phase 10's verdict on one layout's results (``phase_sharded``):
+    every failed check, named; empty when the phase passed."""
+    name = f"{layout} sharded"
+    bad = [f"{name}: {b}" for b in res["bad"]]
+    forced = [m for run, modes in res["modes"].items()
+              if run.startswith("force") for m in modes]
+    if None in forced:
+        bad.append(f"{name}: a forced group ran unsharded ({forced})")
+    if set(res["modes"]["auto"]) != {None}:
+        bad.append(f"{name}: shard='auto' sharded ({res['modes']['auto']})")
+    want = {"rows", "batch"} if layout == "dense" else {"slots", "batch"}
+    if not want <= set(forced):
+        bad.append(f"{name}: forced modes {sorted(set(forced), key=str)} "
+                   f"lack {sorted(want - set(forced))}")
+    if set(res["modes"]["never"]) != {None}:
+        bad.append(f"{name}: shard='never' sharded "
+                   f"({res['modes']['never']})")
+    if layout == "edge" and not res["evolve_slots"]:
+        bad.append(f"{name}: no evolve group ran through evolve_slots")
+    kernel = "delta_apply" if layout == "dense" else "edge_delta_apply"
+    if res["block_launches"].get(kernel, 0) == 0:
+        bad.append(f"{name}: {kernel} never launched on a "
+                   f"{'row' if layout == 'dense' else 'slot'} block")
+    if layout == "edge" and res["launches"].get("delta_apply", 0):
+        bad.append(f"{name}: kernel delta_apply launched "
+                   f"{res['launches']['delta_apply']} times on a path that "
+                   "must not use it")
+    return bad
+
+
+def sharded_line(name: str, res: dict) -> str:
+    """Phase 10's printed line: host seconds of each step (card
+    synchronized), the shard modes of each run, launches (on blocks
+    apart) and peak device memory."""
+    return (f"{name} sharded over {res['mesh']}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in res["steps"].items())
+            + " s; modes " + "; ".join(
+                f"{run} {sorted(set(m), key=str)}"
+                for run, m in res["modes"].items())
+            + f"; launches {res['launches']}, on blocks "
+            f"{res['block_launches']}"
+            + (f"; triangles {res['triangles']}" if "triangles" in res
+               else "")
+            + "; peak device memory "
+            + (f"{res['peak_bytes'] / 2**30:.2f} GiB"
+               if res["peak_bytes"] is not None else "not measured"))
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 and 6: the decoder LMs
 # ---------------------------------------------------------------------------
 
@@ -2331,6 +2631,9 @@ def parse_args(argv=None):
                     help="phase 9's child: reopen the replica mirror, "
                          "sync it from the publish root and die mid-sync "
                          "(the parent starts it)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run phases 3, 4 and 10 and stop; on a host with "
+                         "several cards phase 10's mesh spans them")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
     return ap.parse_args(argv)
@@ -2373,17 +2676,18 @@ def main(argv=None) -> int:
     phases["generate_s"] = time.perf_counter() - t0
 
     # phase 2 — stores built from the sessions' op streams
-    t0 = time.perf_counter()
-    cases = kernel_cases(*graph_stores(dense_ops, edge_ops, args.dense_nodes,
-                                       args.edge_nodes, args.edge_e_cap,
-                                       args.seed), args.seed)
-    rows = phase_kernels(cases)
-    del cases
-    torch.cuda.empty_cache()
-    rows += phase_kernels(lm_kernel_cases(args.seed))
-    torch.cuda.empty_cache()
-    phases["kernels_s"] = time.perf_counter() - t0
-    kernels = main_rows(rows)
+    if not args.sharded_only:
+        t0 = time.perf_counter()
+        cases = kernel_cases(*graph_stores(
+            dense_ops, edge_ops, args.dense_nodes, args.edge_nodes,
+            args.edge_e_cap, args.seed), args.seed)
+        rows = phase_kernels(cases)
+        del cases
+        torch.cuda.empty_cache()
+        rows += phase_kernels(lm_kernel_cases(args.seed))
+        torch.cuda.empty_cache()
+        phases["kernels_s"] = time.perf_counter() - t0
+        kernels = main_rows(rows)
 
     # phases 3 and 4 — the main path, counters zeroed just before each
     dense_expect = {"delta_apply": True, "edge_delta_apply": True,
@@ -2395,6 +2699,29 @@ def main(argv=None) -> int:
     edge, edge_mem = phase_session("edge", edge_ops, args.edge_nodes, "edge",
                                    args.seed, edge_expect,
                                    e_cap=args.edge_e_cap)
+
+    # phase 10 — multi-device serving on a mesh naming the card SHARDS
+    # times: a dense session built on it, phase 4's store placed on it
+    sharded = {}
+    for layout, ops, n, mem in (
+            ("dense", dense_ops, args.dense_nodes, dense_mem),
+            ("edge", edge_ops, args.edge_nodes, edge_mem)):
+        store = mem.pop("store")
+        t0 = time.perf_counter()
+        sharded[layout] = phase_sharded(
+            layout, ops, n, layout, args.seed, mem,
+            store=store if layout == "edge" else None)
+        phases[f"sharded_{layout}_s"] = time.perf_counter() - t0
+        del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.sharded_only:
+        print(json.dumps({"phases": phases, "sharded": sharded},
+                         default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # phases 7 and 8 — durable and indexed, reopened on the card; one
     # crash.  The roots live in a temporary directory, removed after.
@@ -2454,6 +2781,8 @@ def main(argv=None) -> int:
         runs[f"{layout} durable"] = d["launches"]
         runs[f"{layout} reopen"] = d["reopen_launches"]
     runs["crash reopen"] = crash["launches"]
+    for layout, r in sharded.items():
+        runs[f"{layout} sharded"] = r["launches"]
     for layout, r in replication.items():
         runs[f"{layout} replication"] = r["launches"]
     for arch, r in lms.items():
@@ -2474,7 +2803,8 @@ def main(argv=None) -> int:
     report = dict(card=smi, torch=torch.__version__,
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
                   dense=dense, edge=edge, durable=durable, crash=crash,
-                  replication=replication, lms=lms, args=vars(args))
+                  replication=replication, sharded=sharded, lms=lms,
+                  args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)

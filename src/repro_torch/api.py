@@ -31,10 +31,14 @@ the PyTorch mirror of ``repro.api`` (single device)::
   ``open_replica`` mirrors one into a ``ReadReplica`` on its own
   ``device`` and ``open_router`` fronts replicas with a watermark-aware
   ``QueryRouter`` (``repro_torch.replica``).
+* ``mesh=`` (a ``sharding.graph.GraphMesh``) serves every frozen epoch
+  as a multi-device engine: ``evaluate_many(..., shard="force")`` runs
+  each query group sharded over the mesh's devices
+  (``core.distributed``), bit-identical to one device; ``"auto"``
+  keeps every group on one device.
+  The store, the WAL and the roots do not depend on it.
 * ``device`` defaults to ``"cuda"`` and raises without a card;
   ``device="cpu"`` runs the plain PyTorch versions of the kernels.
-* Not ported yet, and raising ``NotImplementedError`` naming the
-  ROADMAP step that ports it: ``mesh=`` (A12).
 """
 from __future__ import annotations
 
@@ -42,7 +46,6 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from repro_torch import not_ported
 from repro_torch.core.plans import Query
 from repro_torch.core.store import Op, TemporalGraphStore
 from repro_torch.obs.metrics import default_registry
@@ -62,7 +65,8 @@ class GraphSession:
     Keywords: **identity** ``path`` (durable root; None = in memory),
     ``n_cap``/``e_cap``/``layout`` (graph shape; recovered from the
     manifest when reopening); **serving** ``policy`` (materialization),
-    ``stale`` (watermark behavior, default ``"block"``),
+    ``mesh`` (multi-device serving), ``stale`` (watermark behavior,
+    default ``"block"``),
     ``max_batch``/``max_delay_ms``/``cache_entries`` (frontend
     coalescing + exact cache); **durability** ``fsync`` (per-record WAL
     sync, default True); ``device`` (default ``"cuda"``).  Remaining
@@ -81,8 +85,6 @@ class GraphSession:
                  segment_device_budget: int | None = None,
                  metrics=None, slow_query_ms: float | None = 250.0,
                  device="cuda", **live_kw):
-        if mesh is not None:
-            not_ported("mesh= (multi-device serving)", "A12")
         self.path = path
         self._metrics = (default_registry() if metrics is None
                          else metrics)
@@ -108,7 +110,7 @@ class GraphSession:
                 n_cap, e_cap=e_cap, layout=layout or "dense",
                 segment_device_budget=segment_device_budget, device=device,
                 **store_kw)
-        self.live = LiveGraphStore(store=store, policy=policy,
+        self.live = LiveGraphStore(store=store, policy=policy, mesh=mesh,
                                    pending=pending, metrics=self._metrics,
                                    slow_query_ms=slow_query_ms, **live_kw)
         self.frontend = MicroBatchFrontend(
@@ -303,7 +305,7 @@ class GraphSession:
         is a writer's publish/store directory (string) or any
         ``Transport``.  The replica mirrors into ``local_root``, serves
         at its own watermark, and keyword args (``fetch_timeout``,
-        ``anchor_budget_bytes``, ``seed``, ...) pass through.  Call
+        ``anchor_budget_bytes``, ``seed``, ``mesh``, ...) pass through.  Call
         ``.sync()`` per poll or ``.start(interval)`` for a background
         fetch loop."""
         from repro_torch.replica import LocalDirTransport, ReadReplica

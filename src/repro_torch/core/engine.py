@@ -18,8 +18,12 @@ the PyTorch mirror of ``repro.core.engine`` (single device).
   stands in for ``vmap``; batched results bit-match the single-query
   path.
 
-Off the single-device path, and raising ``NotImplementedError``:
-multi-device meshes.
+* Multi-device serving: given a mesh (``sharding.graph.GraphMesh``)
+  and ``shard="force"``, every group runs as one sharded program
+  (``core.distributed``) along the axis the planner names
+  (``Planner.shard_mode``): the query batch split (``"batch"``), the
+  adjacency rows (``"rows"``) or the edge slots (``"slots"``).  Sharded
+  and single-device execution return bit-identical results.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
-from repro_torch import not_ported
+from repro_torch.core import distributed as D
 from repro_torch.core.delta import Delta, pow2_capacity as _pow2
 from repro_torch.core.graph import DenseGraph, EdgeGraph, dense_to_edge
 from repro_torch.core.index import (NodeIndex, count_window_ops,
@@ -42,6 +46,7 @@ from repro_torch.core.plans import (Query, applicable_plans,
                                     measure_named)
 from repro_torch.core.queries import edge_supported
 from repro_torch.core.reconstruct import (as_times, degree_series,
+                                          fit_batch,
                                           node_degree_series,
                                           reconstruct_dense,
                                           reconstruct_dense_many,
@@ -54,6 +59,9 @@ from repro_torch.kernels.edge_delta_apply import bucket_slot_ops
 from repro_torch.obs import clock as _clock
 from repro_torch.obs.metrics import COUNT_BUCKETS, default_registry
 from repro_torch.obs.trace import trace_span
+from repro_torch.sharding.graph import (batch_pad, check_mesh, divides,
+                                        mesh_size, replicate, shard_rows,
+                                        shard_slots)
 
 I32 = torch.int32
 
@@ -168,6 +176,10 @@ class Planner:
     reconstruction (the N² LWW scatter) that the measure-only plans
     avoid.  Degree queries admit all of Table 2; other measures fall
     back to two-phase, as in the paper.
+
+    The planner also names a group's *cross-device axis*
+    (``shard_mode``): given a (plan, anchor) group and a mesh size, the
+    axis it can shard along (query batch, adjacency rows or edge slots).
     """
 
     def __init__(self, selector: AnchorSelector, *, n_cap: int,
@@ -271,6 +283,39 @@ class Planner:
                                    and layout == "dense"),
                           layout=layout, cost=best_cost)
 
+    # ------------------------------------------------- cross-device dispatch
+
+    def shard_mode(self, key, n_dev: int) -> str | None:
+        """The axis one (plan, anchor) group shards along over ``n_dev``
+        devices: ``"rows"`` (dense two-phase, B1 on row blocks + psum
+        measures), ``"slots"`` (edge two-phase, B2 on slot blocks + psum
+        measures), ``"batch"`` (replicate the graph, split the query
+        axis), or ``None`` (nothing to shard over).  Every group can
+        batch-shard; the axis never makes an unshardable group
+        shardable.
+        """
+        if n_dev <= 1:
+            return None
+        evolve = getattr(key, "kind", "") == "evolve"
+        if key.plan == "two_phase" and getattr(key, "layout",
+                                               "dense") == "edge":
+            # slots partition the edge set, so per-shard popcounts and
+            # degree counts sum to the global value; evolve also admits
+            # degree_distribution, a finalization of the summed degrees
+            slot_ok = (key.measure in D.SLOT_MEASURES
+                       or (evolve and key.measure == "degree_distribution"))
+            if slot_ok and divides(self.e_cap, n_dev):
+                return "slots"
+        elif key.plan == "two_phase":
+            # rows need a row-decomposable measure, an even split, and no
+            # partial reconstruction (the closure mask is a full-graph
+            # object); a dense sweep batch-shards instead
+            if (key.measure in D.ROW_MEASURES and not key.partial
+                    and not evolve and divides(self.n_cap, n_dev)):
+                return "rows"
+            # fall through: a two-phase group is still batch-shardable
+        return "batch"
+
 
 # ---------------------------------------------------------------------------
 # Batched executors (a leading query dimension in place of vmap)
@@ -286,15 +331,9 @@ def _snapshot_bytes(g) -> int:
 
 
 def _chunk(g, q: int) -> int:
-    """How many reconstructions of ``g``'s size one launch may produce:
-    a quarter of the free device memory (256 MiB on the CPU), at least
-    one.  Chunking never changes an answer — every query's window is
-    resolved independently."""
-    if g.device.type == "cuda":
-        free = torch.cuda.mem_get_info(g.device)[0] // 4
-    else:
-        free = 1 << 28
-    return max(1, min(q, free // max(_snapshot_bytes(g), 1)))
+    """How many reconstructions of ``g``'s size one launch may produce
+    (``core.reconstruct.fit_batch``)."""
+    return fit_batch(g.device, _snapshot_bytes(g), q)
 
 
 def _measure_rows(g, measure: str, scope: str, vs: Sequence[int]):
@@ -494,8 +533,9 @@ class _GroupKey:
 
 
 class GroupStats(list):
-    """``last_group_stats``: the per-call list of (group key, batch)
-    rows, plus the reconstruction-cache counters for the call."""
+    """``last_group_stats``: the per-call list of (group key, batch,
+    shard mode) rows, plus the reconstruction-cache counters for the
+    call."""
 
     def __init__(self, *a):
         super().__init__(*a)
@@ -517,13 +557,25 @@ class HistoricalQueryEngine:
                  index: NodeIndex | None = None, node_cap: int = 1024,
                  selection: Literal["time", "ops"] = "ops",
                  passes: int = 2, series_budget: int = 1 << 24,
-                 current_edge: EdgeGraph | None = None,
+                 mesh=None, current_edge: EdgeGraph | None = None,
                  snap_cache_cap: int = 16, t_host=None):
         if current is None and current_edge is None:
             raise ValueError("need a current snapshot in at least one "
                              "layout")
         self.current = current
         self.current_edge = current_edge
+        self.device = (current if current is not None
+                       else current_edge).device
+        # serving mesh (None: single device).  Snapshot / delta tensors
+        # are placed on it lazily per role — replicated for batch-axis
+        # groups, row / slot blocks per anchor for two-phase groups —
+        # and cached, so steady-state serving copies nothing
+        if mesh is not None:
+            check_mesh(mesh, self.device)
+        self.mesh = mesh
+        self._placed_rep: dict = {}     # (mesh, role) -> Replicated
+        self._placed_rows: dict = {}    # (mesh, anchor_id) -> row blocks
+        self._placed_slots: dict = {}   # (mesh, anchor_id) -> slot blocks
         # the full device log (a bare Delta) OR a SegmentedDeltaView:
         # planning reads only .capacity / window counts from it, and
         # executors materialize per-group windows
@@ -579,7 +631,7 @@ class HistoricalQueryEngine:
     @classmethod
     def from_store(cls, store, *, indexed: bool = False,
                    node_cap: int = 1024,
-                   selection: Literal["time", "ops"] = "ops"):
+                   selection: Literal["time", "ops"] = "ops", mesh=None):
         current = store.current
         if not isinstance(current, DenseGraph):
             current = None  # edge-layout store: no N² state anywhere
@@ -593,9 +645,35 @@ class HistoricalQueryEngine:
                    mat_times=store.materialized.times,
                    mat_snapshots=store.materialized.snapshots,
                    index=store.node_index() if indexed else None,
-                   node_cap=node_cap, selection=selection,
+                   node_cap=node_cap, selection=selection, mesh=mesh,
                    current_edge=store.current_edge_snapshot(),
                    t_host=t_host)
+
+    # --------------------------------------------------- device placement
+
+    def _replicated(self, mesh, role, tree):
+        """Cache a copy of ``tree`` on every mesh device (graph / delta /
+        index operands of batch-axis-sharded groups)."""
+        key = (mesh, role)
+        if key not in self._placed_rep:
+            self._placed_rep[key] = replicate(tree, mesh)
+        return self._placed_rep[key]
+
+    def _row_sharded_anchor(self, mesh, anchor_id: int):
+        """Cache the row blocks of one dense anchor snapshot."""
+        key = (mesh, anchor_id)
+        if key not in self._placed_rows:
+            _, g = self.selector.get(anchor_id)
+            self._placed_rows[key] = shard_rows(g, mesh)
+        return self._placed_rows[key]
+
+    def _slot_sharded_anchor(self, mesh, anchor_id: int):
+        """Cache the slot blocks of one edge-layout anchor."""
+        key = (mesh, anchor_id)
+        if key not in self._placed_slots:
+            _, g = self.edge_anchor(anchor_id)
+            self._placed_slots[key] = shard_slots(g, mesh)
+        return self._placed_slots[key]
 
     # ------------------------------------------------------ edge anchors
 
@@ -652,8 +730,8 @@ class HistoricalQueryEngine:
                 {"plan": k.plan, "kind": k.kind, "measure": k.measure,
                  "layout": k.layout, "anchor_id": k.anchor_id,
                  "indexed": k.indexed, "windowed": k.windowed,
-                 "partial": k.partial, "batch": b}
-                for k, b in self.last_group_stats],
+                 "partial": k.partial, "batch": b, "shard_mode": mode}
+                for k, b, mode in self.last_group_stats],
         }
         tracer = active_tracer()
         if tracer is not None and trace_seq is not None:
@@ -821,15 +899,70 @@ class HistoricalQueryEngine:
             return self.view.window_delta(int(tks.min()), int(tls.max()))
         return self.view.window_delta(int(tks.min()), None)
 
-    def _run_group(self, key: _GroupKey, qs: list[Query]):
+    def _maybe_replicated_delta(self, mesh, d: Delta):
+        """A group's delta operand on the mesh: only the monolithic full
+        log is cached under a stable role.  Window materializations —
+        segmented or ``gather_window`` slices — pass through and are
+        copied to each device by the sharded call itself (an
+        identity-keyed cache would keep replicated copies alive and
+        could serve a stale window after an id is reused)."""
+        if self.view is None and d is self.delta:
+            return self._replicated(mesh, "delta", d)
+        return d
+
+    def _anchor_role(self, key: _GroupKey):
+        """The placement-cache role of a group's anchor (anchor -1 IS
+        the current snapshot: one placement serves both)."""
+        if key.layout == "edge":
+            return ("current_edge" if key.anchor_id == -1
+                    else ("edge_anchor", key.anchor_id))
+        return ("current" if key.anchor_id == -1
+                else ("anchor", key.anchor_id))
+
+    def _shard_mode(self, key: _GroupKey, mesh, shard: str) -> str | None:
+        """Group-level sharding decision: the planner's axis under
+        ``"force"``, ``None`` otherwise (and on a mesh of one).
+
+        ``"auto"`` keeps every group on one device: this executor runs
+        the shards in turn from one thread, with host reads inside each
+        shard, and a forced mix measured on the card (``chip_smoke.py``
+        phase 10) ran slower than the unsharded one.  A mesh of the
+        wrong device type is refused under every mode but ``"never"``.
+        """
+        if shard not in ("auto", "force", "never"):
+            raise ValueError(f"unknown shard mode {shard!r}")
+        if mesh is None or shard == "never":
+            return None
+        check_mesh(mesh, self.device)
+        if shard == "auto":
+            return None
+        return self.planner.shard_mode(key, mesh_size(mesh))
+
+    def _run_group(self, key: _GroupKey, qs: list[Query], mesh=None,
+                   shard: str = "auto"):
         """Dispatch one group; returns a device tensor with one row per
-        query (callers move every group's result to the host once)."""
+        query (callers move every group's result to the host once).
+
+        With a multi-device ``mesh`` and ``shard="force"`` the group
+        runs as one sharded program (``core.distributed``) along the
+        planner's axis — the query batch for hybrid / delta-only (and
+        non-decomposable two-phase), adjacency rows or edge slots for
+        two-phase with psum-combinable measures.  Either way the values
+        are bit-identical to the single-device path's.
+        """
         b = len(qs)
-        self.last_group_stats.append((key, b))
+        mode = self._shard_mode(key, mesh, shard)
+        self.last_group_stats.append((key, b, mode))
+        # per-group accounting: plan / layout / shard-mode labels come
+        # from closed vocabularies; the batch size goes to a histogram
         self.metrics.counter(
             "engine_groups_total", "device programs dispatched",
-            plan=key.plan, layout=key.layout, shard="none").inc()
+            plan=key.plan, layout=key.layout, shard=mode or "none").inc()
         self._m_group_batch.observe(b)
+        # a batch-sharded group is padded (repeating its last query) to
+        # an even split; the padding rows are cut off the result
+        pad = (batch_pad(b, mesh_size(mesh)) - b) if mode == "batch" else 0
+        qs = list(qs) + [qs[-1]] * pad
         tks = np.asarray([q.t_k for q in qs], np.int32)
         tls = np.asarray([q.t_l if q.t_l is not None else q.t_k
                           for q in qs], np.int32)
@@ -840,79 +973,133 @@ class HistoricalQueryEngine:
         # repeat (or already sit in the LRU) reconstructs each unique
         # time once and pays only the measures.
         if (key.plan == "two_phase" and key.kind == "point"
-                and not key.partial and self.snap_cache_cap > 0):
+                and mode is None and not key.partial
+                and self.snap_cache_cap > 0):
             uts = np.unique(tks)
             hits = sum((key.anchor_id, int(t), key.layout)
                        in self._snap_cache for t in uts)
             if 2 * len(uts) <= b or hits == len(uts):
                 return self._run_point_group_cached(key, tks, vs)
 
-        cur = (self.current_edge if key.layout == "edge"
-               else self.current)
+        # One dispatch descriptor: (executor, static kwargs, positional
+        # args, query-axis mask).  The same descriptor runs locally or
+        # split over the mesh — the executor is the same.
         if key.plan in ("delta_only", "hybrid"):
+            cur = (self.current_edge if key.layout == "edge"
+                   else self.current)
+            idx = self.index
             with trace_span("window_delta", plan=key.plan):
                 dlt = self._plan_delta(key, tks, tls)
-            cap = self.node_cap
-            if key.plan == "delta_only":
-                if key.indexed:
-                    return batch_delta_only_diff_indexed(
-                        dlt, self.index, vs, tks, tls, cap)
-                return delta_only_degree_diff(dlt, vs, tks, tls)
+            if mode == "batch":
+                # (the group's anchor is the current snapshot)
+                cur = self._replicated(mesh, self._anchor_role(key), cur)
+                dlt = self._maybe_replicated_delta(mesh, dlt)
+                if idx is not None:
+                    idx = self._replicated(mesh, "index", idx)
+            desc = self._measure_only_desc(key, cur, dlt, idx, tks, tls, vs)
+        else:
+            with trace_span("anchor_select", anchor=key.anchor_id,
+                            layout=key.layout):
+                if key.layout == "edge":
+                    t_anchor, g_anchor = self.edge_anchor(key.anchor_id)
+                else:
+                    t_anchor, g_anchor = self.selector.get(key.anchor_id)
+            if key.kind == "evolve":
+                out = self._run_evolve_group(key, mode, mesh, t_anchor,
+                                             g_anchor, tks, tls, vs)
+                return out[:b]
+            with trace_span("window_delta", plan="two_phase",
+                            anchor=key.anchor_id):
+                d = self._group_delta(
+                    key, t_anchor,
+                    np.concatenate([tks, tls]) if key.kind != "point"
+                    else tks)
+            nb = (_pow2(int((tls - tks).max()) + 1) if key.kind == "agg"
+                  else 0)
+            if mode in ("rows", "slots"):
+                d = self._maybe_replicated_delta(mesh, d)
+                if mode == "rows":
+                    fn = D.two_phase_rows
+                    blocks = self._row_sharded_anchor(mesh, key.anchor_id)
+                else:
+                    fn = D.two_phase_slots
+                    blocks = self._slot_sharded_anchor(mesh, key.anchor_id)
+                return fn(mesh, blocks, d, t_anchor, tks, tls, vs,
+                          kind=key.kind, measure=key.measure, agg=key.agg,
+                          num_buckets=nb)
+            if mode == "batch":
+                g_anchor = self._replicated(mesh, self._anchor_role(key),
+                                            g_anchor)
+                d = self._maybe_replicated_delta(mesh, d)
+            statics = (("measure", key.measure), ("scope", key.scope))
+            if key.layout == "dense":
+                statics += (("use_partial", key.partial),
+                            ("passes", self.passes))
             if key.kind == "point":
-                if key.indexed:
-                    return batch_hybrid_point_indexed(
-                        cur, dlt, self.index, vs, tks, self.t_cur, cap)
-                return hybrid_point_degree(cur, dlt, vs, tks, self.t_cur)
-            if key.kind == "diff":
-                if key.indexed:
-                    return batch_hybrid_diff_indexed(
-                        cur, dlt, self.index, vs, tks, tls, self.t_cur,
-                        cap)
-                return batch_hybrid_diff(cur, dlt, vs, tks, tls,
-                                         self.t_cur)
-            # agg: one shared series over the union window; per-query
-            # values past each query's own t_l are masked
-            t0 = int(tks.min())
-            w_total = _pow2(int(tls.max()) - t0 + 1)
-            w_q = _pow2(int((tls - tks).max()) + 1)
-            if w_total * cur.n_cap > self.series_budget:
-                return batch_hybrid_agg_per_node(cur, dlt, vs, tks, tls,
-                                                 w_q, key.agg)
-            return batch_hybrid_agg(cur, dlt, vs, tks, tls, t0, self.t_cur,
-                                    w_total, w_q, key.agg)
-
-        with trace_span("anchor_select", anchor=key.anchor_id,
-                        layout=key.layout):
-            if key.layout == "edge":
-                t_anchor, g_anchor = self.edge_anchor(key.anchor_id)
+                desc = (batch_two_phase_point, statics,
+                        (g_anchor, d, t_anchor, tks, vs), (0, 0, 0, 1, 1))
+            elif key.kind == "diff":
+                desc = (batch_two_phase_diff, statics,
+                        (g_anchor, d, t_anchor, tks, tls, vs),
+                        (0, 0, 0, 1, 1, 1))
             else:
-                t_anchor, g_anchor = self.selector.get(key.anchor_id)
-        if key.kind == "evolve":
-            return self._run_evolve_group(key, t_anchor, g_anchor, tks,
-                                          tls, vs)
-        with trace_span("window_delta", plan="two_phase",
-                        anchor=key.anchor_id):
-            d = self._group_delta(
-                key, t_anchor,
-                np.concatenate([tks, tls]) if key.kind != "point" else tks)
-        kw = dict(measure=key.measure, scope=key.scope)
-        if key.layout == "dense":
-            kw.update(use_partial=key.partial, passes=self.passes)
-        if key.kind == "point":
-            return batch_two_phase_point(g_anchor, d, t_anchor, tks, vs,
-                                         **kw)
-        if key.kind == "diff":
-            return batch_two_phase_diff(g_anchor, d, t_anchor, tks, tls, vs,
-                                        **kw)
-        nb = _pow2(int((tls - tks).max()) + 1)
-        return batch_two_phase_agg(g_anchor, d, t_anchor, tks, tls, vs,
-                                   num_buckets=nb, agg=key.agg, **kw)
+                desc = (batch_two_phase_agg,
+                        statics + (("num_buckets", nb), ("agg", key.agg)),
+                        (g_anchor, d, t_anchor, tks, tls, vs),
+                        (0, 0, 0, 1, 1, 1))
 
-    def _run_evolve_group(self, key: _GroupKey, t_anchor: int, g_anchor,
-                          tks: np.ndarray, tls: np.ndarray, vs: np.ndarray):
+        kernel, statics, args, qmask = desc
+        if mode == "batch":
+            return D.batch_sharded(mesh, kernel, statics, args, qmask)[:b]
+        return kernel(*args, **dict(statics))
+
+    def _measure_only_desc(self, key: _GroupKey, cur, dlt, idx, tks, tls,
+                           vs) -> tuple:
+        """The dispatch descriptor of one delta-only / hybrid group."""
+        cap = (("cap", self.node_cap),)
+        if key.plan == "delta_only":
+            if key.indexed:
+                return (batch_delta_only_diff_indexed, cap,
+                        (dlt, idx, vs, tks, tls), (0, 0, 1, 1, 1))
+            return (delta_only_degree_diff, (), (dlt, vs, tks, tls),
+                    (0, 1, 1, 1))
+        if key.kind == "point":
+            if key.indexed:
+                return (batch_hybrid_point_indexed, cap,
+                        (cur, dlt, idx, vs, tks, self.t_cur),
+                        (0, 0, 0, 1, 1, 0))
+            return (hybrid_point_degree, (),
+                    (cur, dlt, vs, tks, self.t_cur), (0, 0, 1, 1, 0))
+        if key.kind == "diff":
+            if key.indexed:
+                return (batch_hybrid_diff_indexed, cap,
+                        (cur, dlt, idx, vs, tks, tls, self.t_cur),
+                        (0, 0, 0, 1, 1, 1, 0))
+            return (batch_hybrid_diff, (),
+                    (cur, dlt, vs, tks, tls, self.t_cur),
+                    (0, 0, 1, 1, 1, 0))
+        # agg: one shared series over the union window; per-query values
+        # past each query's own t_l are masked
+        t0 = int(tks.min())
+        w_total = _pow2(int(tls.max()) - t0 + 1)
+        w_q = _pow2(int((tls - tks).max()) + 1)
+        n_cap = self.planner.n_cap
+        if w_total * n_cap > self.series_budget:
+            return (batch_hybrid_agg_per_node,
+                    (("w_q", w_q), ("agg", key.agg)),
+                    (cur, dlt, vs, tks, tls), (0, 0, 1, 1, 1))
+        return (batch_hybrid_agg,
+                (("w_total", w_total), ("w_q", w_q), ("agg", key.agg)),
+                (cur, dlt, vs, tks, tls, t0, self.t_cur),
+                (0, 0, 1, 1, 1, 0, 0))
+
+    def _run_evolve_group(self, key: _GroupKey, mode, mesh, t_anchor: int,
+                          g_anchor, tks: np.ndarray, tls: np.ndarray,
+                          vs: np.ndarray):
         """One sweep group (``kernels.evolve_sweep.batch_evolve``):
         reconstruct each query's start state from the shared anchor in
-        one launch, then the degree sweep kernel over every query.
+        one launch, then the degree sweep kernel over every query — or,
+        slot-sharded, ``core.distributed.evolve_slots``.
 
         Two delta operands with different coverage contracts: ``d_rec``
         (anchor ↔ every t_lo) feeds pure LWW reconstructions, so the
@@ -947,9 +1134,24 @@ class HistoricalQueryEngine:
             d_net = self.view.window_delta(lo_all, int(ts_last.max()))
         else:
             d_rec = d_net = self.delta
+        statics = (("measure", key.measure), ("scope", key.scope),
+                   ("stride", stride), ("num_buckets", nb))
+        if mode is not None:
+            d_rec = self._maybe_replicated_delta(mesh, d_rec)
+            d_net = self._maybe_replicated_delta(mesh, d_net)
+            if mode == "slots":
+                return D.evolve_slots(
+                    mesh, self._slot_sharded_anchor(mesh, key.anchor_id),
+                    d_rec, d_net, t_anchor, tks, widths, vs,
+                    **dict(statics))
+            g_anchor = self._replicated(mesh, self._anchor_role(key),
+                                        g_anchor)
+            return D.batch_sharded(
+                mesh, batch_evolve, statics,
+                (g_anchor, d_rec, d_net, t_anchor, tks, widths, vs),
+                (0, 0, 0, 0, 1, 1, 1))
         return batch_evolve(g_anchor, d_rec, d_net, t_anchor, tks, widths,
-                            vs, measure=key.measure, scope=key.scope,
-                            stride=stride, num_buckets=nb)
+                            vs, **dict(statics))
 
     def _run_point_group_cached(self, key: _GroupKey, tks: np.ndarray,
                                 vs: np.ndarray):
@@ -974,7 +1176,7 @@ class HistoricalQueryEngine:
                       windowed: bool | None = None,
                       layout: str | None = None,
                       return_choices: bool = False, mesh=None,
-                      enforce_watermark: bool = True):
+                      shard: str = "auto", enforce_watermark: bool = True):
         """Evaluate B historical queries, grouped by (plan, anchor) and
         executed as one batched dispatch per group.
 
@@ -983,14 +1185,21 @@ class HistoricalQueryEngine:
         engine carries the node-centric index); the default lets the
         cost model decide per query.  Returns a list of numpy values in
         query order (and the per-query ``PlanChoice`` list when
-        ``return_choices``).  ``mesh`` is not ported yet and raises.
+        ``return_choices``).
+
+        ``mesh`` (default: the engine's construction-time mesh) with
+        ``shard="force"`` runs every group as one multi-device program
+        along the planner's axis; ``"auto"`` and ``"never"`` keep every
+        group on one device (see ``_shard_mode``).  Sharded and
+        single-device execution return bit-identical results; on a mesh
+        of one device the ordinary path runs.  ``last_group_stats``
+        names each group's mode.
 
         A watermarked engine (``t_served`` set by the serving layer)
         refuses queries past the watermark with ``WatermarkError``;
         ``enforce_watermark=False`` bypasses the check.
         """
-        if mesh is not None:
-            not_ported("mesh= (multi-device serving)", "A12")
+        mesh = mesh if mesh is not None else self.mesh
         if self.t_served is not None and enforce_watermark:
             for q in queries:
                 t_hi = q.t_k if q.t_l is None else max(q.t_k, q.t_l)
@@ -1024,7 +1233,8 @@ class HistoricalQueryEngine:
                                     layout=key.layout,
                                     measure=key.measure, batch=len(idxs)):
                         outs.append((idxs, self._run_group(
-                            key, [queries[i] for i in idxs])))
+                            key, [queries[i] for i in idxs], mesh=mesh,
+                            shard=shard)))
             finally:
                 self._stats_active = False
             with trace_span("measure", groups=len(outs)):

@@ -48,6 +48,18 @@ def as_times(t, q: int | None, device) -> torch.Tensor:
     return t
 
 
+def fit_batch(device, item_bytes: int, q: int) -> int:
+    """How many reconstructions of ``item_bytes`` each one launch may
+    produce: a quarter of the device's free memory (256 MiB on the CPU),
+    at least one, at most ``q``.  Chunking never changes an answer —
+    every query's window is resolved independently."""
+    if torch.device(device).type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0] // 4
+    else:
+        free = 1 << 28
+    return max(1, min(q, free // max(item_bytes, 1)))
+
+
 def window_of(t_anchor: torch.Tensor, t_query: torch.Tensor):
     """The union (t_lo, t_hi] of Q anchor↔query windows, as host ints."""
     both = torch.cat([t_anchor, t_query]).cpu()

@@ -38,6 +38,7 @@ from repro_torch.core.plans import Query, evaluate
 from repro_torch.core.reconstruct import reconstruct_dense, reconstruct_edge
 from repro_torch.core.segments import (Segment, SegmentedDeltaView,
                                        build_merged_nodes)
+from repro_torch.sharding.graph import divides, mesh_size, single_device
 
 
 @dataclasses.dataclass
@@ -514,25 +515,58 @@ class TemporalGraphStore:
                                     delta, t_a, t)
         return reconstruct_dense(g_a, delta, t_a, t)
 
-    def engine(self, *, indexed: bool = False,
-               node_cap: int = 1024) -> HistoricalQueryEngine:
+    def engine(self, *, indexed: bool = False, node_cap: int = 1024,
+               mesh=None) -> HistoricalQueryEngine:
         """The historical-query engine over the current store state
         (cached; invalidated by ingest/advance, by a change to the
-        materialized-snapshot set, by a different ``node_cap``, or by
-        asking for the node-centric index the cached engine lacks).  An
-        engine built with an index keeps it for later unindexed calls —
-        the planner simply has more statistics."""
+        materialized-snapshot set, by a different ``node_cap`` or
+        ``mesh``, or by asking for the node-centric index the cached
+        engine lacks).  An engine built with an index keeps it for later
+        unindexed calls — the planner simply has more statistics.
+
+        ``mesh`` (a ``sharding.graph.GraphMesh``) makes the engine a
+        multi-device serving engine: with ``shard="force"`` each query
+        group runs as one sharded program (``core.distributed``).  ``mesh=None`` means "don't
+        care": a cached mesh-bound engine is reused (its placements are
+        costly and its answers bit-identical anyway) — only a
+        *different* mesh rebuilds."""
         e = self._engine_cache
         if (e is None or (indexed and e.index is None)
                 or e.node_cap != node_cap
+                or (mesh is not None and e.mesh != mesh)
                 or e.selector.times != self.materialized.times):
             keep_index = indexed or (e is not None and e.index is not None)
-            e = HistoricalQueryEngine.from_store(self, indexed=keep_index,
-                                                 node_cap=node_cap)
+            keep_mesh = mesh if mesh is not None else (
+                e.mesh if e is not None else None)
+            e = HistoricalQueryEngine.from_store(
+                self, indexed=keep_index, node_cap=node_cap, mesh=keep_mesh)
             self._engine_cache = e
         return e
 
-    def freeze_serving_state(self, *, indexed: bool = False,
+    def place_on_mesh(self, mesh) -> HistoricalQueryEngine:
+        """Eagerly place the store's device state for multi-device
+        serving: the monolithic log replicated, the current snapshot
+        replicated (batch-axis groups) and cut into row / slot blocks
+        (two-phase groups, per layout), so the first queries pay no
+        placement copies.  Returns the mesh-bound engine (also cached
+        as ``engine()``)."""
+        eng = self.engine(mesh=mesh)
+        if not single_device(mesh):
+            if eng.view is None:
+                # a segmented engine places its per-group window deltas
+                # as it runs them (the full log is never materialized)
+                eng._replicated(mesh, "delta", eng.delta)
+            if eng.current is not None:
+                eng._replicated(mesh, "current", eng.current)
+                if divides(self.n_cap, mesh_size(mesh)):
+                    eng._row_sharded_anchor(mesh, -1)
+            if eng.current_edge is not None:
+                eng._replicated(mesh, "current_edge", eng.current_edge)
+                if divides(eng.current_edge.e_cap, mesh_size(mesh)):
+                    eng._slot_sharded_anchor(mesh, -1)
+        return eng
+
+    def freeze_serving_state(self, *, mesh=None, indexed: bool = False,
                              node_cap: int = 1024) -> HistoricalQueryEngine:
         """Build the frozen serving view of the current store state —
         the epoch-swap hook for ``repro_torch.serving``: seal the epoch's
@@ -540,8 +574,9 @@ class TemporalGraphStore:
         device from earlier freezes; a monolithic store converts its
         whole log), spill cold segments past the byte budget, rebase the
         edge snapshot onto the grown registry, and build the engine
-        (with the node-centric index when ``indexed``).  The engine is
-        immutable with respect to later ``ingest`` calls."""
+        (with the node-centric index when ``indexed``; given a ``mesh``,
+        with ``place_on_mesh``'s placements).  The engine is immutable
+        with respect to later ``ingest`` calls."""
         if self.segmented:
             self.seal_tail(self.t_cur)
             self.delta_view().ensure_device(self.segment_device_budget)
@@ -549,7 +584,10 @@ class TemporalGraphStore:
             self.delta()
         if self.layout == "edge":
             self.current = self.current_edge_snapshot()
-        return self.engine(indexed=indexed, node_cap=node_cap)
+        eng = self.engine(indexed=indexed, node_cap=node_cap)
+        if mesh is not None:
+            eng = self.place_on_mesh(mesh)   # keeps the index, adds mesh
+        return eng
 
     # ------------------------------------------------------------ durability
 
@@ -584,21 +622,22 @@ class TemporalGraphStore:
                         plan=plan, **kw)
 
     def evaluate_many(self, queries, plan: str = "auto", *,
-                      indexed: bool = False, layout: str | None = None,
-                      **kw):
+                      indexed: bool = False, mesh=None,
+                      layout: str | None = None, **kw):
         """Batched multi-query serving through the engine's grouped
-        executor (one device dispatch per (plan, anchor, layout)
-        group).  ``indexed`` builds the node-centric index and forces
-        the indexed variants of delta-only / hybrid groups; ``layout``
-        forces dense/edge execution ("auto"/None lets the planner's
-        N²-vs-E cost term decide)."""
-        return self.engine(indexed=indexed).evaluate_many(
+        executor (one device dispatch per (plan, anchor, layout) group;
+        one *sharded* program per big group when ``mesh`` spans more
+        than one device).  ``indexed`` builds the node-centric index and
+        forces the indexed variants of delta-only / hybrid groups;
+        ``layout`` forces dense/edge execution ("auto"/None lets the
+        planner's N²-vs-E cost term decide)."""
+        return self.engine(indexed=indexed, mesh=mesh).evaluate_many(
             queries, plan, indexed=True if indexed else None,
             layout=layout, **kw)
 
     def evolve(self, measure: str, t_lo: int, t_hi: int, *,
                stride: int = 1, v: int | None = None,
-               scope: str | None = None, **kw) -> np.ndarray:
+               scope: str | None = None, mesh=None, **kw) -> np.ndarray:
         """Time-sweep query: ``measure`` at every sample time
         ``t_lo, t_lo + stride, ..., ≤ t_hi`` as one sweep (reconstruct
         at ``t_lo`` once, then the incremental degree sweep kernel).
@@ -609,10 +648,10 @@ class TemporalGraphStore:
         if measure in SWEEP_MEASURES:
             q = Query("evolve", scope, measure, t_k=int(t_lo),
                       t_l=int(t_hi), v=v, stride=int(stride))
-            return self.evaluate_many([q], **kw)[0]
+            return self.evaluate_many([q], mesh=mesh, **kw)[0]
         ts = range(int(t_lo), int(t_hi) + 1, int(stride))
         qs = [Query("point", scope, measure, t_k=t, v=v) for t in ts]
-        return np.asarray(self.evaluate_many(qs, **kw))
+        return np.asarray(self.evaluate_many(qs, mesh=mesh, **kw))
 
     # stats used by benchmarks (paper Table 3)
     def stats(self) -> dict:

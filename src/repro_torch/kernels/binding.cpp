@@ -4,6 +4,10 @@
 // torch.  Shapes, dtypes, devices and contiguity are checked by the
 // Python wrappers (kernels/*/ops.py) before these are called; each
 // launch function returns cudaGetLastError() right after its launch.
+// Every binding makes its output's device the current one for the
+// launch: a <<<>>> launch goes to the current device, and the stream
+// passed in belongs to the output's device.
+#include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
 #include <cstdint>
@@ -11,8 +15,8 @@
 int delta_apply_launch(const void* entries, const void* tile_start,
                        const void* anchor, long long anchor_stride,
                        void* out, const void* t_anchor, const void* t_query,
-                       const void* row_mask, int n, int n_queries,
-                       long long stream);
+                       const void* row_mask, int n_rows, int n,
+                       int n_queries, long long stream);
 int edge_delta_apply_launch(const void* entries, const void* tile_start,
                             const void* anchor, long long anchor_stride,
                             void* out, const void* t_anchor,
@@ -58,12 +62,13 @@ const void* ptr_or_null(const torch::Tensor& t) {
 void delta_apply(torch::Tensor entries, torch::Tensor tile_start,
                  torch::Tensor anchor, int64_t anchor_stride,
                  torch::Tensor out, torch::Tensor t_anchor,
-                 torch::Tensor t_query, torch::Tensor row_mask, int64_t n,
-                 int64_t stream) {
+                 torch::Tensor t_query, torch::Tensor row_mask,
+                 int64_t n_rows, int64_t n, int64_t stream) {
+  const c10::cuda::CUDAGuard guard(out.device());
   check(delta_apply_launch(ptr_or_null(entries), tile_start.data_ptr(),
                            anchor.data_ptr(), anchor_stride, out.data_ptr(),
                            t_anchor.data_ptr(), t_query.data_ptr(),
-                           ptr_or_null(row_mask), (int)n,
+                           ptr_or_null(row_mask), (int)n_rows, (int)n,
                            (int)t_query.numel(), stream),
         "delta_apply");
 }
@@ -72,6 +77,7 @@ void edge_delta_apply(torch::Tensor entries, torch::Tensor tile_start,
                       torch::Tensor anchor, int64_t anchor_stride,
                       torch::Tensor out, torch::Tensor t_anchor,
                       torch::Tensor t_query, int64_t e_cap, int64_t stream) {
+  const c10::cuda::CUDAGuard guard(out.device());
   check(edge_delta_apply_launch(ptr_or_null(entries), tile_start.data_ptr(),
                                 anchor.data_ptr(), anchor_stride,
                                 out.data_ptr(), t_anchor.data_ptr(),
@@ -84,6 +90,7 @@ void degree_series(torch::Tensor deg_cur, torch::Tensor events,
                    torch::Tensor tile_start, int64_t t_k, torch::Tensor out,
                    torch::Tensor nets, torch::Tensor sync, int64_t nb,
                    int64_t chunk, int64_t n_rows, int64_t stream) {
+  const c10::cuda::CUDAGuard guard(out.device());
   check(degree_series_launch(deg_cur.data_ptr(), ptr_or_null(events),
                              tile_start.data_ptr(), (int)t_k, out.data_ptr(),
                              const_cast<void*>(ptr_or_null(nets)),
@@ -100,6 +107,7 @@ void sweep_series(torch::Tensor deg0, torch::Tensor events,
                   torch::Tensor nets, torch::Tensor sync, int64_t nb,
                   int64_t stride, int64_t chunk, int64_t n_rows,
                   int64_t stream) {
+  const c10::cuda::CUDAGuard guard(out.device());
   check(sweep_series_launch(deg0.data_ptr(), ptr_or_null(events),
                             tile_start.data_ptr(), t_lo.data_ptr(),
                             t_last.data_ptr(), out.data_ptr(),
@@ -113,6 +121,7 @@ void sweep_series(torch::Tensor deg0, torch::Tensor events,
 
 void sweep_work(torch::Tensor tile_start, torch::Tensor work, int64_t chunk,
                 int64_t stream) {
+  const c10::cuda::CUDAGuard guard(work.device());
   check(sweep_work_launch(tile_start.data_ptr(), work.data_ptr(),
                           (int)tile_start.numel() - 1, (int)work.size(0),
                           (int)chunk, stream),
@@ -122,6 +131,7 @@ void sweep_work(torch::Tensor tile_start, torch::Tensor work, int64_t chunk,
 void flash_attention(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                      torch::Tensor o, bool causal, int64_t window,
                      int64_t kv_len, double scale, int64_t stream) {
+  const c10::cuda::CUDAGuard guard(o.device());
   long long strides[12];
   const torch::Tensor* ts[4] = {&q, &k, &v, &o};
   for (int i = 0; i < 4; ++i)
@@ -140,6 +150,7 @@ void ssd_scan(torch::Tensor x, torch::Tensor dt, torch::Tensor a,
               torch::Tensor y, torch::Tensor state, torch::Tensor chunks,
               torch::Tensor cum, torch::Tensor cb, int64_t chunk,
               int64_t stream) {
+  const c10::cuda::CUDAGuard guard(y.device());
   check(ssd_scan_launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                         bm.data_ptr(), cm.data_ptr(), ptr_or_null(state0),
                         y.data_ptr(), state.data_ptr(),

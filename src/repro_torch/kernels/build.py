@@ -39,11 +39,17 @@ CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a",
 KERNELS = ("delta_apply", "edge_delta_apply", "degree_series",
            "sweep_series", "flash_attention", "ssd_scan")
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+# of those, the launches on one block of a sharded state (B1 on a row
+# block, B2 on a slot block): a multi-device run shows its groups ran
+# their kernels on the blocks
+BLOCK_LAUNCHES: dict[str, int] = {"delta_apply": 0, "edge_delta_apply": 0}
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+    for k in BLOCK_LAUNCHES:
+        BLOCK_LAUNCHES[k] = 0
 
 
 def load(verbose: bool = False):

@@ -45,6 +45,14 @@
 // Where N is not a multiple of 16 (rows are then not 16-byte aligned)
 // the same kernel moves the 16 cells byte by byte; the ragged right and
 // bottom edges of the last tiles are masked either way.
+// Row blocks.  The adjacency may be a block of R = ``n_rows`` rows of
+// an N-column matrix (a row-sharded group: rows [row0, row0 + R) of the
+// global graph, their entries made local by the glue, which drops every
+// entry of another block's rows).  The grid is then tiles_r × tiles_c
+// with tiles_r = ceil(R / 64), and rows at or past R, the pad band of a
+// block that is not a multiple of 64 rows, are neither read nor written.
+// A ``row_mask`` indexes rows and columns alike, so it needs the square
+// N × N case (row sharding excludes partial reconstruction).
 // Launch: one block per tile (16,384 at N = 8192; not persistent), 256
 // threads, 16 KiB of static shared memory, 40 registers a thread on the
 // 16-byte path (31 on the byte path), so six blocks an SM (ptxas's
@@ -63,13 +71,13 @@ constexpr int THREADS = TN * TN / CELLS;
 constexpr int WARP_CELLS = 32 * CELLS;   // a warp's 8 rows of the tile
 constexpr unsigned FULL = 0xffffffffu;
 
-// The 16 bytes at (gr, gc .. gc + 15) of an n×n byte matrix; cells
-// outside the matrix read 0.
+// The 16 bytes at (gr, gc .. gc + 15) of an n_rows×n byte matrix;
+// cells outside the matrix read 0.
 template <bool VEC>
 __device__ __forceinline__ uint4 load_cells(const uint8_t* p, int gr,
-                                            int gc, int n) {
+                                            int gc, int n_rows, int n) {
   uint4 w = make_uint4(0, 0, 0, 0);
-  if (gr >= n || gc >= n) return w;
+  if (gr >= n_rows || gc >= n) return w;
   const uint8_t* row = p + (long long)gr * n + gc;
   if (VEC) return __ldg(reinterpret_cast<const uint4*>(row));
   uint32_t b[4] = {0, 0, 0, 0};
@@ -81,8 +89,8 @@ __device__ __forceinline__ uint4 load_cells(const uint8_t* p, int gr,
 
 template <bool VEC>
 __device__ __forceinline__ void store_cells(uint8_t* p, int gr, int gc,
-                                            int n, uint4 w) {
-  if (gr >= n || gc >= n) return;
+                                            int n_rows, int n, uint4 w) {
+  if (gr >= n_rows || gc >= n) return;
   uint8_t* row = p + (long long)gr * n + gc;
   if (VEC) {
     __stcs(reinterpret_cast<uint4*>(row), w);   // written once, not reread
@@ -115,8 +123,8 @@ delta_apply_kernel(const int4* __restrict__ entries,
                    long long anchor_stride, uint8_t* __restrict__ out,
                    const int* __restrict__ t_anchor,
                    const int* __restrict__ t_query,
-                   const uint8_t* __restrict__ row_mask, int n, int tiles_c,
-                   int n_queries) {
+                   const uint8_t* __restrict__ row_mask, int n_rows, int n,
+                   int tiles_c, int n_queries) {
   __shared__ __align__(16) int dec[TN * TN];
   const int tile = blockIdx.x;
   const int tr = tile / tiles_c;
@@ -134,10 +142,10 @@ delta_apply_kernel(const int4* __restrict__ entries,
   const int s = tile_start[tile];
   const int e = tile_start[tile + 1];
 
-  uint4 a = load_cells<VEC>(anchor, gr, gc, n);
+  uint4 a = load_cells<VEC>(anchor, gr, gc, n_rows, n);
   for (int q = 0; q < n_queries; ++q) {
     if (anchor_stride && q)
-      a = load_cells<VEC>(anchor + q * anchor_stride, gr, gc, n);
+      a = load_cells<VEC>(anchor + q * anchor_stride, gr, gc, n_rows, n);
     const int ta = t_anchor[q];
     const int tq = t_query[q];
     const bool fwd = tq >= ta;
@@ -177,7 +185,8 @@ delta_apply_kernel(const int4* __restrict__ entries,
       w.z = merge4(w.z, mine[2], init, flip);
       w.w = merge4(w.w, mine[3], init, flip);
     }
-    store_cells<VEC>(out + (long long)q * n * n, gr, gc, n, w);
+    store_cells<VEC>(out + (long long)q * n_rows * n, gr, gc, n_rows, n,
+                     w);
   }
 }
 
@@ -188,20 +197,22 @@ delta_apply_kernel(const int4* __restrict__ entries,
 int delta_apply_launch(const void* entries, const void* tile_start,
                        const void* anchor, long long anchor_stride,
                        void* out, const void* t_anchor, const void* t_query,
-                       const void* row_mask, int n, int n_queries,
-                       long long stream) {
-  const int tiles_r = (n + TN - 1) / TN;
-  const int tiles = tiles_r * tiles_r;
+                       const void* row_mask, int n_rows, int n,
+                       int n_queries, long long stream) {
+  const int tiles_r = (n_rows + TN - 1) / TN;
+  const int tiles_c = (n + TN - 1) / TN;
+  const int tiles = tiles_r * tiles_c;
   if (n_queries <= 0 || tiles <= 0) return (int)cudaSuccess;
   // 16-byte words need 16-byte aligned rows: n % 16 == 0 and aligned
-  // bases (then every query's matrix, n² bytes on, is aligned too)
+  // bases (then every query's matrix, n_rows·n bytes on, is aligned too)
   const bool vec = n % CELLS == 0 && (uintptr_t)anchor % 16 == 0
                    && (uintptr_t)out % 16 == 0;
   auto kernel = vec ? delta_apply_kernel<true> : delta_apply_kernel<false>;
   kernel<<<tiles, THREADS, 0, (cudaStream_t)stream>>>(
       (const int4*)entries, (const int*)tile_start, (const uint8_t*)anchor,
       anchor_stride, (uint8_t*)out, (const int*)t_anchor,
-      (const int*)t_query, (const uint8_t*)row_mask, n, tiles_r, n_queries);
+      (const int*)t_query, (const uint8_t*)row_mask, n_rows, n, tiles_c,
+      n_queries);
   return (int)cudaGetLastError();
 }
 

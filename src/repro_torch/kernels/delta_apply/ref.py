@@ -59,8 +59,9 @@ def delta_apply_ref(anchor_adj: torch.Tensor, entries: torch.Tensor,
                     tile_start: torch.Tensor, t_anchor: torch.Tensor,
                     t_query: torch.Tensor, row_mask: torch.Tensor | None,
                     tile: int) -> torch.Tensor:
-    """bool[Q, N, N]: what ``delta_apply.cu`` writes."""
-    n = anchor_adj.shape[-1]
+    """bool[Q, R, N]: what ``delta_apply.cu`` writes, for an adjacency
+    (R = N) or a row block of R rows with its local buckets."""
+    r, n = anchor_adj.shape[-2:]
     tiles_c = -(-n // tile)
     tid = entry_tiles(tile_start)
     cell = entries[:, 0].to(torch.int64)
@@ -69,7 +70,7 @@ def delta_apply_ref(anchor_adj: torch.Tensor, entries: torch.Tensor,
     keep = None
     if row_mask is not None:
         keep = row_mask[:, gr] | row_mask[:, gc]
-    out = lww_resolve(gr * n + gc, entries[:, 1], entries[:, 2], n * n,
-                      anchor_adj.reshape(-1, n * n), t_anchor, t_query,
+    out = lww_resolve(gr * n + gc, entries[:, 1], entries[:, 2], r * n,
+                      anchor_adj.reshape(-1, r * n), t_anchor, t_query,
                       keep)
-    return out.view(-1, n, n)
+    return out.view(-1, r, n)

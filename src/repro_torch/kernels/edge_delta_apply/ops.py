@@ -8,13 +8,15 @@ import torch
 
 from repro_torch.core.delta import ADD_EDGE, Delta
 from repro_torch.kernels import build
+from repro_torch.kernels.delta_apply.ops import node_mask_lww
 from repro_torch.kernels.edge_delta_apply.ref import edge_delta_apply_ref
 
 TILE = 512   # slots a warp resolves (== WS in edge_delta_apply.cu)
 WARPS = 8    # tiles a block (== WARPS in edge_delta_apply.cu)
 
 
-def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None):
+def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None, *,
+                    slot0: int = 0):
     """Bucket the delta's edge ops by tile of TILE slots: ONE entry per
     op, i32 ``[t, local slot·2 + (op == addEdge)]``, ordered by tile and
     within a tile by time, then rank (for the store's time-ordered log,
@@ -22,14 +24,22 @@ def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None):
     as their ranks do, so the kernel's key ``2·j + is_add`` decides
     last-writer-wins as ``2·rank + is_add`` would, and every window
     holds one contiguous run of a tile's entries.  No per-tile cap.
-    Returns (entries i32[E', 2], tile_start i32[T + 1])."""
-    keep = delta.valid_mask() & delta.is_edge_op() & (delta.slot < e)
+    Returns (entries i32[E', 2], tile_start i32[T + 1]).
+
+    ``slot0`` makes the bucketing shard-safe: a device that owns only
+    slots [slot0, slot0 + e) keeps exactly the ops on its block, with
+    the slot made local; the next block's ops never land in this block's
+    pad band (slots past ``e`` in its last tile).  The order is the same
+    (tile, time) order, so positions still order one slot's ops as their
+    ranks do."""
+    keep = (delta.valid_mask() & delta.is_edge_op() & (delta.slot >= slot0)
+            & (delta.slot < slot0 + e))
     if t_lo is not None:
         keep &= delta.t > int(t_lo)
     if t_hi is not None:
         keep &= delta.t <= int(t_hi)
     idx = torch.nonzero(keep).flatten()
-    slot = delta.slot[idx].to(torch.int64)
+    slot = delta.slot[idx].to(torch.int64) - slot0
     t = delta.t[idx].to(torch.int64)
     tiles = -(-e // TILE)
     tile_id = slot // TILE
@@ -46,10 +56,13 @@ def bucket_slot_ops(delta: Delta, e: int, t_lo=None, t_hi=None):
 
 def edge_delta_apply(anchor_emask: torch.Tensor, entries: torch.Tensor,
                      tile_start: torch.Tensor, t_anchor: torch.Tensor,
-                     t_query: torch.Tensor) -> torch.Tensor:
+                     t_query: torch.Tensor, *,
+                     block: bool = False) -> torch.Tensor:
     """bool[Q, E]: LWW reconstruction of Q edge masks.  ``anchor_emask``
-    is bool[E] (shared) or bool[Q, E]; ``t_anchor``/``t_query`` i32[Q].
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    is bool[E] (shared) or bool[Q, E]; ``t_anchor``/``t_query`` i32[Q];
+    ``block``: the masks are one slot block of a sharded registry (the
+    launch is also counted in ``build.BLOCK_LAUNCHES``).  CPU tensors
+    run the plain version; CUDA tensors launch the kernel."""
     if anchor_emask.device.type == "cpu":
         return edge_delta_apply_ref(anchor_emask, entries, tile_start,
                                     t_anchor, t_query, TILE)
@@ -77,4 +90,31 @@ def edge_delta_apply(anchor_emask: torch.Tensor, entries: torch.Tensor,
         e if anchor_emask.dim() == 2 else 0, out, t_anchor, t_query, e,
         build.stream_handle(anchor_emask.device))
     build.LAUNCHES["edge_delta_apply"] += 1
+    if block:
+        build.BLOCK_LAUNCHES["edge_delta_apply"] += 1
     return out
+
+
+def edge_delta_apply_slot_block(nodes: torch.Tensor | None,
+                                emask_block: torch.Tensor, delta: Delta,
+                                t_anchor, t_query, slot0: int,
+                                buckets=None):
+    """LWW reconstruction of one edge-mask *slot block* for Q windows —
+    what each device of a slot-sharded mesh runs.  ``emask_block`` is
+    bool[S] (or bool[Q, S]): slots [slot0, slot0 + S) of the registry;
+    ``nodes`` the whole (replicated) node mask, bool[N] or bool[Q, N],
+    or None where this shard resolves no node (the mask is N-sized, so
+    one shard alone resolves it); ``t_anchor``/``t_query`` i32[Q];
+    ``buckets`` may carry a ``bucket_slot_ops(..., slot0=slot0)``
+    covering every window.  Returns (nodes bool[Q, N] or None, emask
+    bool[Q, S])."""
+    if buckets is None:
+        both = torch.cat([t_anchor, t_query]).cpu()
+        buckets = bucket_slot_ops(delta, emask_block.shape[-1],
+                                  int(both.min()), int(both.max()),
+                                  slot0=slot0)
+    emask = edge_delta_apply(emask_block, *buckets, t_anchor, t_query,
+                             block=True)
+    if nodes is None:
+        return None, emask
+    return node_mask_lww(nodes, delta, t_anchor, t_query), emask

@@ -155,14 +155,28 @@ def batch_evolve(anchor, d_rec: Delta, d_net: Delta, t_anchor, t_los,
     from repro_torch.core.reconstruct import (as_times,
                                               reconstruct_dense_many,
                                               reconstruct_edge_many)
-    dev = anchor.device
-    n_cap = anchor.n_cap
-    t_lo = as_times(t_los, None, dev)
-    t_last = t_lo + (as_times(widths, None, dev) - 1) * int(stride)
     dense = not isinstance(anchor, EdgeGraph)
     recon = reconstruct_dense_many if dense else reconstruct_edge_many
-    g = recon(anchor, d_rec, t_anchor, t_lo)
-    deg0, nodes0, nn0, ne0 = _start_state(g, dense)
+    g = recon(anchor, d_rec, t_anchor, as_times(t_los, None, anchor.device))
+    return sweep_from_state(_start_state(g, dense), d_net, t_los, widths,
+                            vs, measure=measure, scope=scope, stride=stride,
+                            num_buckets=num_buckets)
+
+
+def sweep_from_state(state, d_net: Delta, t_los, widths, vs, *,
+                     measure: str, scope: str, stride: int,
+                     num_buckets: int):
+    """The sweep half of ``batch_evolve``: Q sweeps from their given
+    start state ``(deg0 i32[Q,N], nodes0 [Q,N], nn0 i32[Q], ne0
+    i32[Q])`` — reconstructed on one device, or summed from the slot
+    shards' integer partials (``core.distributed.evolve_slots``) — over
+    the LEAF delta ``d_net`` on its device."""
+    from repro_torch.core.reconstruct import as_times
+    deg0, nodes0, nn0, ne0 = state
+    dev = deg0.device
+    n_cap = deg0.shape[-1]
+    t_lo = as_times(t_los, None, dev)
+    t_last = t_lo + (as_times(widths, None, dev) - 1) * int(stride)
     lo_all, last_all = int(t_lo.min()), int(t_last.max())
     events, tile_start = bucket_sweep_events(d_net, n_cap, lo_all, last_all)
     deg = sweep_series(deg0, events, tile_start, t_lo, t_last, stride,

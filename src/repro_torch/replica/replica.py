@@ -54,7 +54,7 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.core.engine import WatermarkError
 from repro_torch.obs import clock
 from repro_torch.obs.metrics import (MetricsRegistry, NullRegistry,
@@ -165,7 +165,8 @@ class ReadReplica:
     not replicated state.
 
     ``device`` holds the replica's store and engine (default
-    ``"cuda"``, which raises without a card); ``mesh=`` is not ported.
+    ``"cuda"``, which raises without a card); ``mesh`` makes each of its
+    frozen engines a multi-device one, as ``LiveGraphStore(mesh=)``.
     """
 
     def __init__(self, transport: Transport, local_root: str, *,
@@ -178,8 +179,6 @@ class ReadReplica:
                  anchor_min_gap_ops: int = 128,
                  mesh=None, indexed: bool = False, node_cap: int = 1024,
                  seed: int = 0, metrics=None, device="cuda"):
-        if mesh is not None:
-            not_ported("mesh= (multi-device serving)", "A12")
         self.transport = transport
         self.root = local_root
         self.name = name
@@ -188,6 +187,7 @@ class ReadReplica:
         self.backoff_base = float(backoff_base)
         self.backoff_max = float(backoff_max)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.indexed = indexed
         self.node_cap = int(node_cap)
         # per-instance leaf registry chained onto the session/process
@@ -451,8 +451,8 @@ class ReadReplica:
         _, off = walmod.scan_bytes(walbuf)
         if self.policy is not None and store.layout == "dense":
             self.policy.rebalance(store, self.workload)
-        eng = store.freeze_serving_state(indexed=self.indexed,
-                                         node_cap=self.node_cap)
+        eng = store.freeze_serving_state(
+            mesh=self.mesh, indexed=self.indexed, node_cap=self.node_cap)
         eng.t_served = store.t_cur
         eng.workload = self.workload
         with self._lock:
@@ -653,7 +653,8 @@ class ReadReplica:
             if self.store.layout == "dense":
                 self.policy.rebalance(self.store, self.workload)
             eng = self.store.freeze_serving_state(
-                indexed=self.indexed, node_cap=self.node_cap)
+                mesh=self.mesh, indexed=self.indexed,
+                node_cap=self.node_cap)
             eng.t_served = self.store.t_cur
             eng.workload = self.workload
             with self._lock:

@@ -72,7 +72,9 @@ class LiveGraphStore:
     spilled at the swap and reloaded on demand).  ``indexed`` builds
     every frozen engine with the node-centric index (node-scope
     delta-only / hybrid queries on nodes with ≤ ``node_cap`` ops gather
-    only their node's ops).
+    only their node's ops).  ``mesh`` makes every frozen epoch a
+    multi-device engine (``place_on_mesh``'s placements are part of the
+    freeze, off the serving path).
 
     ``pending`` seeds the buffer with ops recovered from a durable
     store's WAL (``Recovered.pending``) — already durable, so they are
@@ -80,7 +82,7 @@ class LiveGraphStore:
     """
 
     def __init__(self, n_cap: int = 0, *, e_cap: int | None = None,
-                 layout: str = "dense", policy=None,
+                 layout: str = "dense", policy=None, mesh=None,
                  indexed: bool = False, node_cap: int = 1024,
                  segment_device_budget: int | None = None,
                  store: TemporalGraphStore | None = None,
@@ -101,6 +103,7 @@ class LiveGraphStore:
                              "layout (snapshots are stored dense)")
         self.store = store
         self.policy = policy
+        self.mesh = mesh
         self.indexed = indexed
         self.node_cap = node_cap
         self.workload = WorkloadStats()
@@ -217,8 +220,8 @@ class LiveGraphStore:
     # ------------------------------------------------------------ epoch swap
 
     def _freeze(self) -> HistoricalQueryEngine:
-        eng = self.store.freeze_serving_state(indexed=self.indexed,
-                                              node_cap=self.node_cap)
+        eng = self.store.freeze_serving_state(
+            mesh=self.mesh, indexed=self.indexed, node_cap=self.node_cap)
         eng.t_served = self.store.t_cur
         # the histogram is only consumed (and decayed) by a policy
         eng.workload = self.workload if self.policy is not None else None

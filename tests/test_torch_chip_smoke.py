@@ -466,3 +466,85 @@ def test_phase_replication_on_the_cpu(tmp_path, layout):
                  "the restart from the mirror did not launch delta_apply"]
     assert str(exc.value) == "; ".join(f"{layout} replication: {w}"
                                        for w in want)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10's host side: the verdict and a CPU rehearsal
+# ---------------------------------------------------------------------------
+
+
+def _sharded_passing(layout):
+    """Phase 10's results on one layout as a passing run leaves them."""
+    dense = layout == "dense"
+    modes = {"auto": [None, None],
+             "force": ["batch", "slots", "batch"],
+             "never": [None, None, None]}
+    if dense:
+        modes["force_dense"] = ["rows", "batch", "rows"]
+    return dict(bad=[], modes=modes, evolve_slots=not dense,
+                launches={"delta_apply": 6 if dense else 0,
+                          "edge_delta_apply": 9},
+                block_launches={"delta_apply": 4 if dense else 0,
+                                "edge_delta_apply": 8})
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_sharded_verdict_passes_a_passing_run(layout):
+    assert chip_smoke.sharded_failures(_sharded_passing(layout),
+                                       layout) == []
+
+
+@pytest.mark.parametrize("layout,change,message", [
+    ("dense", lambda r: r["modes"]["force_dense"].append(None),
+     "a forced group ran unsharded"),
+    ("edge", lambda r: r["modes"]["force"].append(None),
+     "a forced group ran unsharded"),
+    ("dense", lambda r: r["modes"].update(force_dense=["batch"]),
+     "lack ['rows']"),
+    ("edge", lambda r: r["launches"].update(delta_apply=2),
+     "kernel delta_apply launched 2 times on a path that must not use it"),
+    ("edge", lambda r: r.update(evolve_slots=False),
+     "no evolve group ran through evolve_slots"),
+    ("dense", lambda r: r["block_launches"].update(delta_apply=0),
+     "delta_apply never launched on a row block"),
+    ("edge", lambda r: r["modes"].update(never=[None, "batch"]),
+     "shard='never' sharded"),
+    ("dense", lambda r: r["modes"].update(auto=[None, "rows"]),
+     "shard='auto' sharded"),
+    ("dense", lambda r: r["bad"].append("force: q"), "force: q"),
+], ids=["dense-none", "edge-none", "no-rows", "b1-on-edge", "no-evolve",
+        "no-row-block", "never", "auto", "answers"])
+def test_sharded_verdict_names_each_failed_check(layout, change, message):
+    res = _sharded_passing(layout)
+    change(res)
+    bad = chip_smoke.sharded_failures(res, layout)
+    assert len(bad) == 1 and bad[0].startswith(f"{layout} sharded: ")
+    assert message in bad[0]
+
+
+@pytest.mark.parametrize("layout", ["dense", "edge"])
+def test_phase_sharded_on_the_cpu(layout):
+    """Phase 10 rehearsed at a small size on a mesh of four CPU shards:
+    every answer, sweep, snapshot, mode and primitive check holds; only
+    the block-launch check fails, since no kernel runs on the CPU."""
+    n = N_DURABLE if layout == "dense" else 4 * N_DURABLE
+    e_cap = 8 * n if layout == "edge" else None
+    ops = chip_smoke.make_ops(n, 7)
+    qmix = chip_smoke.query_mix(ops[-1].t, n, layout == "dense", 7)
+    sw = chip_smoke.sweeps(ops[-1].t, qmix[0][0]["v"])
+    run = chip_smoke.run_session(ops, n, layout, "cpu", qmix, sw,
+                                 e_cap=e_cap)
+    mem = dict(answers=run["answers"], sweeps=run["sweeps"],
+               snapshot=chip_smoke._to_cpu(run["snapshot"]))
+    with pytest.raises(AssertionError) as exc:
+        chip_smoke.phase_sharded(layout, ops, n, layout, 7, mem,
+                                 store=run["session"].store, device="cpu")
+    kernel, blk = (("delta_apply", "row") if layout == "dense"
+                   else ("edge_delta_apply", "slot"))
+    assert str(exc.value) == (f"{layout} sharded: {kernel} never launched "
+                              f"on a {blk} block")
+    # one changed answer is caught, and named
+    mem["answers"][0] = mem["answers"][0] + 1
+    with pytest.raises(AssertionError, match=r"auto: \{'kind': 'point'"):
+        chip_smoke.phase_sharded(layout, ops, n, layout, 7, mem,
+                                 store=run["session"].store, device="cpu")

@@ -284,10 +284,22 @@ def test_store_query_shim(dense_pair):
 
 
 def test_off_slice_engine_arguments_raise(dense_pair):
-    _, t = dense_pair
-    q = [Query("point", "global", "num_edges", t_k=3)]
-    with pytest.raises(NotImplementedError, match="A12"):
-        t.engine().evaluate_many(q, mesh=object())
+    """``mesh=`` is on the slice: on a mesh of CPU devices the engine
+    answers like the unmeshed call (forced sharded groups engaged), and
+    only a mesh naming another device type than the state's raises."""
+    from repro_torch.sharding import graph_mesh
+    j, t = dense_pair
+    specs = _matrix(t.t_cur)[:9]
+    mesh = graph_mesh(["cpu"] * 4)
+    got = t.engine().evaluate_many([Query(**s) for s in specs], mesh=mesh,
+                                   shard="force")
+    assert None not in {m for *_, m in t.engine().last_group_stats}
+    want = j.evaluate_many([JQuery(**s) for s in specs])
+    for a, b in zip(want, got):
+        eq(a, b)
+    with pytest.raises(ValueError, match="cuda"):
+        t.engine().evaluate_many([Query(**specs[0])],
+                                 mesh=graph_mesh(["cpu", "cuda"]))
 
 
 def _indexed_specs(tc, v_small, v_big):
@@ -345,7 +357,7 @@ def test_indexed_answers_and_choices_match(layout):
            and s["kind"] != "evolve"]
     assert any(c.plan in ("hybrid", "delta_only") for c in big)
     assert not any(c.indexed for c in big)
-    assert any(k.indexed for k, _ in t.engine(
+    assert any(k.indexed for k, *_ in t.engine(
         indexed=True, node_cap=node_cap).last_group_stats)
     _both(j, t, specs, indexed=True)
     # the planner's cost ties go to hybrid: force the indexed delta-only

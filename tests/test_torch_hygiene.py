@@ -58,7 +58,8 @@ def test_port_has_every_module_of_the_slice():
             "persist/__init__.py", "persist/manifest.py", "persist/wal.py",
             "persist/recovery.py", "replica/__init__.py",
             "replica/faults.py", "replica/shipping.py", "replica/replica.py",
-            "replica/router.py",
+            "replica/router.py", "sharding/__init__.py",
+            "sharding/graph.py", "core/distributed.py",
             "kernels/delta_apply/delta_apply.cu",
             "kernels/edge_delta_apply/edge_delta_apply.cu",
             "kernels/degree_series/degree_series.cu",

@@ -138,7 +138,7 @@ def test_durable_indexed_session_matches_jax(tmp_path, layout):
             eq(x, z)
 
     answers()
-    assert any(k.indexed for k, _ in ts.live.engine.last_group_stats)
+    assert any(k.indexed for k, *_ in ts.live.engine.last_group_stats)
     js.close()
     ts.close()
     for dirpath, _, files in os.walk(roots["jax"]):
@@ -286,16 +286,32 @@ def test_store_from_numpy(layout, policy):
 
 
 # ---------------------------------------------------------------------------
-# Off the slice: every such keyword raises, naming its ROADMAP step
+# Keywords that were off the slice: each now works on the CPU
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(mesh=object()), "A12"),
+    (dict(mesh=("cpu",) * 4), "A12"),
 ])
 def test_off_slice_keywords_raise(kw, step):
-    with pytest.raises(NotImplementedError, match=step):
-        GraphSession(n_cap=8, device="cpu", **kw)
+    """The keyword of ROADMAP ``step`` is ported: a session opened with
+    it answers like one opened without it (a mesh of CPU devices here,
+    every group forced sharded), and nothing raises."""
+    from repro_torch.sharding import graph_mesh
+    kw = {k: graph_mesh(v) if k == "mesh" else v for k, v in kw.items()}
+    plain = GraphSession(n_cap=N_CAP, device="cpu")
+    other = GraphSession(n_cap=N_CAP, device="cpu", **kw)
+    for s in (plain, other):
+        for chunk in _chunks(_ops()):
+            s.ingest(chunk)
+            s.flush()
+    qs = [Query(**q) for q in _specs(plain.watermark)]
+    for a, b in zip(other.live.evaluate_many(qs, shard="force"),
+                    plain.live.evaluate_many(qs)):
+        eq(b, a)
+    assert None not in {m for *_, m in other.live.engine.last_group_stats}
+    for a, b in zip(other.query_many(qs), plain.query_many(qs)):
+        eq(b, a)
 
 
 def test_replication_entry_points_work(tmp_path):
