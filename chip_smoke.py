@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, run the GraphSession end to end on
 both layouts — in memory, sharded over a mesh, durable and indexed,
-reopened and crashed, replicated — and serve two decoder LMs (prefill +
-greedy decode) at their published width and depth.
+reopened and crashed, replicated — serve two decoder LMs (prefill +
+greedy decode) at their published width and depth, and train them,
+with delta checkpoints and a recovery.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -28,7 +29,8 @@ Phases, in order (any failure exits non-zero):
    the 125-row blocks of N = 1000 over 8 shards, edge-slot LWW on four
    slot blocks of E/4 (timed) and on a ragged split — each also equal
    to its block of the whole-graph kernel's output, of the hybrid degree
-   series (B = 512 with the nets in global memory, a ragged N) and of
+   series (B = 512 with the nets in global memory, a ragged N, four node
+   blocks of N/4 each equal to its rows of the whole kernel's) and of
    the degree sweep (four windows, the dense session's N, B = 512), the
    kernel lines carrying the counts the designs turn on; flash
    attention (at the smollm-360m prefill shape, plus head dims 128 /
@@ -120,7 +122,28 @@ Phases, in order (any failure exits non-zero):
    Printed: each step's host seconds (card synchronized), the modes,
    launches (on blocks apart) and peak device memory.
 
-Phase 10 runs right after phase 4, and phases 7, 8 and 9 after it.
+11. training — through ``repro_torch.launch.train.train`` on the card:
+   (a) smollm-360m (bf16 params) and (b) mamba2-130m (float32) at
+   published width and depth, ``TrainConfig`` defaults (AdamW in
+   float32, ``remat="block"``), 8 × 2048 tokens, 6 steps, warmup 1:
+   every parameter's first-step gradient finite and nonzero, loss and
+   grad norm finite at every step, the model's kernel launched twice a
+   layer a step (forward, and the remat recompute; its backward is the
+   plain version), no other kernel; printed: step seconds, one step's
+   device time split into forward / backward / optimizer
+   (``torch.profiler``), peak memory and the plain backward's share of
+   a step.  (c) mamba2-130m under deterministic algorithms: an
+   uninterrupted run, then the same run checkpointing every 2nd step
+   into a delta store (a temporary root) with one injected failure at
+   step 3: the state restored at the failure must equal the state saved
+   there, and the final state the uninterrupted run's, bit for bit;
+   printed: storage bytes, save and restore seconds.  (d) both models,
+   2 layers at full width, float32, 2 × 256 tokens, 3 steps on the
+   card and on the CPU from the same initial state: per-step loss and
+   grad norm within the tolerance printed.
+
+Phase 10 runs right after phase 4, and phases 7, 8 and 9 after it;
+phase 11 runs last.
 
 Phases 3, 4, 7, 8, 9 and 10 zero the launch counters before driving each
 session (and each reopen) and read them after: each kernel the layout
@@ -195,6 +218,24 @@ BF16_DECODE_RTOL = 2.0 ** -2
 F32_CARD_CPU_RTOL = 1e-4
 PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
                     events_per_unit=8)      # paper Table 3
+# phase 11: (a) / (b) / (c) train 8 × 2048 tokens a step for 6 steps;
+# (c) saves every 2nd step and fails once at step 3; (d) trains 2 layers
+# of each model at full width in float32, 2 × 256 tokens, 3 steps, on
+# the card and on the CPU
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+CKPT_EVERY, CKPT_FAIL_AT = 2, 3
+CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
+CHECK_TRAIN_STEPS = 3
+# float32 training on the card against the CPU: per step, |Δ loss| /
+# |loss| and |Δ grad norm| / grad norm, over the 3 steps of (d).  The
+# sums run in other orders on the two devices (TF32 stays off), and
+# each step's update feeds the next step.  Read on an H100 80GB HBM3 at
+# 700 W: smollm-360m 4.7e-7, mamba2-130m 9.9e-6 (its third step's grad
+# norm); the first run read mamba2 at 2.2e-5 while the card's initial
+# A_log (a log of a linspace, computed on the card) differed from the
+# CPU's in the last bit, since fixed (``init_train_state`` builds on
+# the CPU and moves).
+F32_TRAIN_CARD_CPU_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -524,9 +565,10 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
                   f"{' per-query anchors' if anchor.dim() == 2 else ''}"
                   f"{what}")
 
-    def b3_case(deg_cur, d, t_k, nb, timed=False, what=""):
+    def b3_case(deg_cur, d, t_k, nb, timed=False, what="", row0=0,
+                whole=None):
         n = deg_cur.shape[0]
-        ev, tst = bucket_sweep_events(d, n, t_k)
+        ev, tst = bucket_sweep_events(d, n, t_k, row0=row0)
         return dict(
             name="degree_series", route="cuda",
             source="src/repro_torch/kernels/degree_series/degree_series.cu",
@@ -536,8 +578,9 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
                                             DS_TILE),
             bytes=nbytes(deg_cur, ev, tst) + nb * n * 4,
             ops=int((ev[:, 0] > t_k).sum()) + nb * n, timed=timed,
-            design=sweep_design(tst, ev.shape[0]),
-            shape=f"B={nb} N={n} events={ev.shape[0]}{what}")
+            design=sweep_design(tst, ev.shape[0]), whole=whole,
+            shape=f"B={nb} N={n}{f' row0={row0}' if whole else ''} "
+                  f"events={ev.shape[0]}{what}")
 
     # B1: a dense two-phase point group (the dense-only global measures)
     ts = sorted({q["t_k"] for q, _ in dense_q
@@ -733,6 +776,16 @@ def kernel_cases(dense_store, edge_store, dense_q, edge_q, seed: int):
     n_r = cur.n_cap - 100
     cases.append(b3_case(deg[:n_r].contiguous(), d3, t0, w_total,
                          what=" ragged"))
+    # four node blocks of N/4 (the glue of a node-sharded series), each
+    # against the whole kernel's rows
+    n_b = deg.shape[0] // 4
+    whole3 = once(lambda: degree_series_kernel(
+        deg, *bucket_sweep_events(d3, deg.shape[0], t0), t0, w_total))
+    for row0 in range(0, deg.shape[0], n_b):
+        cases.append(b3_case(deg[row0:row0 + n_b].contiguous(), d3, t0,
+                             w_total, row0=row0,
+                             whole=lambda r0=row0: whole3()[:, r0:r0 + n_b],
+                             what=" node block"))
     return cases
 
 
@@ -2609,6 +2662,443 @@ def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: training on the card
+
+
+def train_configs(cfg, batch: int, seq: int, steps: int, param_dtype=None):
+    """The TrainConfig and ShardingConfig phase 11 trains ``cfg`` with:
+    the defaults (AdamW in float32, ``remat="block"``), warmup 1, bf16
+    params for the dense family and float32 for the SSM family (as
+    ``repro.launch.train.main`` sets them), unless ``param_dtype``."""
+    from repro_torch.config import ShardingConfig, TrainConfig
+    dtype = param_dtype or ("bfloat16" if cfg.family == "dense"
+                            else "float32")
+    return TrainConfig(global_batch=batch, seq_len=seq, total_steps=steps,
+                       warmup_steps=1, param_dtype=dtype), ShardingConfig()
+
+
+def launches_per_step(cfg, scfg) -> int:
+    """A training step's launches of the model's kernel: one a layer in
+    the forward, and one more a layer where ``remat`` recomputes each
+    group in the backward (the backward itself is the plain version)."""
+    return cfg.n_layers * (1 if scfg.remat == "none" else 2)
+
+
+def step_split(cfg, tcfg, scfg, state, batch) -> dict:
+    """One more training step from ``state``, cut into its forward (the
+    loss), backward (the gradients, the groups' recompute included) and
+    optimizer update, each run under ``torch.profiler``
+    (``profile_device``): the device time of each part's kernels."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_update, lr_schedule
+    names, ps = zip(*state.params.named_parameters())
+    held = {}
+
+    def forward():
+        held["loss"] = api.loss_fn(state.params, batch, cfg,
+                                   remat=scfg.remat)
+
+    def backward():
+        held["grads"] = dict(zip(names, torch.autograd.grad(held["loss"],
+                                                            ps)))
+
+    def optimizer():
+        adamw_update(held["grads"], state.opt, state.params, tcfg,
+                     lr_schedule(state.step + 1, tcfg))
+
+    return {part: profile_device(fn) for part, fn in (
+        ("forward", forward), ("backward", backward),
+        ("optimizer", optimizer))}
+
+
+def plain_backward_ms(cfg, batch: int, seq: int, seed: int) -> float:
+    """Card ms of the backward of one layer's kernel call at the
+    training shape — what the kernel's ``autograd.Function`` runs: the
+    plain version again, under autograd (CUDA events)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunked
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype).requires_grad_()
+    if cfg.family == "ssm":
+        h, p, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state
+        x, b, c = (randn(batch, seq, h, p), randn(batch, seq, n),
+                   randn(batch, seq, n))
+        dt = (torch.nn.functional.softplus(randn(batch, seq, h)) * 0.1
+              ).detach().requires_grad_()
+        a = (-torch.linspace(1.0, 16.0, h, device="cuda")).requires_grad_()
+        ins = (x, dt, a, b, c)
+
+        def run():
+            y, st = ssd_chunked(*ins, cfg.ssm_chunk)
+            torch.autograd.grad((y, st), ins, (torch.ones_like(y),
+                                               torch.ones_like(st)))
+    else:
+        q = randn(batch, cfg.n_heads, seq, cfg.hd(), dtype=torch.bfloat16)
+        k, v = (randn(batch, cfg.n_kv_heads, seq, cfg.hd(),
+                      dtype=torch.bfloat16) for _ in range(2))
+
+        def run():
+            out = attention_ref(q, k, v, causal=True, window=cfg.window,
+                                scale=cfg.hd() ** -0.5)
+            torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    return cuda_ms(run, 3)[0]
+
+
+def phase_train(cfg, kernel: str, seed: int, device="cuda",
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                steps: int = TRAIN_STEPS) -> dict:
+    """Phase 11 (a) / (b): train ``cfg`` through
+    ``repro_torch.launch.train.train`` for ``steps`` steps.  First the
+    first step's gradients (``make_grad_fn`` on the same initial state
+    and batch), every parameter's read; then the main path, counters
+    zeroed just before it and read just after; on the card also one
+    step's device split and the plain backward's share.  The verdict is
+    ``train_failures``."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import init_train_state, make_grad_fn
+
+    tcfg, scfg = train_configs(cfg, batch, seq, steps)
+    on_card = torch.device(device).type == "cuda"
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, kernel=kernel,
+               batch=batch, seq=seq, steps=steps,
+               param_dtype=tcfg.param_dtype, remat=scfg.remat,
+               per_step=launches_per_step(cfg, scfg))
+    state = init_train_state(cfg, tcfg, device=device)
+    batch0 = SyntheticLM(cfg, batch, seq, seed=tcfg.seed,
+                         device=device).batch_at(0)
+    build.reset_launches()
+    _, grads = make_grad_fn(cfg, tcfg, scfg)(state.params, batch0)
+    _sync(device)
+    res["grad_launches"] = dict(build.LAUNCHES)
+    res["bad_grads"] = [n for n, g in grads.items()
+                        if not (bool(torch.isfinite(g).all())
+                                and float(g.abs().max()) > 0)]
+    res["n_params"] = len(grads)
+    del grads, state
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    state, hist, _ = train(cfg, tcfg, scfg, device=device, log_every=1)
+    _sync(device)
+    res["train_s"] = time.perf_counter() - t0
+    res["launches"] = dict(build.LAUNCHES)
+    res["loss"] = hist.rows["loss"]
+    res["grad_norm"] = hist.rows["grad_norm"]
+    res["step_s"] = [ms / 1e3 for ms in hist.rows["step_ms"]]
+    if on_card:
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["split"] = uncounted(lambda: step_split(
+            cfg, tcfg, scfg, state, batch0))
+        del state
+        torch.cuda.empty_cache()
+        res["plain_backward_ms"] = uncounted(
+            lambda: plain_backward_ms(cfg, batch, seq, seed))
+        warm = sorted(res["step_s"][1:]) or res["step_s"]
+        res["plain_backward_share"] = (res["plain_backward_ms"]
+                                       * cfg.n_layers / 1e3
+                                       / warm[len(warm) // 2])
+    return res
+
+
+def train_failures(res: dict) -> list:
+    """Phase 11 (a) / (b)'s verdict on ``phase_train``'s result: every
+    failed check, named; empty when the phase passed."""
+    bad = []
+    k, per = res["kernel"], res["per_step"]
+    if res["bad_grads"]:
+        bad.append(f"no finite nonzero gradient on the first step for "
+                   f"{res['bad_grads']}")
+    for what, got, want in (("the first step", res["grad_launches"], per),
+                            (f"{res['steps']} steps", res["launches"],
+                             per * res["steps"])):
+        if got.get(k, 0) != want:
+            bad.append(f"{what} launched {k} {got.get(k, 0)} times, want "
+                       f"{want}")
+        others = {n: c for n, c in got.items() if n != k and c}
+        if others:
+            bad.append(f"{what} launched {others}")
+    if not all(math.isfinite(x) for x in res["loss"] + res["grad_norm"]):
+        bad.append(f"non-finite loss {res['loss']} or grad norm "
+                   f"{res['grad_norm']}")
+    if len(res["loss"]) != res["steps"]:
+        bad.append(f"{len(res['loss'])} steps logged of {res['steps']}")
+    return bad
+
+
+def differing_arrays(a: dict, b: dict) -> list:
+    """The names whose arrays differ (bytes, dtype or shape) between two
+    ``checkpoint.io.raw_arrays`` dicts, or that only one holds."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or a[k].shape != b[k].shape
+                  or a[k].tobytes() != b[k].tobytes())
+
+
+def recording_store(cls):
+    """``cls`` (a ``DeltaCheckpointStore``) that keeps a host copy of the
+    state of its latest ``save`` and reads each ``restore``'s result
+    against it: the delta chain's guarantee, read where recovery uses
+    it.  Save and restore seconds are kept."""
+    from repro_torch.checkpoint import io
+
+    class Recording(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.saved, self.save_s, self.restores = None, [], []
+
+        def save(self, step, state):
+            t0 = time.perf_counter()
+            super().save(step, state)
+            self.save_s.append(time.perf_counter() - t0)
+            self.saved = (step, io.raw_arrays(state))
+
+        def restore(self, step, template, method="ops"):
+            t0 = time.perf_counter()
+            out = super().restore(step, template, method)
+            _sync(next(out.params.parameters()).device)
+            seconds = time.perf_counter() - t0
+            saved_step, want = self.saved
+            self.restores.append(dict(
+                step=step, saved_step=saved_step, seconds=seconds,
+                differing=differing_arrays(io.raw_arrays(out), want)))
+            return out
+
+    return Recording
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms(True)`` inside the block."""
+
+    def __enter__(self):
+        import torch
+        self.prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.use_deterministic_algorithms(self.prev)
+
+
+def phase_train_recovery(cfg, kernel: str, root: str, device="cuda",
+                         batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                         steps: int = TRAIN_STEPS) -> dict:
+    """Phase 11 (c): under deterministic algorithms, an uninterrupted
+    run of ``steps`` steps, then the same run with a delta checkpoint
+    store at ``root`` (every CKPT_EVERY-th step) and one injected
+    failure at step CKPT_FAIL_AT, recovered from the store.  The
+    restored state must equal the state saved at that step, and the
+    recovered run's final state the uninterrupted run's, bit for bit.
+    The verdict is ``recovery_failures``."""
+    from repro_torch.checkpoint import io
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import FailureInjector
+
+    tcfg, scfg = train_configs(cfg, batch, seq, steps)
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, kernel=kernel,
+               steps=steps, ckpt_every=CKPT_EVERY, fail_at=CKPT_FAIL_AT)
+    inj = FailureInjector(fail_at=(CKPT_FAIL_AT,))
+    plain_store = train_mod.DeltaCheckpointStore
+    with deterministic():
+        build.reset_launches()
+        t0 = time.perf_counter()
+        state, hist, _ = train_mod.train(cfg, tcfg, scfg, device=device,
+                                         log_every=1)
+        _sync(device)
+        res["clean_s"] = time.perf_counter() - t0
+        res["clean_launches"] = dict(build.LAUNCHES)
+        res["clean_loss"] = hist.rows["loss"]
+        clean = io.raw_arrays(state)
+        del state
+        train_mod.DeltaCheckpointStore = recording_store(plain_store)
+        try:
+            build.reset_launches()
+            t0 = time.perf_counter()
+            state, hist, store = train_mod.train(
+                cfg, tcfg, scfg, device=device, ckpt_dir=root,
+                ckpt_every=CKPT_EVERY, injector=inj, log_every=1)
+            _sync(device)
+        finally:
+            train_mod.DeltaCheckpointStore = plain_store
+    res["recovered_s"] = time.perf_counter() - t0
+    res["launches"] = dict(build.LAUNCHES)
+    res["fired"] = list(inj.fired)
+    res["restores"] = store.restores
+    res["save_s"] = store.save_s
+    res["storage_bytes"] = store.storage_bytes()
+    res["manifest"] = {k: store.manifest[k]
+                       for k in ("steps", "snapshots", "deltas")}
+    res["final_differing"] = differing_arrays(io.raw_arrays(state), clean)
+    res["final_step"] = state.step
+    res["loss"] = hist.rows["loss"]
+    return res
+
+
+def recovery_failures(res: dict) -> list:
+    """Phase 11 (c)'s verdict: every failed check, named."""
+    bad = []
+    if [f[0] for f in res["fired"]] != ["step"]:
+        bad.append(f"the injected failure fired {res['fired']}")
+    if not res["restores"]:
+        bad.append("recovery restored nothing")
+    for r in res["restores"]:
+        if r["step"] != r["saved_step"] or r["differing"]:
+            bad.append(f"the state restored at step {r['step']} differs "
+                       f"from the state saved at step {r['saved_step']} in "
+                       f"{r['differing'][:5]}")
+    if res["final_differing"]:
+        bad.append(f"the recovered run's final state differs from the "
+                   f"uninterrupted run's in {len(res['final_differing'])} "
+                   f"arrays: {res['final_differing'][:5]}")
+    if res["final_step"] != res["steps"]:
+        bad.append(f"the recovered run ended at step {res['final_step']}")
+    for what in ("clean_launches", "launches"):
+        if not res[what].get(res["kernel"]):
+            bad.append(f"{what}: {res['kernel']} never launched")
+    return bad
+
+
+def phase_train_card_cpu(cfg, seed: int, device="cuda",
+                         batch: int = CHECK_TRAIN_BATCH,
+                         seq: int = CHECK_TRAIN_SEQ,
+                         steps: int = CHECK_TRAIN_STEPS) -> dict:
+    """Phase 11 (d): ``cfg`` in float32 trained ``steps`` steps on
+    ``device`` and on the CPU from the same initial state (drawn from
+    the seeded CPU generator that ``init_train_state`` uses, and read
+    bit-equal on both devices): per-step loss and grad norm, as
+    relative differences."""
+    from repro_torch.checkpoint import io
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import init_train_state
+
+    tcfg, scfg = train_configs(cfg, batch, seq, steps, "float32")
+    init_differing = differing_arrays(
+        io.raw_arrays(init_train_state(cfg, tcfg, device=device)),
+        io.raw_arrays(init_train_state(cfg, tcfg, device="cpu")))
+    build.reset_launches()
+    _, on_card, _ = train(cfg, tcfg, scfg, device=device, log_every=1)
+    _sync(device)
+    launches = dict(build.LAUNCHES)
+    _, on_cpu, _ = train(cfg, tcfg, scfg, device="cpu", log_every=1)
+    rel = {m: [abs(a - b) / max(abs(b), 1e-30)
+               for a, b in zip(on_card.rows[m], on_cpu.rows[m])]
+           for m in ("loss", "grad_norm")}
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, launches=launches,
+                init_differing=init_differing,
+                loss_card=on_card.rows["loss"], loss_cpu=on_cpu.rows["loss"],
+                rel=rel, max_rel=max(max(v) for v in rel.values()))
+
+
+def phase_training(layers: int, seed: int) -> dict:
+    """Phase 11 on the card: (a) smollm-360m and (b) mamba2-130m trained
+    at full width (depth ``layers`` or the published one), (c) mamba2's
+    delta checkpoints and recovery in a temporary root, removed after,
+    (d) both models' float32 card-versus-CPU training.  Raises on the
+    first part that fails."""
+    import torch
+    out = {}
+    for arch, kernel in (("smollm-360m", "flash_attention"),
+                         ("mamba2-130m", "ssd_scan")):
+        cfg = lm_config(arch, layers)
+        t0 = time.perf_counter()
+        r = phase_train(cfg, kernel, seed)
+        r["phase_s"] = time.perf_counter() - t0
+        sp = r["split"]
+        warm = r["step_s"][1:]
+        print(f"train {arch}: {cfg.n_layers} layers, {r['param_dtype']} "
+              f"params, remat {r['remat']}, {TRAIN_BATCH}x{TRAIN_SEQ} "
+              f"tokens a step; step s "
+              + ", ".join(f"{x:.4f}" for x in r["step_s"])
+              + f" (warm median {sorted(warm)[len(warm) // 2]:.4f}); "
+              f"device s a step: forward {sp['forward']['device_s']:.4f}, "
+              f"backward {sp['backward']['device_s']:.4f}, optimizer "
+              f"{sp['optimizer']['device_s']:.4f}; peak "
+              f"{r['peak_gib']:.2f} GiB; {kernel} launches: first step "
+              f"{r['grad_launches'][kernel]}, {r['steps']} steps "
+              f"{r['launches'][kernel]} (want {r['per_step']} a step); "
+              f"loss " + ", ".join(f"{x:.4f}" for x in r["loss"])
+              + "; grad norm " + ", ".join(f"{x:.4g}" for x in
+                                          r["grad_norm"])
+              + f"; plain backward of one {kernel} call "
+              f"{r['plain_backward_ms']:.3f} ms, x{cfg.n_layers} = "
+              f"{r['plain_backward_share']:.3f} of a warm step", flush=True)
+        for part, pr in sp.items():
+            print(f"train {arch} profile, {part}: wall {pr['wall_s']:.4f} s,"
+                  f" device {pr['device_s']:.4f} s, busy {pr['busy']:.3f}; "
+                  "top " + "; ".join(f"{k} {ms:.2f} ms x{n}"
+                                     for k, ms, n in pr["top_ms"]),
+                  flush=True)
+        bad = train_failures(r)
+        if bad:
+            raise AssertionError(f"train {arch}: " + "; ".join(bad))
+        out[arch] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = lm_config("mamba2-130m", layers)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        r = phase_train_recovery(cfg, "ssd_scan", root)
+        r["phase_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sb = r["storage_bytes"]
+    print(f"train recovery mamba2-130m: {cfg.n_layers} layers, deterministic "
+          f"algorithms; uninterrupted {r['clean_s']:.2f} s, recovered "
+          f"{r['recovered_s']:.2f} s; manifest {r['manifest']}; storage "
+          f"snapshots {sb['snapshots']} B, deltas {sb['deltas']} B; save s "
+          + ", ".join(f"{x:.3f}" for x in r["save_s"]) + "; restore s "
+          + ", ".join(f"{x['seconds']:.3f}" for x in r["restores"])
+          + f"; restored == saved: "
+          f"{[not x['differing'] for x in r['restores']]}; final state == "
+          f"uninterrupted: {not r['final_differing']} "
+          f"({len(r['final_differing'])} arrays differ)", flush=True)
+    bad = recovery_failures(r)
+    if bad:
+        raise AssertionError("train recovery: " + "; ".join(bad))
+    out["recovery"] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["card_cpu"] = {}
+    for arch in ("smollm-360m", "mamba2-130m"):
+        r = phase_train_card_cpu(lm_config(arch, CHECK_TRAIN_LAYERS), seed)
+        print(f"train {arch}: float32 card vs CPU, {CHECK_TRAIN_LAYERS} "
+              f"layers, {CHECK_TRAIN_BATCH}x{CHECK_TRAIN_SEQ}, "
+              f"{CHECK_TRAIN_STEPS} steps: loss card "
+              + ", ".join(f"{x:.6f}" for x in r["loss_card"]) + " / CPU "
+              + ", ".join(f"{x:.6f}" for x in r["loss_cpu"])
+              + "; rel err loss " + ", ".join(f"{x:.3g}" for x in
+                                             r["rel"]["loss"])
+              + ", grad norm " + ", ".join(f"{x:.3g}" for x in
+                                           r["rel"]["grad_norm"])
+              + f" (tolerance {F32_TRAIN_CARD_CPU_RTOL:.3g}); initial "
+              f"states bit-equal: {not r['init_differing']}", flush=True)
+        if r["init_differing"] or not r["max_rel"] <= F32_TRAIN_CARD_CPU_RTOL:
+            raise AssertionError(f"train {arch}: float32 card and CPU "
+                                 f"disagree: {r['rel']}, initial states "
+                                 f"differ in {r['init_differing'][:5]}")
+        out["card_cpu"][arch] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def parse_args(argv=None):
@@ -2617,7 +3107,8 @@ def parse_args(argv=None):
     ap.add_argument("--edge-nodes", type=int, default=131072)
     ap.add_argument("--edge-e-cap", type=int, default=1 << 21)
     ap.add_argument("--lm-layers", type=int, default=0,
-                    help="cut the LMs' depth (0: the published depth)")
+                    help="cut the LMs' depth, served and trained (0: the "
+                         "published depth)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--first-call", action="store_true",
                     help="build with ptxas's report, run small kernel "
@@ -2641,6 +3132,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # cuBLAS's deterministic workspace, read when its first handle is
+    # made: phase 11 (c) trains under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
     if not torch.cuda.is_available():
@@ -2770,6 +3264,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lms[arch] = phase_lm(arch, kernel, args.lm_layers, args.seed)
         phases[f"{arch}_s"] = time.perf_counter() - t0
+    # phase 11 — training: both LMs, delta checkpoints and recovery, the
+    # float32 card against the CPU
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training = phase_training(args.lm_layers, args.seed)
+    phases["train_s"] = time.perf_counter() - t0
     phases["dense_session_s"] = dense["seconds"]
     phases["dense_cpu_s"] = dense["cpu_seconds"]
     phases["edge_session_s"] = edge["seconds"]
@@ -2788,6 +3289,13 @@ def main(argv=None) -> int:
     for arch, r in lms.items():
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
+    for arch in lms:
+        runs[f"{arch} train"] = training[arch]["launches"]
+        runs[f"{arch} train float32 (card vs CPU)"] = \
+            training["card_cpu"][arch]["launches"]
+    runs["mamba2-130m train uninterrupted"] = \
+        training["recovery"]["clean_launches"]
+    runs["mamba2-130m train recovered"] = training["recovery"]["launches"]
     for k in kernels:
         k["launches_by_run"] = {run: n.get(k["name"], 0)
                                for run, n in runs.items()}
@@ -2804,7 +3312,7 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
                   dense=dense, edge=edge, durable=durable, crash=crash,
                   replication=replication, sharded=sharded, lms=lms,
-                  args=vars(args))
+                  training=training, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -4,8 +4,9 @@ Mirrors ``repro`` file for file (``repro/core/reconstruct.py`` is
 ``repro_torch/core/reconstruct.py``), imports ``torch`` and ``numpy``
 only, and runs every kernel as hand-written CUDA C++ for Hopper
 (``repro_torch.kernels``): the four graph kernels of the in-memory
-``GraphSession`` and the two of the decoder LM's serving path
-(``repro_torch.models``).
+``GraphSession`` and the two of the decoder LM (``repro_torch.models``),
+which serve its prefill and the forward of its training step
+(``repro_torch.launch.train``).
 
 Every entry point takes an explicit ``device`` that defaults to
 ``"cuda"``; without a CUDA device that default raises instead of

@@ -1,5 +1,6 @@
-"""Model configuration: a framework-free copy of ``repro.config``'s
-``ModelConfig``, ``ShapeConfig``, ``SHAPES`` and ``reduced``.
+"""Configuration: a framework-free copy of ``repro.config``'s
+``ModelConfig``, ``ShardingConfig``, ``TrainConfig``, ``ShapeConfig``,
+``SHAPES`` and ``reduced``.
 
 One ``ModelConfig`` instance per assigned architecture lives in
 ``repro_torch/configs/<id>.py``.  Families:
@@ -77,6 +78,50 @@ class ModelConfig:
 
     def ssm_nheads(self) -> int:
         return self.d_inner() // self.ssm_headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Mesh-axis assignment and the training step's recompute policy,
+    every field of the JAX package's.  The port trains on one device:
+    ``fsdp`` / ``fsdp_pod`` / ``seq_shard_decode`` are carried (and
+    ``fsdp_axes`` answers as there) but nothing acts on them until
+    multi-device training is ported.  ``remat`` is acted on
+    (``models/lm.py::forward``).  ``attn_impl`` is accepted and recorded
+    only: the port has no attention switch, the device decides
+    (``models/attention.py``)."""
+    fsdp: bool = True          # shard params/opt-state over the data axis
+    fsdp_pod: bool = False     # additionally over the pod axis
+    seq_shard_decode: bool = True  # shard long KV caches over data axis
+    remat: Literal["none", "block", "full"] = "block"
+    attn_impl: Literal["xla", "xla_flash", "pallas"] = "xla"
+
+    def fsdp_axes(self):
+        if not self.fsdp:
+            return None
+        return ("pod", "data") if self.fsdp_pod else "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """``grad_compression`` is carried, as in the JAX package, whose
+    single-device step does not read it either (it acts on the
+    cross-device reduce)."""
+    global_batch: int = 8
+    seq_len: int = 128
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    param_dtype: Literal["float32", "bfloat16"] = "bfloat16"
+    opt_state_dtype: Literal["float32", "bfloat16", "int8"] = "float32"
+    grad_compression: Literal["none", "int8"] = "none"
+    microbatches: int = 1
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

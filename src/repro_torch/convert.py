@@ -1,7 +1,11 @@
 """Carry state across from ``repro`` as plain numpy arrays.
 
 ``lm_from_numpy`` builds the port's LM from a ``repro`` LM param tree
-exported as numpy (see its docstring).
+exported as numpy (see its docstring); ``train_state_from_numpy`` the
+port's ``TrainState`` from a ``repro`` one.  ``arrays_from_reference`` /
+``arrays_to_reference`` map a checkpoint's named arrays between the
+JAX package's tree-path names (groups stacked on one axis) and the
+port's (``checkpoint/io.py``), both ways.
 
 ``store_from_numpy`` builds this package's ``TemporalGraphStore`` from
 what a ``repro`` ``TemporalGraphStore`` holds, exported as numpy (the
@@ -67,14 +71,7 @@ def lm_from_numpy(params: dict, cfg, device="cuda"):
     dev = resolve_device(device)
     model = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, dev)
-    flat = {}
-    for name, a in _flatten(params):
-        if name.startswith("groups."):
-            rest = name[len("groups."):]
-            for g in range(np.shape(a)[0]):
-                flat[f"groups.{g}.{rest}"] = a[g]
-        else:
-            flat[name] = a
+    flat = _unstack(dict(_flatten(params)))
     own = dict(model.named_parameters())
     if set(own) != set(flat):
         raise ValueError(f"param names differ: missing "
@@ -87,6 +84,149 @@ def lm_from_numpy(params: dict, cfg, device="cuda"):
                              f"{tuple(p.shape)}")
         p.data = t.to(dev)
     return model
+
+
+def _unstack(flat: dict) -> dict:
+    """``groups.<rest>`` stacked on a leading group axis →
+    ``groups.<g>.<rest>``, one entry per group."""
+    out = {}
+    for name, a in flat.items():
+        if name.startswith("groups."):
+            rest = name[len("groups."):]
+            for g in range(np.shape(a)[0]):
+                out[f"groups.{g}.{rest}"] = a[g]
+        else:
+            out[name] = a
+    return out
+
+
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def train_state_from_numpy(state, cfg, device="cuda"):
+    """The port's ``TrainState`` holding a ``repro`` ``TrainState``
+    exported as numpy (``jax.tree.map(np.asarray, state)``): params
+    through ``lm_from_numpy``, the ``AdamWState``'s m / v (arrays, or
+    ``QTensor``s of ``q`` and ``scale``) unstacked by group under the
+    port's parameter names, each group's ``QTensor`` keeping the stacked
+    leaf's one scale, and the step counters as ints.  ``state`` and its
+    parts may be objects or dicts with those field names."""
+    from repro_torch.optim.adamw import AdamWState, QTensor
+    from repro_torch.runtime.steps import TrainState
+    dev = resolve_device(device)
+    params = lm_from_numpy(_field(state, "params"), cfg, device=dev)
+    names = [n for n, _ in params.named_parameters()]
+    opt = _field(state, "opt")
+
+    def moments(tree):
+        out = {}
+        for name, leaf in _flatten(tree):
+            qt = hasattr(leaf, "q") and hasattr(leaf, "scale")
+            arr = np.asarray(leaf.q if qt else leaf)
+            for n, a in _unstack({name: arr}).items():
+                out[n] = (QTensor(q=_tensor(a).to(dev),
+                                  scale=_tensor(leaf.scale).to(dev))
+                          if qt else _tensor(a).to(dev))
+        if set(out) != set(names):
+            raise ValueError("optimizer state names differ from the "
+                             "params'")
+        return {n: out[n] for n in names}
+
+    return TrainState(
+        params=params,
+        opt=AdamWState(step=int(_field(opt, "step")),
+                       m=moments(_field(opt, "m")),
+                       v=moments(_field(opt, "v"))),
+        step=int(_field(state, "step")))
+
+
+# ---------------------------------------------------------------------------
+# checkpoint names: the JAX package's tree paths <-> the port's
+
+
+_BF16 = "::bf16"
+_MOMENTS = (("params",), ("opt", "m"), ("opt", "v"))
+
+
+def arrays_from_reference(raw: dict) -> dict:
+    """A checkpoint's npz entries named as the JAX package names a
+    ``TrainState``'s leaves (``.params/groups/l0/attn/wq``,
+    ``.opt/.m/embed/tok/.q``, ``.opt/.step``, ``.step``; ``::bf16``
+    kept), renamed to the port's (``params/groups.0.l0.attn.wq``,
+    ``opt/m/embed.tok/q``, ``opt/step``, ``step``) with every group's
+    slice of a stacked leaf its own entry, a stacked ``QTensor``'s scale
+    repeated for each.  Names of other trees (plain dicts) pass
+    through."""
+    out = {}
+    for key, a in raw.items():
+        base, suf = (key[:-len(_BF16)], _BF16) if key.endswith(_BF16) \
+            else (key, "")
+        segs = base.split("/")
+        plain = [s.lstrip(".") for s in segs]
+        head = next((h for h in _MOMENTS
+                     if tuple(plain[:len(h)]) == h), None)
+        if head is None:
+            out["/".join(plain) + suf] = a
+            continue
+        rest = plain[len(head):]
+        field = None
+        if segs[-1] in (".q", ".scale"):
+            field, rest = rest[-1], rest[:-1]
+        groups = [None]
+        if rest[0] == "groups":
+            stacked = a
+            if field == "scale":
+                stacked = raw[base[:-len(".scale")] + ".q"]
+            groups = range(stacked.shape[0])
+        for g in groups:
+            name = ".".join(rest if g is None
+                            else ["groups", str(g)] + rest[1:])
+            val = a if g is None or field == "scale" else a[g]
+            out["/".join([*head, name] + ([field] if field else []))
+                + suf] = np.array(val)
+    return out
+
+
+def arrays_to_reference(raw: dict) -> dict:
+    """The inverse of ``arrays_from_reference``: the port's npz entries
+    of a ``TrainState`` renamed to the JAX package's tree paths, the
+    groups' entries stacked in group order.  A stacked ``QTensor`` has
+    one scale, so its groups' scales must be equal (they are for a state
+    carried over from the JAX package); raises otherwise."""
+    out, stacks = {}, {}
+    for key, a in raw.items():
+        base, suf = (key[:-len(_BF16)], _BF16) if key.endswith(_BF16) \
+            else (key, "")
+        segs = base.split("/")
+        head = next((h for h in _MOMENTS
+                     if tuple(segs[:len(h)]) == h), None)
+        if head is None:
+            if segs in (["step"], ["opt", "step"]):
+                base = "/".join("." + s for s in segs)
+            out[base + suf] = a
+            continue
+        rest = segs[len(head):]
+        field = rest[1] if len(rest) == 2 else None
+        parts = rest[0].split(".")
+        dotted = ["." + h for h in head]
+        tail = ["." + field] if field else []
+        if parts[0] == "groups":
+            ref = "/".join(dotted + ["groups"] + parts[2:] + tail) + suf
+            stacks.setdefault(ref, {})[int(parts[1])] = a
+        else:
+            out["/".join(dotted + parts + tail) + suf] = a
+    for ref, by_group in stacks.items():
+        parts = [by_group[g] for g in sorted(by_group)]
+        if ref.endswith("/.scale"):
+            if any(not np.array_equal(p, parts[0]) for p in parts):
+                raise ValueError(f"{ref}: the groups' int8 scales differ; "
+                                 "the JAX package keeps one per stacked "
+                                 "leaf")
+            out[ref] = parts[0]
+        else:
+            out[ref] = np.stack(parts)
+    return out
 
 
 def store_from_numpy(state: dict, device="cuda") -> TemporalGraphStore:

@@ -29,12 +29,11 @@ import torch
 from repro_torch.core.delta import (ADD_EDGE, ADD_NODE, NOP, REM_EDGE,
                                     REM_NODE, Delta)
 from repro_torch.core.graph import DenseGraph, EdgeGraph
-from repro_torch.kernels.degree_series import degree_series_kernel
+from repro_torch.kernels.degree_series import degree_series_rows
 from repro_torch.kernels.delta_apply import (bucket_ops, delta_apply,
                                              node_mask_lww)
 from repro_torch.kernels.edge_delta_apply import (bucket_slot_ops,
                                                   edge_delta_apply)
-from repro_torch.kernels.evolve_sweep.sweep import bucket_sweep_events
 
 I32 = torch.int32
 
@@ -193,9 +192,8 @@ def degree_series(current, delta: Delta, t_k, t_l, num_buckets: int,
 
     Returns i32[num_buckets, N]: row b = degrees at time t_k + b.
     """
-    events, tile_start = bucket_sweep_events(delta, current.n_cap, t_k)
-    return degree_series_kernel(current.degrees(), events, tile_start,
-                                int(t_k), num_buckets)
+    return degree_series_rows(current.degrees(), delta, int(t_k),
+                              num_buckets)
 
 
 def node_degree_series(current_degree, delta: Delta, v, t_k,

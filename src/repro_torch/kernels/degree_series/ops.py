@@ -1,11 +1,13 @@
 """Wrapper of the degree-series kernel (``degree_series.cu``): the
 hybrid plan's backward series over the sweep's glue and buffers
 (``evolve_sweep/sweep.py``: ``bucket_sweep_events`` with no upper time
-bound, ``series_scratch``), and the launch."""
+bound, ``series_scratch``), and the launch; ``degree_series_rows`` runs
+it on one node block (the JAX package's ``degree_series_rows``)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.delta import Delta
 from repro_torch.kernels import build
 from repro_torch.kernels.degree_series.ref import degree_series_ref
 from repro_torch.kernels.evolve_sweep import sweep
@@ -37,3 +39,16 @@ def degree_series_kernel(deg_cur: torch.Tensor, events: torch.Tensor,
                               build.stream_handle(deg_cur.device))
     build.LAUNCHES["degree_series"] += 1
     return out
+
+
+def degree_series_rows(deg_block: torch.Tensor, delta: Delta, t_k: int,
+                       num_buckets: int, row0: int = 0) -> torch.Tensor:
+    """i32[B, R]: the series of nodes [row0, row0 + R) only, from their
+    current degrees ``deg_block`` i32[R] — one kernel launch on the
+    block's events (``bucket_sweep_events(row0=)``).  The blocks of a
+    node-sharded graph, concatenated along nodes, equal the whole
+    graph's series (``row0=0`` with every node's degrees)."""
+    events, tile_start = sweep.bucket_sweep_events(
+        delta, deg_block.shape[0], t_k, row0=row0)
+    return degree_series_kernel(deg_block, events, tile_start, t_k,
+                                num_buckets)

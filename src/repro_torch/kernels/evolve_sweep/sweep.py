@@ -23,29 +23,36 @@ TILE = 256     # == TN in series.cuh
 CHUNK = 8192
 
 
-def bucket_sweep_events(delta: Delta, n: int, t_lo, t_last=None):
+def bucket_sweep_events(delta: Delta, n: int, t_lo, t_last=None,
+                        row0: int = 0):
     """Events of the edge ops with t in (t_lo, t_last] (t > t_lo where
-    ``t_last`` is None), one per endpoint, as i32 ``[t, local node·2 +
-    (op == addEdge)]`` ordered by node tile (first endpoints, then
-    second endpoints).  The bucket is computed per query inside the
-    kernel, so one bucketing serves a whole sweep group (pass the
-    group's union window).  Returns (events i32[2W, 2], tile_start
-    i32[T + 1])."""
+    ``t_last`` is None), one per endpoint in nodes [row0, row0 + n), as
+    i32 ``[t, local node·2 + (op == addEdge)]`` ordered by node tile of
+    the block (first endpoints, then second endpoints), node ids local
+    to ``row0``.  The bucket is computed per query inside the kernel,
+    so one bucketing serves a whole sweep group (pass the group's union
+    window).  ``row0`` cuts a node block (the JAX package's
+    ``bucket_node_events(row0=, n_valid=)``): ``n`` is the block's own,
+    unpadded node count, so no later block's events reach its last
+    tile.  Returns (events i32[W', 2], tile_start i32[T + 1])."""
     keep = (delta.valid_mask() & delta.is_edge_op()
-            & (delta.t > int(t_lo)) & (delta.u < n) & (delta.v < n))
+            & (delta.t > int(t_lo)))
     if t_last is not None:
         keep &= delta.t <= int(t_last)
     idx = torch.nonzero(keep).flatten()
     add = (delta.op[idx] == ADD_EDGE).to(torch.int64)
     t = delta.t[idx].to(torch.int64)
-    nodes = torch.cat([delta.u[idx], delta.v[idx]]).to(torch.int64)
+    nodes = torch.cat([delta.u[idx], delta.v[idx]]).to(torch.int64) - row0
+    inb = (nodes >= 0) & (nodes < n)
+    nodes = nodes[inb]
+    t = torch.cat([t, t])[inb]
+    add = torch.cat([add, add])[inb]
     tiles = -(-n // TILE)
     tile_id = nodes // TILE
     order = torch.argsort(tile_id, stable=True)
     tile_start = torch.searchsorted(
         tile_id[order], torch.arange(tiles + 1, device=nodes.device))
-    events = torch.stack([torch.cat([t, t]),
-                          (nodes % TILE) * 2 + torch.cat([add, add])], 1)
+    events = torch.stack([t, (nodes % TILE) * 2 + add], 1)
     return (events[order].to(torch.int32).contiguous(),
             tile_start.to(torch.int32))
 

@@ -1,8 +1,11 @@
 """Wrapper of the chunked SSD scan kernel (``ssd_scan.cu``): operand
 checks, the scratch its chunk-parallel steps share (the chunk states,
 overwritten by the states entering each chunk; the in-chunk cumsum of
-a·dt, kept in float64; C·Bᵀ within each chunk, once for all heads), and
-the launches on the current stream.  Takes the
+a·dt, kept in float64; C·Bᵀ within each chunk, once for all heads), the
+launches on the current stream, and a ``torch.autograd.Function``
+whose backward is the plain ``ssd_chunked`` through autograd, recomputed
+from the saved inputs (the JAX package differentiates its jnp scan;
+there is no backward kernel there either).  Takes the
 model's own layout — the kernel forms dt·x and a·dt itself and reads
 B/C once per batch, so nothing is transposed, broadcast to heads or
 padded here (the caller pads the sequence to a chunk multiple with
@@ -23,9 +26,39 @@ def ssd_scan(x, dt, a, b, c, chunk: int, state0=None):
     b/c [B, S, N], state0 [B, H, P, N] or None (zeros) → (y [B, S, H,
     P], final state [B, H, P, N]), all float32, S a multiple of
     ``chunk``.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel, differentiable in x, dt, a, b, c and state0."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a, b, c, chunk, state0)
+    return _SSDScan.apply(x, dt, a, b, c, chunk, state0)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk, state0):
+        ctx.save_for_backward(x, dt, a, b, c, state0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd_scan_fwd(x, dt, a, b, c, chunk, state0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_state):
+        saved = [t for t in ctx.saved_tensors if t is not None]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in saved]
+            outs = ssd_chunked(*ins[:5], ctx.chunk,
+                               ins[5] if len(ins) > 5 else None)
+            pairs = [(o, g) for o, g in zip(outs, (g_y, g_state))
+                     if g is not None]
+            grads = torch.autograd.grad([o for o, _ in pairs], ins,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        dx, ddt, da, db, dc = grads[:5]
+        return (dx, ddt, da, db, dc, None,
+                grads[5] if len(grads) > 5 else None)
+
+
+def ssd_scan_fwd(x, dt, a, b, c, chunk: int, state0=None):
+    """Launch the kernel on CUDA tensors (no autograd)."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     build.check_cuda("x", x, torch.float32, 4)

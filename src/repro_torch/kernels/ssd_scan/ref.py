@@ -48,9 +48,14 @@ def ssd_chunked(x, dt, a, B, C, chunk: int, state0=None):
     # float64, each rounded to the input's type once before the exp, as
     # ssd_scan.cu forms them: float32 cums lose most of cum_i − cum_j's
     # digits to cancellation (cum reaches −10^3 at mamba2-130m), which
-    # dominated the float32 scan's error
-    cum = torch.cumsum(dtc.double() * a.double()[None, None, None, :],
-                       dim=2)                      # [b,nc,q,nh] (≤0)
+    # dominated the float32 scan's error.  The cumsum is a product with
+    # the lower-triangular ones matrix: ``torch.cumsum`` of floats has
+    # no deterministic CUDA form (``torch.use_deterministic_algorithms``
+    # refuses it), and the backward of training recomputes this scan
+    tri64 = torch.tril(torch.ones((q, q), dtype=torch.float64,
+                                  device=x.device))
+    cum = torch.einsum("ij,bcjh->bcih", tri64,          # [b,nc,q,nh] ≤ 0
+                       dtc.double() * a.double()[None, None, None, :])
 
     def exp(t):
         return torch.exp(t.to(x.dtype))

@@ -2,14 +2,16 @@
 families the port runs (dense, ssm):
 
   init_params(cfg, generator, dtype, device)    → params (an ``LM``)
-  forward(params, batch, cfg)                   → logits [B, S, V]
+  loss_fn(params, batch, cfg, remat)            → scalar loss (float32)
+  forward(params, batch, cfg, remat)            → logits [B, S, V]
   prefill(params, batch, cfg, cache_cap)        → (logits [B, V], caches)
   decode_step(params, token, pos, caches, cfg)  → (logits [B, V], caches)
   init_decode_caches(cfg, batch, cache_len, dtype, device) → caches
 
-Batches are dicts holding ``tokens``.  The other families raise
-``NotImplementedError``; training (``loss_fn``) comes with a later
-slice.
+Batches are dicts holding ``tokens`` (and ``labels``, optionally
+``mask``, for the loss).  The other families raise
+``NotImplementedError``.  There is no ``impl`` argument: the device
+decides how attention runs (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -24,8 +26,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return lm.init_params(cfg, generator, dtype, device)
 
 
-def forward(params, batch, cfg: ModelConfig):
-    return lm.forward(params, batch["tokens"], cfg)
+def loss_fn(params, batch, cfg: ModelConfig, *, remat="block"):
+    return lm.loss_fn(params, batch, cfg, remat=remat)
+
+
+def forward(params, batch, cfg: ModelConfig, *, remat="none"):
+    return lm.forward(params, batch["tokens"], cfg, remat=remat)
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_cap=None):

@@ -1,17 +1,23 @@
 """Decoder-only LM (dense / SSM) with KV/SSM caches and the three step
-entry points (forward, prefill, decode) — counterpart of
-``repro/models/lm.py``.
+entry points (forward, prefill, decode) and the training loss —
+counterpart of ``repro/models/lm.py``.
 
 The model is an ``nn.Module`` tree: ``LM`` holds ``embed``, a
 ``ModuleList`` of groups and ``final_norm``; the JAX package's scan over
-stacked group params is a Python loop here.  ``prefill`` and
-``decode_step`` run without autograd.  The MoE, hybrid, encoder-decoder
-and VLM families are not ported yet and raise.
+stacked group params is a Python loop here, and its ``jax.checkpoint``
+of the scan body is ``torch.utils.checkpoint`` of each group
+(``remat``).  ``prefill`` and ``decode_step`` run without autograd.  The
+MoE, hybrid, encoder-decoder and VLM families are not ported yet and
+raise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import not_ported, resolve_device
 from repro_torch.config import ModelConfig
@@ -61,15 +67,67 @@ def _embed(params: LM, tokens: torch.Tensor, cfg: ModelConfig, pos0: int):
     return embed(params.embed, tokens.long(), cfg, positions=positions)
 
 
-def forward(params: LM, tokens: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+# the products without batch dimensions, ``x @ W`` (JAX's
+# ``dots_with_no_batch_dims_saveable``); the batched ones, attention's,
+# are recomputed with everything else
+_SAVED_UNDER_BLOCK = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_UNDER_BLOCK
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _group_out(g, x, cfg, positions):
+    return B.apply_group(g, x, cfg, positions=positions)[0]
+
+
+def _apply_groups(params: LM, x, cfg: ModelConfig, positions,
+                  remat: str):
+    """Every group in turn.  ``remat`` is the JAX package's: "none"
+    keeps every activation for the backward; "full" keeps only each
+    group's input and recomputes the group in the backward; "block"
+    also keeps the outputs of the matmuls without batch dims.  Outside
+    autograd the three are the same computation."""
+    if remat not in ("none", "block", "full"):
+        raise ValueError(f"remat must be none, block or full, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        for g in params.groups:
+            x = _group_out(g, x, cfg, positions)
+        return x
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_products)
+               if remat == "block" else ckpt.noop_context_fn)
+    for g in params.groups:
+        x = ckpt.checkpoint(_group_out, g, x, cfg, positions,
+                            use_reentrant=False, context_fn=context)
+    return x
+
+
+def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+            remat: str = "none") -> torch.Tensor:
     """Training/eval forward: tokens [B, S] → logits [B, S, V] (f32)."""
     x = _embed(params, tokens, cfg, 0)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for g in params.groups:
-        x, _ = B.apply_group(g, x, cfg, positions=positions)
+    x = _apply_groups(params, x, cfg, positions, remat)
     x = apply_norm(params.final_norm, x, cfg.norm_kind)
     return unembed(params.embed, x, cfg)
+
+
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
+            remat: str = "block") -> torch.Tensor:
+    """Next-token cross entropy (mean over non-masked positions), in
+    float32: ``batch`` holds ``tokens`` and ``labels`` [B, S] and
+    optionally ``mask`` [B, S]."""
+    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    targets = batch["labels"][:, 1:].long()
+    lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()
 
 
 @torch.no_grad()

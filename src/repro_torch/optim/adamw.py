@@ -1,0 +1,116 @@
+"""AdamW written by hand, with selectable optimizer-state dtype —
+counterpart of ``repro/optim/adamw.py``.
+
+State dtypes (TrainConfig.opt_state_dtype):
+  float32  — standard
+  bfloat16 — halves the optimizer's memory
+  int8     — quantized m/v with one float32 absmax scale per tensor
+             (``QTensor``)
+
+The update is the JAX package's arithmetic, step for step, in float32:
+global-norm clipping, bias corrections ``1 − b^step`` formed in float32,
+and the decoupled decay ``p − lr·(upd + wd·p)`` cast back to the param
+dtype.  ``torch.optim.AdamW`` is not used: it applies the decay as a
+separate multiply (other rounding) and has no int8 state.
+
+Parameters are an ``nn.Module`` (its ``named_parameters``) or a dict of
+tensors; m and v are dicts under the same names.  ``adamw_update``
+writes the new values into the parameters in place (PyTorch's idiom;
+the JAX package returns fresh arrays) and returns new m / v.  A
+``QTensor``'s scale covers one tensor: here each group's own tensor,
+in the JAX package the leaf that stacks every group's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.config import TrainConfig
+
+
+@dataclasses.dataclass
+class QTensor:
+    """int8 tensor with a per-tensor float32 scale."""
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @staticmethod
+    def quantize(x: torch.Tensor) -> "QTensor":
+        a = x.abs().max() / 127.0
+        a = torch.where(a > 0, a, torch.ones_like(a))
+        return QTensor(q=torch.clamp(torch.round(x / a), -127, 127)
+                       .to(torch.int8), scale=a.float())
+
+    def dequantize(self) -> torch.Tensor:
+        return self.q.float() * self.scale
+
+
+@dataclasses.dataclass
+class AdamWState:
+    step: int
+    m: dict
+    v: dict
+
+
+def named(params) -> dict[str, torch.Tensor]:
+    """``params`` (a module or a dict of tensors) as a name → tensor dict."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _store(x: torch.Tensor, dtype: str):
+    if dtype == "int8":
+        return QTensor.quantize(x)
+    return x.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+
+
+def _load(x) -> torch.Tensor:
+    if isinstance(x, QTensor):
+        return x.dequantize()
+    return x.float()
+
+
+def adamw_init(params, cfg: TrainConfig) -> AdamWState:
+    def zeros():
+        return {n: _store(torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), cfg.opt_state_dtype)
+                for n, p in named(params).items()}
+    return AdamWState(step=0, m=zeros(), v=zeros())
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """√(Σ ‖t‖²) over ``tensors`` in float32 (a 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                          for t in tensors))
+
+
+@torch.no_grad()
+def adamw_update(grads: dict, state: AdamWState, params, cfg: TrainConfig,
+                 lr):
+    """One AdamW step with global-norm clipping; ``grads`` by parameter
+    name, ``lr`` a float or a 0-d float32 tensor.  Updates ``params`` in
+    place.  Returns (params, new_state, stats)."""
+    step = state.step + 1
+    ps = named(params)
+    gnorm = global_norm(grads[n] for n in ps)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    t = torch.tensor(float(step), dtype=torch.float32)
+    bc1 = (1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** t).item()
+    bc2 = (1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** t).item()
+
+    new_m, new_v = {}, {}
+    for n, p in ps.items():
+        g32 = grads[n].float() * clip
+        m32 = cfg.b1 * _load(state.m[n]) + (1 - cfg.b1) * g32
+        v32 = cfg.b2 * _load(state.v[n]) + (1 - cfg.b2) * g32 * g32
+        upd = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+        p32 = p.float()
+        p32 = p32 - lr * (upd + cfg.weight_decay * p32)
+        p.copy_(p32.to(p.dtype))
+        new_m[n] = _store(m32, cfg.opt_state_dtype)
+        new_v[n] = _store(v32, cfg.opt_state_dtype)
+    return params, AdamWState(step=step, m=new_m, v=new_v), \
+        {"grad_norm": gnorm, "lr": lr}

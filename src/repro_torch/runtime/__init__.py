@@ -1,0 +1,11 @@
+from repro_torch.runtime.failures import (FailureInjector, InjectedFailure,
+                                          run_with_recovery)
+from repro_torch.runtime.steps import (TrainState, init_train_state,
+                                       make_decode_step, make_grad_fn,
+                                       make_prefill_step, make_train_step)
+from repro_torch.runtime.stragglers import StragglerPolicy
+
+__all__ = ["TrainState", "init_train_state", "make_grad_fn",
+           "make_train_step", "make_prefill_step", "make_decode_step",
+           "FailureInjector", "InjectedFailure", "run_with_recovery",
+           "StragglerPolicy"]

@@ -548,3 +548,111 @@ def test_phase_sharded_on_the_cpu(layout):
     with pytest.raises(AssertionError, match=r"auto: \{'kind': 'point'"):
         chip_smoke.phase_sharded(layout, ops, n, layout, 7, mem,
                                  store=run["session"].store, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11's host side: training, delta checkpoints and recovery, the
+# card-versus-CPU check, rehearsed on reduced configs on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _reduced(arch):
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    return reduced(get_config(arch))
+
+
+@pytest.mark.parametrize("arch,kernel", [("smollm-360m", "flash_attention"),
+                                         ("mamba2-130m", "ssd_scan")])
+def test_phase_train_on_the_cpu(arch, kernel):
+    """Phase 11 (a) / (b) rehearsed on the CPU: every parameter gets a
+    finite nonzero gradient, loss and grad norm are finite at every
+    step; only the launch checks fail (no kernel runs on the CPU)."""
+    cfg = _reduced(arch)
+    res = chip_smoke.phase_train(cfg, kernel, 7, device="cpu", batch=2,
+                                 seq=32, steps=2)
+    per = 2 * cfg.n_layers            # forward + remat recompute
+    assert res["per_step"] == per and res["n_params"] > 0
+    assert chip_smoke.train_failures(res) == [
+        f"the first step launched {kernel} 0 times, want {per}",
+        f"2 steps launched {kernel} 0 times, want {2 * per}"]
+
+
+def _passing_train():
+    return dict(kernel="ssd_scan", per_step=4, steps=2, bad_grads=[],
+                grad_launches={"ssd_scan": 4, "flash_attention": 0},
+                launches={"ssd_scan": 8, "flash_attention": 0},
+                loss=[6.0, 5.9], grad_norm=[3.0, 2.9])
+
+
+@pytest.mark.parametrize("change,message", [
+    (dict(bad_grads=["groups.0.l0.ssm.A_log"]), "no finite nonzero gradient"),
+    (dict(grad_launches={"ssd_scan": 2}), "the first step launched ssd_scan 2"),
+    (dict(launches={"ssd_scan": 8, "delta_apply": 1}), "launched {'delta_"),
+    (dict(loss=[6.0, float("nan")]), "non-finite loss"),
+    (dict(grad_norm=[3.0, float("inf")]), "non-finite loss"),
+    (dict(loss=[6.0]), "1 steps logged of 2")])
+def test_train_verdict_names_each_failed_check(change, message):
+    assert chip_smoke.train_failures(_passing_train()) == []
+    bad = chip_smoke.train_failures(dict(_passing_train(), **change))
+    assert any(message in b for b in bad), bad
+
+
+def test_phase_train_recovery_on_the_cpu(tmp_path):
+    """Phase 11 (c) rehearsed on the CPU: the failure fires once at step
+    3, the state restored from the delta chain equals the state saved
+    at step 2 bit for bit, and the recovered run ends bit-equal to the
+    uninterrupted one; only the launch checks fail."""
+    cfg = _reduced("mamba2-130m")
+    res = chip_smoke.phase_train_recovery(cfg, "ssd_scan", str(tmp_path),
+                                          device="cpu", batch=2, seq=32)
+    assert chip_smoke.recovery_failures(res) == [
+        "clean_launches: ssd_scan never launched",
+        "launches: ssd_scan never launched"]
+    assert [(r["step"], r["saved_step"], r["differing"])
+            for r in res["restores"]] == [(2, 2, [])]
+    assert res["manifest"]["steps"] == [0, 2, 4, 5]
+    assert res["storage_bytes"]["deltas"] > 0
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+@pytest.mark.parametrize("change,message", [
+    (dict(fired=[]), "the injected failure fired []"),
+    (dict(restores=[]), "recovery restored nothing"),
+    (dict(restores=[dict(step=2, saved_step=2, seconds=0.1,
+                         differing=["params/embed.tok"])]),
+     "differs from the state saved at step 2"),
+    (dict(final_differing=["opt/m/embed.tok"]),
+     "final state differs from the uninterrupted run's in 1"),
+    (dict(final_step=5), "ended at step 5"),
+    (dict(launches={"ssd_scan": 0}), "launches: ssd_scan never launched")])
+def test_recovery_verdict_names_each_failed_check(change, message):
+    ok = dict(kernel="ssd_scan", steps=6, fired=[("step", "raise", 4)],
+              restores=[dict(step=2, saved_step=2, seconds=0.1,
+                             differing=[])],
+              final_differing=[], final_step=6,
+              clean_launches={"ssd_scan": 288}, launches={"ssd_scan": 288})
+    assert chip_smoke.recovery_failures(ok) == []
+    bad = chip_smoke.recovery_failures(dict(ok, **change))
+    assert any(message in b for b in bad), bad
+
+
+def test_phase_train_card_cpu_on_the_cpu():
+    """Phase 11 (d) with the CPU in the card's place: the same initial
+    state on both, and equal losses and grad norms at every step."""
+    res = chip_smoke.phase_train_card_cpu(_reduced("smollm-360m"), 7,
+                                          device="cpu", batch=2, seq=32,
+                                          steps=2)
+    assert res["init_differing"] == [] and res["max_rel"] == 0.0
+    assert len(res["loss_card"]) == 2
+
+
+def test_differing_arrays_reads_bytes_dtype_and_names():
+    import numpy as np
+    a = {"x": np.zeros(3, np.float32), "y": np.ones(2, np.int32)}
+    assert chip_smoke.differing_arrays(a, dict(a)) == []
+    neg = dict(a, x=np.array([0.0, -0.0, 0.0], np.float32))
+    assert chip_smoke.differing_arrays(a, neg) == ["x"]    # -0.0 != 0.0
+    assert chip_smoke.differing_arrays(
+        a, dict(a, y=np.ones(2, np.int64))) == ["y"]
+    assert chip_smoke.differing_arrays(a, {"x": a["x"]}) == ["y"]

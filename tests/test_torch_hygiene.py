@@ -72,7 +72,14 @@ def test_port_has_every_module_of_the_slice():
             "kernels/flash_attention/ops.py",
             "kernels/flash_attention/flash_attention.cu",
             "kernels/ssd_scan/ref.py", "kernels/ssd_scan/ops.py",
-            "kernels/ssd_scan/ssd_scan.cu"]
+            "kernels/ssd_scan/ssd_scan.cu",
+            "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+            "data/__init__.py", "data/synthetic.py",
+            "runtime/__init__.py", "runtime/steps.py",
+            "runtime/failures.py", "runtime/stragglers.py",
+            "checkpoint/__init__.py", "checkpoint/io.py",
+            "checkpoint/deltastore.py", "checkpoint/history.py",
+            "launch/__init__.py", "launch/train.py"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing
 
@@ -115,6 +122,19 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         lm_api.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_api.init_decode_caches(cfg, 1, 8)
+    # training: the trainer, its command line, its state and its data
+    from repro_torch.config import ShardingConfig, TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import main, train
+    from repro_torch.runtime import init_train_state
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, TrainConfig(total_steps=1), ShardingConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "mamba2-130m", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticLM(cfg, 1, 8)
     assert resolve_device("cpu").type == "cpu"
 
 

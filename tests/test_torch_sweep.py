@@ -370,3 +370,41 @@ def test_degree_series_splits_a_hub_tile():
     eq(want, DS.degree_series_kernel(deg, ev, starts, t_k, nb))
     eq(want, _kernel_model(deg.view(1, -1), ev, starts.numpy(), [t_k],
                            [2 ** 31 - 1], 1, nb, rows, backward=True)[0])
+
+
+@pytest.mark.parametrize("cuts", [[0, 160, 320, 480, 640], [0, 200, 457, 640]],
+                         ids=["quarters", "ragged"])
+def test_degree_series_node_blocks_match_jax(wide_sweep, cuts):
+    """B3's node-block glue (``bucket_sweep_events(row0=)``,
+    ``degree_series_rows``) against the JAX package's jnp
+    ``bucket_node_events(row0=, n_valid=)``: each block's events per
+    tile, and their [local node, bucket, sign] rows in order, are the
+    jnp blocks'; the blocks' series, concatenated along nodes, equal the
+    whole graph's (the port's and JAX's ``degree_series``)."""
+    from repro.core import reconstruct as R
+    from repro.kernels.degree_series.ops import bucket_node_events
+    st, td, _, _ = wide_sweep
+    t_k, nb = st.t_cur // 3, 16
+    deg = port_graph(st.current).degrees()
+    parts = []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        r = hi - lo
+        pad = -(-r // TS.TILE) * TS.TILE
+        blocks, overflow = bucket_node_events(
+            st.delta(), pad, t_k, nb, TS.TILE, 4096, row0=lo, n_valid=r)
+        assert not bool(overflow)
+        blocks = np.asarray(blocks)
+        ev, starts = TS.bucket_sweep_events(td, r, t_k, row0=lo)
+        assert np.array_equal(np.diff(starts.numpy()),
+                              blocks[..., 3].sum(1))
+        ev = ev.numpy()
+        got = np.stack([ev[:, 1] >> 1, np.clip(ev[:, 0] - t_k, 0, nb),
+                        (ev[:, 1] & 1) * 2 - 1], 1)
+        want = np.concatenate([b[b[:, 3] > 0][:, :3] for b in blocks])
+        assert np.array_equal(got, want)
+        parts.append(DS.degree_series_rows(deg[lo:hi].contiguous(), td, t_k,
+                                           nb, row0=lo))
+    whole = R.degree_series(st.current, st.delta(), t_k, t_k + nb - 1, nb,
+                            st.t_cur)
+    eq(whole, torch.cat(parts, 1))
+    eq(whole, DS.degree_series_rows(deg, td, t_k, nb))
