@@ -2,9 +2,9 @@
 """Drive the PyTorch port on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, run the GraphSession end to end on
 both layouts — in memory, sharded over a mesh, durable and indexed,
-reopened and crashed, replicated — serve two decoder LMs (prefill +
-greedy decode) at their published width and depth, and train them,
-with delta checkpoints and a recovery.
+reopened and crashed, replicated — run the paper's serving driver,
+serve two decoder LMs (prefill + greedy decode) at their published
+width and depth, and train them, with delta checkpoints and a recovery.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -142,12 +142,26 @@ Phases, in order (any failure exits non-zero):
    card and on the CPU from the same initial state: per-step loss and
    grad norm within the tolerance printed.
 
-Phase 10 runs right after phase 4, and phases 7, 8 and 9 after it;
+12. serving driver — ``repro_torch.launch.serve.main`` (the paper's
+   workload driver, ``--nodes 8192 --queries 1024 --seed 7``: the
+   dense size of phase 3) on every visible card and on ``cuda:0``
+   named four times, so that ``dist_batch_point_degree``'s psum runs:
+   ``build_store``, ``shard_graph`` of the current snapshot, 1,024
+   point-degree queries on the mesh, the five mixed plan-matrix
+   queries through ``store.query``.  The point degrees must be equal
+   bit for bit across the meshes and to a host numpy oracle over the
+   generator's op list; the mixed answers across the meshes and to the
+   same queries through ``evaluate_many``; each run must launch a
+   kernel (the global queries' two-phase plan runs dense LWW).
+   Printed: build, batch and mixed seconds and the launches of each
+   run, beside the card's name and power limit.
+
+Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
 phase 11 runs last.
 
-Phases 3, 4, 7, 8, 9 and 10 zero the launch counters before driving each
-session (and each reopen) and read them after: each kernel the layout
-should use must have launched.
+Phases 3, 4, 7, 8, 9, 10 and 12 zero the launch counters before driving
+each session (and each reopen, each driver run) and read them after:
+each kernel the layout should use must have launched.
 A sample of the answers must equal, bit for bit, those of the same
 session built with ``device="cpu"`` from the same ops; triangle counts
 are checked against a sparse count of the snapshot.  Phases 5 and 6 zero
@@ -2382,6 +2396,135 @@ def sharded_line(name: str, res: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the paper's serving driver (launch/serve.py) on the card
+# ---------------------------------------------------------------------------
+
+# the driver's query batch at phase 12's size
+SERVE_QUERIES = 1024
+
+
+def serve_degree_oracle(ops, vs, ts):
+    """deg(v, t) for each query (vs[i], ts[i]) from the op list alone:
+    +1 for every addEdge, -1 for every remEdge touching v with time
+    ≤ t, summed as prefix sums over the (node, time)-sorted edge ops —
+    no store, no tensor."""
+    import numpy as np
+
+    from repro_torch.core.delta import ADD_EDGE, REM_EDGE
+    a = np.array([(o.op, o.u, o.v, o.t) for o in ops], np.int64)
+    e = a[np.isin(a[:, 0], (ADD_EDGE, REM_EDGE))]
+    sign = np.where(e[:, 0] == ADD_EDGE, 1, -1)
+    width = int(a[:, 3].max()) + 2
+    key = np.concatenate([e[:, 1], e[:, 2]]) * width \
+        + np.concatenate([e[:, 3], e[:, 3]]) + 1
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    cum = np.concatenate([[0], np.cumsum(np.concatenate([sign, sign])
+                                         [order])])
+    vs = np.asarray(vs, np.int64)
+    ts = np.asarray(ts, np.int64)
+    hi = np.searchsorted(key, vs * width + ts + 1, side="right")
+    lo = np.searchsorted(key, vs * width, side="right")
+    return (cum[hi] - cum[lo]).astype(np.int32)
+
+
+def phase_serve(nodes: int, queries: int, seed: int, device="cuda",
+                meshes=None) -> dict:
+    """Phase 12: ``repro_torch.launch.serve.main`` with ``--nodes
+    nodes --queries queries --seed seed`` once on each mesh of
+    ``meshes`` (default: every visible card, and ``cuda:0`` named four
+    times), the launch counters zeroed just before each run and read
+    just after.  Held: the point degrees bit-equal across the meshes and
+    to ``serve_degree_oracle`` over the generator's op list, and the
+    five mixed answers bit-equal across the meshes and to the same
+    queries through the store's ``evaluate_many`` (its launches not
+    counted).  Returns the times, launches and every failed check
+    (``bad``), verdict in ``serve_failures``."""
+    import numpy as np
+
+    from repro_torch.core.generate import EvolutionParams, generate_ops
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.sharding import graph_mesh
+    if meshes is None:
+        meshes = {"visible": graph_mesh(), "cuda:0 x4":
+                  graph_mesh(["cuda:0"] * 4)}
+    argv = ["--nodes", str(nodes), "--queries", str(queries), "--seed",
+            str(seed), "--device", device]
+    runs = {}
+    for name, mesh in meshes.items():
+        _sync(device)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = serve.main(argv, mesh=mesh)
+        _sync(device)
+        runs[name] = dict(out=out, wall_s=time.perf_counter() - t0,
+                          launches={k: n for k, n in build.LAUNCHES.items()
+                                    if n})
+    bad = []
+    first, *rest = runs
+    ref = runs[first]["out"]
+    for name in rest:
+        out = runs[name]["out"]
+        if not (np.array_equal(out["vs"], ref["vs"])
+                and np.array_equal(out["ts"], ref["ts"])):
+            bad.append(f"{name}: another query batch than {first}'s")
+        if not same(out["degrees"], ref["degrees"]):
+            bad.append(f"{name}: point degrees differ from {first}'s")
+        for q, a, b in zip(ref["mixed"], out["answers"], ref["answers"]):
+            if not same(a, b):
+                bad.append(f"{name}: {q} answered {a}, {first} {b}")
+    t0 = time.perf_counter()
+    ops = generate_ops(nodes, EvolutionParams(m_attach=4, lam_extra=1.0,
+                                              lam_remove=1.0), seed)
+    oracle = serve_degree_oracle(ops, ref["vs"], ref["ts"])
+    oracle_s = time.perf_counter() - t0
+    wrong = np.nonzero(ref["degrees"] != oracle)[0]
+    if len(wrong) or ref["degrees"].dtype != np.int32:
+        bad.append(f"point degrees differ from the op list's at "
+                   f"{len(wrong)} of {len(oracle)} queries (first "
+                   f"{wrong[:4].tolist()})")
+    many = uncounted(lambda: ref["store"].evaluate_many(ref["mixed"]))
+    for q, a, b in zip(ref["mixed"], ref["answers"], many):
+        if not same(a, np.asarray(b)):
+            bad.append(f"{q}: the driver answered {a}, evaluate_many {b}")
+    return dict(nodes=nodes, queries=queries, stats=ref["store"].stats(),
+                oracle_s=oracle_s, bad=bad, runs={
+                    name: dict(mesh=[str(d) for d in r["out"]["mesh"]
+                                     .devices],
+                               build_s=r["out"]["build_s"],
+                               batch_s=r["out"]["batch_s"],
+                               mixed_s=r["out"]["mixed_s"],
+                               wall_s=r["wall_s"], launches=r["launches"],
+                               answers=[np.asarray(a).tolist()
+                                        for a in r["out"]["answers"]])
+                    for name, r in runs.items()})
+
+
+def serve_failures(res: dict) -> list:
+    """Phase 12's verdict (``phase_serve``): every failed check, named;
+    empty when the phase passed.  Each run must launch a kernel."""
+    bad = [f"serve: {b}" for b in res["bad"]]
+    for name, r in res["runs"].items():
+        if not r["launches"]:
+            bad.append(f"serve: the driver launched no kernel on {name}")
+    return bad
+
+
+def serve_line(res: dict, smi: str) -> str:
+    """Phase 12's printed line: each mesh's build, batch and mixed
+    seconds and launches, beside the card's name and power limit."""
+    return (f"serve ({smi}): {res['nodes']} nodes, {res['queries']} "
+            f"point-degree queries; " + "; ".join(
+                f"{name}: build {r['build_s']:.3f} s, batch "
+                f"{1e3 * r['batch_s']:.3f} ms, mixed "
+                f"{1e3 * r['mixed_s']:.3f} ms, launches {r['launches']}"
+                for name, r in res["runs"].items())
+            + f"; oracle {res['oracle_s']:.3f} s; mixed "
+            f"{res['runs'][next(iter(res['runs']))]['answers']}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 and 6: the decoder LMs
 # ---------------------------------------------------------------------------
 
@@ -3254,7 +3397,18 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
     del dense_mem, edge_mem
     # the sessions' graphs of objects hold card memory until the cycle
-    # collector runs; the LM phases read their peak memory from here
+    # collector runs; phase 12 and the LM phases read from here
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 12 — the paper's serving driver on every visible card and on
+    # cuda:0 named four times
+    t0 = time.perf_counter()
+    serving = phase_serve(args.dense_nodes, SERVE_QUERIES, args.seed)
+    phases["serve_s"] = time.perf_counter() - t0
+    print(serve_line(serving, smi.splitlines()[0]), flush=True)
+    bad = serve_failures(serving)
+    if bad:
+        raise AssertionError("; ".join(bad))
     gc.collect()
     torch.cuda.empty_cache()
     lms = {}
@@ -3286,6 +3440,8 @@ def main(argv=None) -> int:
         runs[f"{layout} sharded"] = r["launches"]
     for layout, r in replication.items():
         runs[f"{layout} replication"] = r["launches"]
+    for name, r in serving["runs"].items():
+        runs[f"serve {name}"] = r["launches"]
     for arch, r in lms.items():
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
@@ -3311,7 +3467,8 @@ def main(argv=None) -> int:
     report = dict(card=smi, torch=torch.__version__,
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
                   dense=dense, edge=edge, durable=durable, crash=crash,
-                  replication=replication, sharded=sharded, lms=lms,
+                  replication=replication, sharded=sharded,
+                  serving=serving, lms=lms,
                   training=training, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -22,7 +22,9 @@ The deltas are taken on the host, on integer views of the arrays as the
 npz holds them (bfloat16 as its uint16 bits), so a delta file is
 byte-equal to the JAX package's for the same leaf.  A root written by
 the JAX package (its tree-path leaf names, groups stacked) restores
-into the port's state through ``repro_torch.convert``.
+into the port's state through ``repro_torch.convert``.  The policies
+count a stacked int8 leaf's one scale once (``io.stacked_copy``), so
+both packages' stores materialize at the same steps.
 """
 from __future__ import annotations
 
@@ -119,6 +121,8 @@ class DeltaCheckpointStore:
                 old = flat_old[k]
                 d = _bit_delta(new, old)
                 deltas[_plain(k)] = d
+                if io.stacked_copy(k):
+                    continue
                 changed += float(np.count_nonzero(d))
                 nf = _as_f32(k, new)
                 of = _as_f32(k, old)

@@ -193,7 +193,9 @@ def arrays_to_reference(raw: dict) -> dict:
     of a ``TrainState`` renamed to the JAX package's tree paths, the
     groups' entries stacked in group order.  A stacked ``QTensor`` has
     one scale, so its groups' scales must be equal (they are for a state
-    carried over from the JAX package); raises otherwise."""
+    carried over from the JAX package and after any port step: the
+    optimizer quantizes a stacked leaf's groups against one absmax);
+    raises otherwise."""
     out, stacks = {}, {}
     for key, a in raw.items():
         base, suf = (key[:-len(_BF16)], _BF16) if key.endswith(_BF16) \

@@ -138,3 +138,36 @@ def slice_delta(d: Delta, t_lo, t_hi) -> Delta:
         return empty_delta(1, d.device)
     return Delta(op=d.op[keep], u=d.u[keep], v=d.v[keep],
                  slot=d.slot[keep], t=d.t[keep], n_ops=int(keep.numel()))
+
+
+def minimal_delta_between(mask_a: np.ndarray, adj_a: np.ndarray,
+                          mask_b: np.ndarray, adj_b: np.ndarray,
+                          t: int) -> tuple[np.ndarray, ...]:
+    """The *minimal* delta of paper Definition 2 / Lemma 1.
+
+    Given two snapshots (host node masks + dense adjacency), emit
+    exactly the operations required to turn A into B, in the order
+    add-node, add-edge, rem-edge, rem-node: unique and minimal, used to
+    validate Lemma 1 against logged (redundant) interval deltas.
+    Returns int32 host arrays (op, u, v, t).
+    """
+    mask_a, mask_b = np.asarray(mask_a, bool), np.asarray(mask_b, bool)
+    adj_a, adj_b = np.asarray(adj_a, bool), np.asarray(adj_b, bool)
+    add_nodes = np.nonzero(~mask_a & mask_b)[0]
+    rem_nodes = np.nonzero(mask_a & ~mask_b)[0]
+    iu, iv = np.triu_indices(adj_a.shape[0], k=1)
+    ea = adj_a[iu, iv]
+    eb = adj_b[iu, iv]
+    add_e = np.nonzero(~ea & eb)[0]
+    # Def. 2(4): remEdge only when both endpoints survive in B; edges
+    # dropped because an endpoint was removed are implied by remNode.
+    both_live = mask_b[iu] & mask_b[iv]
+    rem_e = np.nonzero(ea & ~eb & both_live)[0]
+    op = np.concatenate([np.full(add_nodes.shape, ADD_NODE),
+                         np.full(add_e.shape, ADD_EDGE),
+                         np.full(rem_e.shape, REM_EDGE),
+                         np.full(rem_nodes.shape, REM_NODE)])
+    u = np.concatenate([add_nodes, iu[add_e], iu[rem_e], rem_nodes])
+    v = np.concatenate([add_nodes, iv[add_e], iv[rem_e], rem_nodes])
+    return (op.astype(np.int32), u.astype(np.int32), v.astype(np.int32),
+            np.full(op.shape, t, np.int32))

@@ -46,9 +46,24 @@ from repro_torch.core.reconstruct import as_times, fit_batch
 from repro_torch.kernels.delta_apply import bucket_ops, delta_apply_row_block
 from repro_torch.kernels.edge_delta_apply import (
     bucket_slot_ops, edge_delta_apply_slot_block)
-from repro_torch.sharding.graph import GraphMesh, Replicated, put
+from repro_torch.sharding.graph import (GraphMesh, Replicated,  # noqa: F401
+                                        graph_mesh, put, shard_rows,
+                                        shard_slots)
+# graph_mesh is re-exported, as the reference's module does
 
 I32 = torch.int32
+
+
+def shard_graph(g: DenseGraph, mesh: GraphMesh) -> tuple:
+    """Adjacency rows / node mask row-sharded on the mesh (one
+    ``DenseGraph`` block a device)."""
+    return shard_rows(g, mesh)
+
+
+def shard_edge_graph(g: EdgeGraph, mesh: GraphMesh) -> tuple:
+    """An edge-layout snapshot slot-sharded on the mesh (one
+    ``EdgeGraph`` block a device)."""
+    return shard_slots(g, mesh)
 
 
 def psum(parts, mesh: GraphMesh) -> torch.Tensor:

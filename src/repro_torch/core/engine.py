@@ -212,6 +212,7 @@ class Planner:
             return None
         if self.index is not None:
             if self._row_ptr_host is None:
+                # graphlint: ignore[host-sync] one host copy of the index's row pointers a session, cached for the planner's per-node costs
                 self._row_ptr_host = self.index.row_ptr.cpu().numpy()
             ptr = self._row_ptr_host
             return int(ptr[v + 1] - ptr[v])
@@ -612,6 +613,7 @@ class HistoricalQueryEngine:
         elif t_host is not None:
             self.t_host = t_host
         else:
+            # graphlint: ignore[host-sync] one host copy of the log's times at engine build, for the planner's window counts
             self.t_host = delta.t[:delta.n_ops].cpu().numpy()
         n_cap = (current.n_cap if current is not None
                  else current_edge.n_cap)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 I32 = torch.int32
@@ -56,6 +57,15 @@ class DenseGraph:
     def induced(self, node_mask: torch.Tensor) -> "DenseGraph":
         m = node_mask & self.nodes
         return DenseGraph(nodes=m, adj=self.adj & m[:, None] & m[None, :])
+
+    def validate(self) -> torch.Tensor:
+        """True iff structurally consistent (edges only between valid
+        nodes, symmetric, zero diagonal)."""
+        ok_sym = torch.equal(self.adj, self.adj.T)
+        ok_diag = not bool(torch.diagonal(self.adj).any())
+        live = self.nodes[:, None] & self.nodes[None, :]
+        ok_live = not bool((self.adj & ~live).any())
+        return torch.tensor(ok_sym and ok_diag and ok_live)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,3 +167,27 @@ def dense_to_edge(g: DenseGraph, registry: EdgeGraph) -> EdgeGraph:
              & registry.reg_mask())
     return EdgeGraph(nodes=g.nodes, eu=registry.eu, ev=registry.ev,
                      emask=emask, n_edges_reg=registry.n_edges_reg)
+
+
+def edge_to_dense(g: EdgeGraph) -> DenseGraph:
+    """Inverse of ``dense_to_edge`` (alias of ``EdgeGraph.to_dense``)."""
+    return g.to_dense()
+
+
+def dense_from_numpy(nodes, edges, n_cap: int | None = None,
+                     device="cuda") -> DenseGraph:
+    """A ``DenseGraph`` on ``device`` from a host node mask and a list of
+    ``(a, b)`` edges (both directions set, no self-loops), padded to
+    ``n_cap`` nodes."""
+    from repro_torch import resolve_device
+    nodes = np.asarray(nodes, bool)
+    n = n_cap or nodes.shape[0]
+    mask = np.zeros((n,), bool)
+    mask[:nodes.shape[0]] = nodes
+    adj = np.zeros((n, n), bool)
+    for (a, b) in edges:
+        adj[a, b] = adj[b, a] = True
+    np.fill_diagonal(adj, False)
+    dev = resolve_device(device)
+    return DenseGraph(nodes=torch.from_numpy(mask).to(dev),
+                      adj=torch.from_numpy(adj).to(dev))

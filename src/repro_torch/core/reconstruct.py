@@ -136,6 +136,14 @@ def reconstruct_edge(anchor: EdgeGraph, delta: Delta, t_anchor,
                                  [int(t_query)]).take(0)
 
 
+def reconstruct_at(anchor, delta: Delta, t_anchor, t_query, **kw):
+    """Dispatch on snapshot layout: dense LWW (B1 on the card) for a
+    ``DenseGraph``, edge-slot LWW (B2) for an ``EdgeGraph``."""
+    if isinstance(anchor, DenseGraph):
+        return reconstruct_dense(anchor, delta, t_anchor, t_query, **kw)
+    return reconstruct_edge(anchor, delta, t_anchor, t_query)
+
+
 # --------------------------------------------------------------------------
 # Paper-faithful sequential replay (Algorithms 1 & 2)
 # --------------------------------------------------------------------------

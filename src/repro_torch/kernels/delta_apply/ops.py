@@ -156,6 +156,7 @@ def delta_apply_row_block(nodes_block: torch.Tensor,
     Returns (nodes bool[Q, R], adj bool[Q, R, N])."""
     r, n = adj_block.shape[-2:]
     if buckets is None:
+        # graphlint: ignore[host-sync] one host copy of the Q windows' times a call, to size the launch's buckets
         both = torch.cat([t_anchor, t_query]).cpu()
         buckets = bucket_ops(delta, n, int(both.min()), int(both.max()),
                              row0=row0, n_rows=r)

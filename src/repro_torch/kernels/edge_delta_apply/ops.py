@@ -109,6 +109,7 @@ def edge_delta_apply_slot_block(nodes: torch.Tensor | None,
     covering every window.  Returns (nodes bool[Q, N] or None, emask
     bool[Q, S])."""
     if buckets is None:
+        # graphlint: ignore[host-sync] one host copy of the Q windows' times a call, to size the launch's buckets
         both = torch.cat([t_anchor, t_query]).cpu()
         buckets = bucket_slot_ops(delta, emask_block.shape[-1],
                                   int(both.min()), int(both.max()),

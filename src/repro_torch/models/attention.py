@@ -127,7 +127,7 @@ def attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
             cache.pos_map = torch.where(slots < take, slots, -1)
         else:
             # SWA ring buffer: keep the last `ccap` keys at slot pos % cap
-            last = int(positions[-1])
+            last = positions[-1].to(torch.int32)
             idx = ((slots + (last + 1)) % ccap).long()  # absolute order
             src = torch.arange(s - ccap, s, device=x.device)
             cache.k[:, idx] = k[:, src]

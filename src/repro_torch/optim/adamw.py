@@ -4,8 +4,8 @@ counterpart of ``repro/optim/adamw.py``.
 State dtypes (TrainConfig.opt_state_dtype):
   float32  — standard
   bfloat16 — halves the optimizer's memory
-  int8     — quantized m/v with one float32 absmax scale per tensor
-             (``QTensor``)
+  int8     — quantized m/v with one float32 absmax scale per stacked
+             leaf (``QTensor``)
 
 The update is the JAX package's arithmetic, step for step, in float32:
 global-norm clipping, bias corrections ``1 − b^step`` formed in float32,
@@ -16,9 +16,14 @@ separate multiply (other rounding) and has no int8 state.
 Parameters are an ``nn.Module`` (its ``named_parameters``) or a dict of
 tensors; m and v are dicts under the same names.  ``adamw_update``
 writes the new values into the parameters in place (PyTorch's idiom;
-the JAX package returns fresh arrays) and returns new m / v.  A
-``QTensor``'s scale covers one tensor: here each group's own tensor,
-in the JAX package the leaf that stacks every group's.
+the JAX package returns fresh arrays) and returns new m / v.
+
+The JAX package stacks every group's copy of a parameter on one leaf
+(``groups/l0/attn/wq``) and quantizes that leaf against one absmax.
+The port keeps a tensor a group (``groups.0.l0.attn.wq``, ...), so an
+int8 update quantizes the groups of one stacked leaf together
+(``stack_key``): one shared scale, the max over every group's tensor,
+and so the same q and scale as the JAX package, group by group.
 """
 from __future__ import annotations
 
@@ -37,8 +42,11 @@ class QTensor:
     scale: torch.Tensor
 
     @staticmethod
-    def quantize(x: torch.Tensor) -> "QTensor":
-        a = x.abs().max() / 127.0
+    def quantize(x: torch.Tensor,
+                 absmax: torch.Tensor | None = None) -> "QTensor":
+        """``x`` against ``absmax`` (default: its own) — a stacked
+        leaf's groups pass the max over all of them."""
+        a = (x.abs().max() if absmax is None else absmax) / 127.0
         a = torch.where(a > 0, a, torch.ones_like(a))
         return QTensor(q=torch.clamp(torch.round(x / a), -127, 127)
                        .to(torch.int8), scale=a.float())
@@ -61,10 +69,31 @@ def named(params) -> dict[str, torch.Tensor]:
     return dict(params)
 
 
-def _store(x: torch.Tensor, dtype: str):
-    if dtype == "int8":
-        return QTensor.quantize(x)
+def stack_key(name: str) -> str:
+    """The JAX package's stacked leaf a parameter belongs to:
+    ``groups.<g>.<rest>`` → ``groups.<rest>``; any other name is a leaf
+    of its own."""
+    parts = name.split(".")
+    if parts[0] == "groups" and len(parts) > 2 and parts[1].isdigit():
+        return ".".join([parts[0]] + parts[2:])
+    return name
+
+
+def _store(x: torch.Tensor, dtype: str) -> torch.Tensor:
+    """A float32 or bfloat16 state tensor (int8: ``_quantize_stacked``)."""
     return x.to(torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+
+
+def _quantize_stacked(xs: dict) -> dict:
+    """Every tensor of ``xs`` (by parameter name) as a ``QTensor``, the
+    groups of one stacked leaf against their one shared absmax."""
+    absmax: dict[str, torch.Tensor] = {}
+    for n, x in xs.items():
+        k = stack_key(n)
+        a = x.abs().max()
+        absmax[k] = a if k not in absmax else torch.maximum(absmax[k], a)
+    return {n: QTensor.quantize(x, absmax[stack_key(n)])
+            for n, x in xs.items()}
 
 
 def _load(x) -> torch.Tensor:
@@ -75,9 +104,11 @@ def _load(x) -> torch.Tensor:
 
 def adamw_init(params, cfg: TrainConfig) -> AdamWState:
     def zeros():
-        return {n: _store(torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), cfg.opt_state_dtype)
-                for n, p in named(params).items()}
+        z = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in named(params).items()}
+        if cfg.opt_state_dtype == "int8":
+            return _quantize_stacked(z)
+        return {n: _store(x, cfg.opt_state_dtype) for n, x in z.items()}
     return AdamWState(step=0, m=zeros(), v=zeros())
 
 
@@ -101,6 +132,7 @@ def adamw_update(grads: dict, state: AdamWState, params, cfg: TrainConfig,
     bc1 = (1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** t).item()
     bc2 = (1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** t).item()
 
+    int8 = cfg.opt_state_dtype == "int8"
     new_m, new_v = {}, {}
     for n, p in ps.items():
         g32 = grads[n].float() * clip
@@ -110,7 +142,12 @@ def adamw_update(grads: dict, state: AdamWState, params, cfg: TrainConfig,
         p32 = p.float()
         p32 = p32 - lr * (upd + cfg.weight_decay * p32)
         p.copy_(p32.to(p.dtype))
-        new_m[n] = _store(m32, cfg.opt_state_dtype)
-        new_v[n] = _store(v32, cfg.opt_state_dtype)
+        if int8:    # quantized below, once every group's value is known
+            new_m[n], new_v[n] = m32, v32
+        else:
+            new_m[n] = _store(m32, cfg.opt_state_dtype)
+            new_v[n] = _store(v32, cfg.opt_state_dtype)
+    if int8:
+        new_m, new_v = _quantize_stacked(new_m), _quantize_stacked(new_v)
     return params, AdamWState(step=step, m=new_m, v=new_v), \
         {"grad_norm": gnorm, "lr": lr}

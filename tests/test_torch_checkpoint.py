@@ -5,13 +5,12 @@ policies, the history log, the npz round trip), and the port against
 ``repro.checkpoint``:
 
 * two stores, one per package, fed the same state sequence (a reduced
-  model's ``TrainState`` made from numpy, bf16 params and a float32
-  optimizer state) under each policy, write the same manifest and
+  model's ``TrainState`` made from numpy, bf16 params and a float32 or
+  int8 optimizer state) under each policy, write the same manifest and
   byte-equal npz arrays under ``convert``'s name map, and answer
-  ``select_anchor`` alike.  An int8 state is left out of this one: the
-  JAX package keeps one scale for a leaf that stacks every group, the
-  port one a group, so a changed scale counts once there and once a
-  group here (``ops_since_snap``);
+  ``select_anchor`` alike.  The JAX package keeps one int8 scale for a
+  leaf that stacks every group, the port a copy a group; the port's
+  store counts those copies once (``ops_since_snap``);
 * the port restores a root written by the JAX package at every logged
   step, bit-equal to the JAX restore carried over by ``convert``.
 """
@@ -234,6 +233,10 @@ POLICIES = {"periodic": DeltaPolicy(kind="periodic", period=2),
             "opcount": DeltaPolicy(kind="opcount", op_budget=250000.0),
             "similarity": DeltaPolicy(kind="similarity", drift=0.25)}
 STEPS = [0, 1, 2, 4, 5, 7, 8, 9]
+# an int8 state moves by whole steps of a small scale: its sequence's
+# relative drift a step falls from 4.6 to 0.33 (float32's from 0.28 to
+# 0.23), so its similarity threshold splits it at 0.6
+INT8_DRIFT = 0.6
 
 
 @pytest.fixture(scope="module")
@@ -242,11 +245,14 @@ def sequences():
             for od in ("int8", "float32")}
 
 
+@pytest.mark.parametrize("opt_dtype", ["float32", "int8"])
 @pytest.mark.parametrize("kind", list(POLICIES))
-def test_stores_write_the_same_root(tmp_path, sequences, kind):
-    jcfg, states = sequences["float32"]
+def test_stores_write_the_same_root(tmp_path, sequences, kind, opt_dtype):
+    jcfg, states = sequences[opt_dtype]
     cfg = reduced(get_config("mamba2-130m"))
     pol = POLICIES[kind]
+    if kind == "similarity" and opt_dtype == "int8":
+        pol = DeltaPolicy(kind="similarity", drift=INT8_DRIFT)
     jroot, root = str(tmp_path / "jax"), str(tmp_path / "port")
     jstore = jckpt.DeltaCheckpointStore(jroot, jckpt.DeltaPolicy(
         kind=pol.kind, period=pol.period, op_budget=pol.op_budget,

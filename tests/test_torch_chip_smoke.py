@@ -656,3 +656,67 @@ def test_differing_arrays_reads_bytes_dtype_and_names():
     assert chip_smoke.differing_arrays(
         a, dict(a, y=np.ones(2, np.int64))) == ["y"]
     assert chip_smoke.differing_arrays(a, {"x": a["x"]}) == ["y"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the serving driver, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_serve_degree_oracle_is_the_brute_force_degree():
+    """The phase's host oracle (prefix sums over the op list) gives
+    ``tests/reference.py``'s degree at every node and time sampled."""
+    import numpy as np
+    from reference import BruteForce
+
+    from repro_torch.core.generate import EvolutionParams, generate_ops
+    ops = generate_ops(60, EvolutionParams(m_attach=4, lam_extra=1.0,
+                                           lam_remove=1.0), 3)
+    t_max = max(o.t for o in ops)
+    bf = BruteForce(ops, 60, t_max)
+    vs, ts = np.meshgrid(np.arange(60), np.arange(0, t_max + 1, 3))
+    got = chip_smoke.serve_degree_oracle(ops, vs.ravel(), ts.ravel())
+    want = [bf.degree(int(v), int(t)) for v, t in zip(vs.ravel(),
+                                                       ts.ravel())]
+    assert got.dtype == np.int32 and got.tolist() == want
+    assert any(want)
+
+
+def test_phase_serve_on_the_cpu():
+    """Phase 12 rehearsed at a small size on a mesh of one CPU shard and
+    of four: degrees and mixed answers agree across the meshes, with the
+    oracle and with ``evaluate_many``; only the launch checks fail,
+    since no kernel runs on the CPU."""
+    from repro_torch.sharding import graph_mesh
+    res = chip_smoke.phase_serve(200, 256, 7, device="cpu", meshes={
+        "one": graph_mesh(["cpu"]), "x4": graph_mesh(["cpu"] * 4)})
+    assert res["bad"] == []
+    assert chip_smoke.serve_failures(res) == [
+        "serve: the driver launched no kernel on one",
+        "serve: the driver launched no kernel on x4"]
+    assert res["runs"]["x4"]["mesh"] == ["cpu"] * 4
+    assert "serve (card): 200 nodes, 256 point-degree queries" in \
+        chip_smoke.serve_line(res, "card")
+    # a passing run's verdict is empty
+    for r in res["runs"].values():
+        r["launches"] = {"delta_apply": 2}
+    assert chip_smoke.serve_failures(res) == []
+
+
+def test_phase_serve_names_a_wrong_degree(monkeypatch):
+    """An oracle that disagrees at one query is caught, and named."""
+    import numpy as np
+
+    from repro_torch.sharding import graph_mesh
+    real = chip_smoke.serve_degree_oracle
+
+    def off_by_one(ops, vs, ts):
+        out = real(ops, vs, ts)
+        out[5] += 1
+        return out
+    monkeypatch.setattr(chip_smoke, "serve_degree_oracle", off_by_one)
+    res = chip_smoke.phase_serve(60, 32, 7, device="cpu",
+                                 meshes={"one": graph_mesh(["cpu"])})
+    assert res["bad"] == ["point degrees differ from the op list's at 1 "
+                          "of 32 queries (first [5])"]
+    assert np.asarray(res["runs"]["one"]["answers"][3]).ndim == 0

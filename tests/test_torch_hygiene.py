@@ -79,7 +79,16 @@ def test_port_has_every_module_of_the_slice():
             "runtime/failures.py", "runtime/stragglers.py",
             "checkpoint/__init__.py", "checkpoint/io.py",
             "checkpoint/deltastore.py", "checkpoint/history.py",
-            "launch/__init__.py", "launch/train.py"]
+            "launch/__init__.py", "launch/train.py", "launch/serve.py",
+            "analysis/__init__.py", "analysis/__main__.py",
+            "analysis/base.py", "analysis/driver.py",
+            "analysis/registry.py", "analysis/lockdep.py",
+            "analysis/passes/__init__.py",
+            "analysis/passes/clock_discipline.py",
+            "analysis/passes/epoch_immutability.py",
+            "analysis/passes/lock_discipline.py",
+            "analysis/passes/wal_ordering.py",
+            "analysis/passes/torch_hotpath.py"]
     missing = [w for w in want if not os.path.exists(os.path.join(PORT, w))]
     assert not missing
 
@@ -135,6 +144,13 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         init_train_state(cfg, TrainConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyntheticLM(cfg, 1, 8)
+    # the serving driver and the graph built from host arrays
+    from repro_torch.core import dense_from_numpy
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--nodes", "8", "--queries", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dense_from_numpy([True, True], [(0, 1)])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -15,7 +15,12 @@ made with numpy:
   test);
 * B6's ``autograd.Function`` (its forward swapped for the plain version,
   as there is no kernel on the CPU): gradients within 1e-4 of
-  ``jax.grad`` of the reference scan.
+  ``jax.grad`` of the reference scan;
+* an int8 optimizer state over a model of several groups: two
+  ``adamw_update``s from the same state and gradients give the JAX
+  package's q and scale bit for bit, group by group (one absmax a
+  stacked leaf), and ``convert.arrays_to_reference`` accepts the state
+  after every update and after int8 ``train_step``s.
 
 The JAX package's ``test_elastic_reshard_preserves_values`` has no
 counterpart: multi-device training is not ported yet.
@@ -34,17 +39,22 @@ from repro.config import reduced as j_reduced  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.models.ssm import ssd_chunked as j_ssd_chunked  # noqa: E402
+from repro.optim import adamw_update as j_adamw_update  # noqa: E402
 from repro.runtime import init_train_state as j_init  # noqa: E402
 from repro.runtime import make_train_step as j_make_train_step  # noqa: E402
 from repro_torch.config import ShardingConfig, TrainConfig, reduced  # noqa: E402,E501
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import lm_from_numpy, train_state_from_numpy  # noqa: E402,E501
+from repro_torch.checkpoint import io  # noqa: E402
+from repro_torch.convert import (arrays_to_reference, lm_from_numpy,  # noqa: E402,E501
+                                 train_state_from_numpy)
+from repro_torch.optim import adamw_update  # noqa: E402
 from repro_torch.data import SyntheticLM, batch_specs  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as SO  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime import (FailureInjector, StragglerPolicy,  # noqa: E402,E501
-                                 init_train_state, make_train_step)
+                                 TrainState, init_train_state,
+                                 make_train_step)
 
 ARCHS = ["smollm-360m", "mamba2-130m"]
 TINY = dict(n_layers=1, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
@@ -395,3 +405,63 @@ def test_ssd_autograd_function_is_the_plain_backward(monkeypatch,
                              chunk, ts.get("state0"))
     (y * torch.from_numpy(w_y)).sum().backward()
     assert all(t.grad is not None for t in ts.values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_int8_state_shares_one_scale_per_stacked_leaf(arch):
+    """The JAX package quantizes a leaf that stacks every group against
+    one absmax; the port, which keeps a tensor a group, quantizes the
+    groups of that leaf together.  Two updates from the JAX package's
+    initial int8 state with the same numpy gradients: every group's q
+    and scale equal the stacked leaf's bit for bit (as
+    ``test_torch_optim`` holds int8 on ungrouped tensors), and the
+    state's npz entries convert to the JAX package's names."""
+    jcfg = j_reduced(j_get_config(arch))
+    cfg = reduced(get_config(arch))
+    # no clipping: an active clip factor carries the global norm's
+    # summation order, which differs between the packages in the last
+    # bit (``test_torch_optim.test_adamw_update_matches_jax``)
+    kw = dict(lr=1e-2, weight_decay=0.1, opt_state_dtype="int8",
+              param_dtype="float32", grad_clip=1e9)
+    jtcfg, tcfg = JTrainConfig(**kw), TrainConfig(**kw)
+    jstate = j_init(jax.random.PRNGKey(4), jcfg, jtcfg)
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                   device="cpu")
+    groups = {n.split(".")[1] for n in state.opt.m if n.startswith("groups.")}
+    assert len(groups) > 1
+    jparams, jopt = jstate.params, jstate.opt
+    params, opt = state.params, state.opt
+    rng = np.random.default_rng(5)
+    for step in range(2):
+        g_np = jax.tree.map(lambda p: (rng.standard_normal(p.shape) * 3)
+                            .astype(np.float32), jax.tree.map(
+                                np.asarray, jparams))
+        grads = dict(lm_from_numpy(g_np, cfg, device="cpu")
+                     .named_parameters())
+        params, opt, _ = adamw_update({n: g.detach()
+                                       for n, g in grads.items()},
+                                      opt, params, tcfg, 1e-2)
+        jparams, jopt, _ = j_adamw_update(
+            jax.tree.map(jnp.asarray, g_np), jopt, jparams, jtcfg,
+            jnp.float32(1e-2))
+        want = train_state_from_numpy(jax.tree.map(np.asarray, dict(
+            params=jparams, opt=jopt, step=step + 1)), cfg, device="cpu")
+        for moment in ("m", "v"):
+            ours, theirs = getattr(opt, moment), getattr(want.opt, moment)
+            for n in ours:
+                assert torch.equal(ours[n].q, theirs[n].q), (step, n)
+                assert ours[n].scale.numpy().tobytes() == \
+                    theirs[n].scale.numpy().tobytes(), (step, n)
+        port = TrainState(params=params, opt=opt, step=step + 1)
+        arrays_to_reference(io.raw_arrays(port))
+
+    # and through the train step, several steps
+    tcfg = TrainConfig(global_batch=2, seq_len=16, total_steps=4,
+                       **kw)
+    state = init_train_state(cfg, tcfg, device="cpu")
+    step_fn = make_train_step(cfg, tcfg, ShardingConfig())
+    for i in range(3):
+        state, _ = step_fn(state, _port_batch(_tokens(cfg.vocab, (2, 16),
+                                                      20 + i)))
+        arrays_to_reference(io.raw_arrays(state))
+    assert state.step == 3
