@@ -4,7 +4,9 @@ against its plain PyTorch version, run the GraphSession end to end on
 both layouts — in memory, sharded over a mesh, durable and indexed,
 reopened and crashed, replicated — run the paper's serving driver,
 serve two decoder LMs (prefill + greedy decode) at their published
-width and depth, and train them, with delta checkpoints and a recovery.
+width and depth and a mixture-of-experts LM (mixtral-8x7b) at its
+published width, as deep as the card holds, and train the two, with
+delta checkpoints and a recovery.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -33,18 +35,21 @@ Phases, in order (any failure exits non-zero):
    blocks of N/4 each equal to its rows of the whole kernel's) and of
    the degree sweep (four windows, the dense session's N, B = 512), the
    kernel lines carrying the counts the designs turn on; flash
-   attention (at the smollm-360m prefill shape, plus head dims 128 /
-   256, and a sliding window and a kv_len-padded non-causal case with
-   ragged Sq, each in float32 and bf16) and the SSD scan (at the
-   mamba2-130m prefill shape, output and final state, from a zero
-   state and continuing a cache) on seeded random inputs, within the
-   tolerance printed.  Each main case is timed (CUDA events, behind a
-   device sleep that covers the host's launches; the host's own time
-   per call beside it) beside its bound, the plain version and, for
-   attention, PyTorch's ``scaled_dot_product_attention`` as the
-   library yardstick; edge-slot LWW is timed at one query too; the
-   series' work list, which their blocks derive on the card, is held
-   against its plain version; dense and edge-slot LWW are also timed at
+   attention (at the smollm-360m prefill shape, at the mixtral-8x7b
+   prefill shape — B 8, S 2048, Hq 32, Hkv 8, D 128, bf16, window
+   4096, which covers every key, so the library runs causal — plus
+   head dims 128 / 256, and a sliding window and a kv_len-padded
+   non-causal case with ragged Sq, each in float32 and bf16) and the
+   SSD scan (at the mamba2-130m prefill shape, output and final state,
+   from a zero state and continuing a cache) on seeded random inputs,
+   within the tolerance printed.  Each main case is timed (CUDA
+   events, behind a device sleep that covers the host's launches; the
+   host's own time per call beside it) beside its bound, the plain
+   version and, for attention, PyTorch's
+   ``scaled_dot_product_attention`` as the library yardstick;
+   edge-slot LWW is timed at one query too; the series' work list,
+   which their blocks derive on the card, is held against its plain
+   version; dense and edge-slot LWW are also timed at
    crash recovery's shapes (one query over the whole log, (0, t_cur],
    from the empty graph);
 3. dense session — ``GraphSession(n_cap=8192, layout="dense")`` ingests
@@ -156,8 +161,52 @@ Phases, in order (any failure exits non-zero):
    Printed: build, batch and mixed seconds and the launches of each
    run, beside the card's name and power limit.
 
+13. mixtral-8x7b — the MoE family (``models/moe.py``) at published
+   width (d 4096, 32 / 8 heads of 128, 8 experts top-2 of d_ff 14336,
+   swiglu, vocab 32000, window 4096, capacity_factor 1.25), 24 of its
+   32 layers (70.2 GB of bf16; a step of 4 down while the weights and
+   8 GiB of activations exceed the free memory, ``--lm-layers``
+   overrides), random bf16 weights from a seeded generator.  First
+   everything earlier phases hold is freed, and more than 2 GiB still
+   allocated fails the phase.  (a) prefill 8 × 2048 and 32 greedy
+   decode steps, counters zeroed around each: one flash-attention
+   launch per layer per prefill, no other kernel, none in decode; (b)
+   one prefill's routing read through forward hooks on the MoE modules:
+   the share of (token, choice) pairs dropped and the fullest expert
+   against the capacity (5120), and some pair must drop; (c) decode
+   against a fresh forward over sequence 0 at the check-only
+   capacity_factor E / k = 4 (capacity = T, so neither path can drop:
+   at 1.25 a decode step of 8 tokens never drops and a 2080-token
+   forward does, two different functions in the reference itself).
+   The rules: in bf16 a step at which no layer routes sequence 0's
+   token differently from the forward is held to 2^-4 (the first) or
+   2^-2.  A step with such a route flip is re-run from the same cache
+   and its flips judged one at a time in layer order: each must be a
+   near-tie — the forward's gap between its k-th and (k+1)-th router
+   logits at most the largest |Δ router logit| between decode and
+   forward for that token and layer — and is then pinned to the
+   forward's experts for the next re-run, so that every flip is judged
+   on inputs that differ from the forward's by rounding alone (a flip
+   that is gone once the earlier ones are pinned follows from them).
+   The re-run with every judged flip pinned is held to the step's
+   tolerance, and an unpinned re-run must give the step's logits bit
+   for bit.  In float32 (2 layers at full width) no flip at all and
+   every step within ``F32_CARD_CPU_RTOL``.  (d) those 2 float32 layers on
+   the card and on the CPU at the published capacity, one prompt of 256
+   tokens and 32 steps: logits within ``F32_CARD_CPU_RTOL``, the same
+   greedy tokens, and every MoE call's top-k, keep mask and slots equal.
+   Printed: parameters, the cut, peak memory, prefill seconds and
+   tokens/s (warm and cold), decode ms/step, the device profile of one
+   prefill and of 8 decode steps, each route flip's gap and Δ and how
+   its step was judged, beside
+   the card's name and power limit; the verdict is ``moe_failures``,
+   read after phase 11 (a failed check then exits 1, phase 11 run).
+
 Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
-phase 11 runs last.
+phase 13 runs after phases 5 and 6, and phase 11 runs last.
+``main`` sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
+before the first CUDA allocation, so that memory earlier phases freed
+can hold phase 13's model.
 
 Phases 3, 4, 7, 8, 9, 10 and 12 zero the launch counters before driving
 each session (and each reopen, each driver run) and read them after:
@@ -962,14 +1011,17 @@ def attention_case(randn, b, hq, hkv, sq, skv, d, dtype, causal, window,
     kr = k.repeat_interleave(hq // hkv, 1)
     vr = v.repeat_interleave(hq // hkv, 1)
     mask = None
-    if window or kv_len is not None or not causal:
+    # a window that covers every key (mixtral's 4096 over 2048) masks
+    # nothing: the library then takes its causal path, without a mask
+    lib_window = None if window and window >= skv else window
+    if lib_window or kv_len is not None or not causal:
         qp = torch.arange(sq, device="cuda")[:, None]
         kp = torch.arange(skv, device="cuda")[None, :]
         mask = kp < (kv_len or skv)
         if causal:
             mask = mask & (kp <= qp)
-        if window:
-            mask = mask & (kp > qp - window)
+        if lib_window:
+            mask = mask & (kp > qp - lib_window)
 
     def library():
         return F.scaled_dot_product_attention(
@@ -1066,6 +1118,8 @@ def lm_kernel_cases(seed: int):
         (LM_BATCH, 15, 5, LM_PROMPT, LM_PROMPT, 64, bf16, True, None,
          None),                                       # smollm-360m prefill
         (1, 32, 2, 512, 512, 128, bf16, True, None, None),   # glm4-9b heads
+        (LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 128, bf16, True, 4096,
+         None),                                       # mixtral-8x7b prefill
         (1, 8, 1, 512, 512, 256, bf16, True, None, None),    # gemma-2b heads
         (1, 8, 2, 1000, 1000, 128, f32, True, 256, None),    # sliding window
         (1, 8, 2, 1000, 1000, 128, bf16, True, 256, None),
@@ -2805,6 +2859,568 @@ def phase_lm(arch: str, kernel: str, layers: int, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: mixtral-8x7b (the MoE family) served on the card
+
+
+MOE_ARCH = "mixtral-8x7b"
+# 24 of the 32 layers: one layer is 2.90 GB of bf16 (8 × 3 × 4096 ×
+# 14336 expert weights and 41.9 M attention weights), the embed and
+# unembed 0.52 GB, so 24 layers hold 70.2 GB = 65.4 GiB of the card's
+# 79.2; the depth steps down by 4 while the weights and
+# MOE_TRANSIENT_BYTES exceed the card's free memory
+MOE_LAYERS, MOE_LAYER_STEP = 24, 4
+# a prefill's activations, KV caches and expert intermediates at 8 ×
+# 2048 tokens (read on the card at 8 layers: a 27.97 GiB peak over 22.1
+# GiB of weights)
+MOE_TRANSIENT_BYTES = 8 * 2 ** 30
+# more than this still allocated when phase 13 starts fails it: a model
+# of ~70 GB needs the memory that earlier phases held
+MOE_START_ALLOCATED = 2 * 2 ** 30
+# (c)'s float32 half and (d): 2 layers at full width, 11.6 GB in float32
+MOE_F32_LAYERS = 2
+
+
+def moe_weight_bytes(cfg) -> int:
+    """Bytes of ``cfg``'s LM weights in bf16, the MoE router in float32."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    attn = d * cfg.hd() * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    layer = 2 * (attn + 2 * d + 3 * e * d * f) + 4 * d * e
+    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_layers * layer + 2 * (embed + d)
+
+
+def moe_depth(cfg, free_bytes: int, override: int = 0) -> tuple:
+    """Phase 13's depth and the reason for the cut, as printed: ``override``
+    (``--lm-layers``) if given, else MOE_LAYERS, stepped down by
+    MOE_LAYER_STEP while the weights and MOE_TRANSIENT_BYTES exceed
+    ``free_bytes``."""
+    import dataclasses
+    full = moe_weight_bytes(cfg) / 1e9
+    if override:
+        return override, (f"{override} of {cfg.n_layers} layers "
+                          f"(--lm-layers)")
+    n = MOE_LAYERS
+    while n > MOE_LAYER_STEP and moe_weight_bytes(dataclasses.replace(
+            cfg, n_layers=n)) + MOE_TRANSIENT_BYTES > free_bytes:
+        n -= MOE_LAYER_STEP
+    held = moe_weight_bytes(dataclasses.replace(cfg, n_layers=n)) / 1e9
+    why = (f"{n} of {cfg.n_layers} layers: {cfg.n_layers} layers are "
+           f"{full:.1f} GB of bf16 weights, {n} are {held:.1f} GB, with "
+           f"{MOE_TRANSIENT_BYTES / 2 ** 30:.0f} GiB for activations, of "
+           f"{free_bytes / 2 ** 30:.1f} GiB free")
+    if n < MOE_LAYERS:
+        why += f" (stepped down from {MOE_LAYERS}: {MOE_LAYERS} do not fit)"
+    return n, why
+
+
+class moe_inputs:
+    """Forward hooks on every MoE module of ``model``, in layer order:
+    inside the ``with``, each MoE call's input goes to ``fn(layer,
+    module, x)``, and a value ``fn`` returns other than None replaces the
+    call's output.  The model path takes no argument for it."""
+
+    def __init__(self, model, fn):
+        from repro_torch.models.moe import MoE
+        self.mods = [m for m in model.modules() if isinstance(m, MoE)]
+        self.fn, self.hooks = fn, []
+
+    def __enter__(self):
+        for i, m in enumerate(self.mods):
+            self.hooks.append(m.register_forward_hook(
+                lambda mod, args, out, i=i: self.fn(i, mod, args[0])))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+        self.hooks = []
+
+
+def routing_readout(model, cfg, tokens, cache_cap: int) -> dict:
+    """One prefill of ``tokens`` with hooks on the MoE modules: per layer,
+    the (token, choice) pairs, those dropped at ``cfg``'s capacity, and
+    the fullest expert's pairs beside that capacity."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.moe import route
+    rows = []
+
+    def read(layer, mod, x):
+        r = route(mod, x.reshape(-1, x.shape[-1]), cfg)
+        load = torch.bincount(r.topi.reshape(-1), minlength=cfg.n_experts)
+        rows.append(dict(layer=layer, pairs=r.keep.numel(),
+                         dropped=int((~r.keep).sum()),
+                         fullest=int(load.max()), cap=r.cap))
+    with torch.no_grad(), moe_inputs(model, read):
+        api.prefill(model, {"tokens": tokens}, cfg, cache_cap=cache_cap)
+    pairs = sum(r["pairs"] for r in rows)
+    dropped = sum(r["dropped"] for r in rows)
+    return dict(per_layer=rows, pairs=pairs, dropped=dropped,
+                dropped_share=dropped / pairs if pairs else 0.0,
+                fullest=max(r["fullest"] for r in rows),
+                cap=rows[0]["cap"],
+                layers_dropping=sum(1 for r in rows if r["dropped"]))
+
+
+def pinned_step(model, cfg, token, pos: int, caches, pins: dict) -> tuple:
+    """One decode step of ``token`` [B, 1] at ``pos`` that routes sequence
+    0's token, at each MoE layer in ``pins``, to the experts
+    ``pins[layer]`` in place of its own top-k (the other tokens route as
+    usual): (logits, sequence 0's router logits by layer).  The step
+    writes its key / value row into ``caches`` as every decode step
+    does; the causal mask hides the rows of later positions."""
+    from repro_torch.models import api
+    from repro_torch.models.moe import apply_routed, route, route_to
+    seen = {}
+
+    def hook(layer, mod, x):
+        r = route(mod, x.reshape(-1, x.shape[-1]), cfg)
+        seen[layer] = r.logits[0]
+        if layer in pins:
+            topi = r.topi.clone()
+            topi[0] = pins[layer]
+            return apply_routed(mod, x, route_to(r.logits, topi, cfg), cfg)
+        return None
+    with moe_inputs(model, hook):
+        logits, _ = api.decode_step(model, token, pos, caches, cfg)
+    return logits, seen
+
+
+def route_flip(dl, fl, k: int):
+    """None if router logits ``dl`` (decode) and ``fl`` (forward) choose
+    the same k experts, else the forward's gap between its k-th and
+    (k+1)-th logits, the largest |Δ router logit| and whether the flip
+    is a near-tie (gap ≤ Δ)."""
+    import torch
+    fs = torch.sort(fl, descending=True, stable=True)
+    ds = torch.sort(dl, descending=True, stable=True)
+    if set(fs.indices[:k].tolist()) == set(ds.indices[:k].tolist()):
+        return None
+    gap = float(fs.values[k - 1] - fs.values[k])
+    delta = float((dl - fl).abs().max())
+    return dict(gap=gap, delta=delta, near_tie=gap <= delta)
+
+
+def judge_flips(fwd: dict, seen: dict, k: int, rerun) -> dict:
+    """Judge one decode step's route flips one at a time in layer order.
+    ``fwd`` and ``seen`` are the forward's and the step's router logits
+    of sequence 0's token by layer; ``rerun(pins)`` re-runs the step with
+    the layers in ``pins`` routed to the given experts and returns
+    (logits, router logits by layer).  The lowest layer that flips is
+    judged; a near-tie is pinned to the forward's experts and the step
+    re-run, so the next flip is judged on inputs that differ from the
+    forward's by rounding alone; it stops at the first flip that is not
+    a near-tie or when none is left.  Returns the judged flips
+    (``rounds``), the pinned layers and the last re-run's logits (None
+    when nothing was pinned)."""
+    import torch
+    pins, rounds, logits = {}, [], None
+    while True:
+        flip = None
+        for layer in sorted(seen):
+            if layer not in pins:
+                flip = route_flip(seen[layer], fwd[layer], k)
+                if flip:
+                    flip["layer"] = layer
+                    break
+        if flip is None:
+            break
+        rounds.append(flip)
+        if not flip["near_tie"]:
+            break
+        pins[flip["layer"]] = torch.sort(
+            fwd[flip["layer"]], descending=True, stable=True).indices[:k]
+        logits, seen = rerun(pins)
+    return dict(rounds=rounds, pinned=sorted(pins), logits=logits)
+
+
+def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
+    """Greedy decode of ``prompts`` (prefill + ``n_steps`` steps) against a
+    fresh forward over sequence 0's prompt and generated tokens, both on
+    ``cfg``.  Per step, max |Δ logit| / max |logit|; per step and MoE
+    layer, a route flip where the decode sends sequence 0's token to
+    other experts than the forward does, with the forward's gap between
+    its k-th and (k+1)-th router logits and the largest |Δ router logit|
+    between the two (a near-tie: gap ≤ Δ).  Each step with a flip is
+    then re-run from the same cache and judged by ``judge_flips``
+    (``judged``: the flips judged, the layers pinned, the pinned
+    re-run's error, and whether a last unpinned re-run, which also puts
+    the step's own row back into the cache, gave the step's logits bit
+    for bit)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.moe import route
+    s, k = prompts.shape[1], cfg.top_k
+    dec, fwd = {}, {}
+
+    def on_decode(layer, mod, x):
+        dec.setdefault(layer, []).append(route(mod, x[:1, -1], cfg).logits[0])
+
+    def on_forward(layer, mod, x):
+        fwd[layer] = route(mod, x[0, s:s + n_steps], cfg).logits
+
+    hooks = moe_inputs(model, on_decode)
+    with torch.no_grad():
+        try:
+            gen, steps, caches = greedy(api, model, cfg, prompts, n_steps,
+                                        s + n_steps,
+                                        after_prefill=hooks.__enter__)
+        finally:
+            hooks.__exit__()
+        seq = torch.cat([prompts[:1], gen[:1, :n_steps]], 1)
+        with moe_inputs(model, on_forward):
+            full = api.forward(model, {"tokens": seq}, cfg)[0]
+        step_rel = [_rel_err(steps[i + 1][0], full[s + i])
+                    for i in range(n_steps)]
+        flips = []
+        for i in range(n_steps):
+            first = None        # the step's first flipped layer
+            for layer in sorted(dec):
+                flip = route_flip(dec[layer][i], fwd[layer][i], k)
+                if flip:
+                    flips.append(dict(step=i, layer=layer, after=first,
+                                      **flip))
+                    first = layer if first is None else first
+        judged = []
+        for i in sorted({f["step"] for f in flips}):
+            def rerun(pins, i=i):
+                return pinned_step(model, cfg, gen[:, i:i + 1], s + i,
+                                   caches, pins)
+            j = judge_flips({n: fwd[n][i] for n in fwd},
+                            {n: dec[n][i] for n in dec}, k, rerun)
+            logits = j.pop("logits")
+            j.update(step=i, pinned_rel=(
+                None if logits is None else _rel_err(logits[0], full[s + i])))
+            j["follows"] = [f["layer"] for f in flips if f["step"] == i
+                            and f["layer"] not in
+                            {x["layer"] for x in j["rounds"]}]
+            j["reproduces"] = bool(torch.equal(rerun({})[0], steps[i + 1]))
+            judged.append(j)
+        del caches
+    agree = float((full[s - 1:].argmax(-1) == gen[0, :n_steps + 1])
+                  .float().mean())
+    return dict(capacity_factor=cfg.capacity_factor, step_rel=step_rel,
+                flips=flips, judged=judged, greedy_agreement=agree,
+                finite=all(bool(torch.isfinite(t).all()) for t in steps))
+
+
+def routes_by_call(model, cfg, tokens, n_steps: int):
+    """Greedy decode of ``tokens`` (prefill + ``n_steps`` steps) with hooks
+    on the MoE modules: (generated, every step's logits, each MoE call's
+    (layer, top-k, keep, slot) on the host)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.moe import route
+    calls = []
+
+    def read(layer, mod, x):
+        r = route(mod, x.reshape(-1, x.shape[-1]), cfg)
+        calls.append((layer, r.topi.cpu(), r.keep.cpu(), r.slot.cpu()))
+    with torch.no_grad(), moe_inputs(model, read):
+        gen, steps, _ = greedy(api, model, cfg, tokens, n_steps,
+                               tokens.shape[1] + n_steps)
+    return gen, steps, calls
+
+
+def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
+              prompt: int = LM_PROMPT, decode: int = LM_DECODE,
+              check_prompt: int = CHECK_PROMPT,
+              check_decode: int = CHECK_DECODE,
+              f32_layers: int = MOE_F32_LAYERS, cut: str = "") -> dict:
+    """Phase 13: serve ``cfg`` (a MoE LM at full width, its depth cut to
+    ``cfg.n_layers``) in bf16 from a seeded generator.  (a) the main
+    path, prefill and greedy decode, counters zeroed before each and read
+    after; (b) one prefill's routing at the published capacity, read
+    through forward hooks; (c) decode against a fresh forward at the
+    check-only capacity factor E / k (capacity = T: no pair can drop in
+    either), in bf16 and, on ``f32_layers`` layers, in float32; (d) the
+    float32 model on ``device`` and on the CPU at the published capacity:
+    logits, greedy tokens and every MoE call's routing.  The verdict is
+    ``moe_failures``."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    on_card = torch.device(device).type == "cuda"
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, cut=cut,
+               kernel="flash_attention", d_model=cfg.d_model,
+               capacity_factor=cfg.capacity_factor, batch=batch,
+               prompt=prompt, decode=decode)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["allocated_before"] = torch.cuda.memory_allocated()
+        res["reserved_before"] = torch.cuda.memory_reserved()
+        print(f"{cfg.name}: before the model, "
+              f"{res['allocated_before'] / 2 ** 30:.3f} GiB allocated, "
+              f"{res['reserved_before'] / 2 ** 30:.3f} GiB reserved "
+              f"(limit {MOE_START_ALLOCATED / 2 ** 30:.0f} GiB allocated)",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen_w = torch.Generator(device=device).manual_seed(seed)
+    model = api.init_params(cfg, gen_w, torch.bfloat16, device)
+    _sync(device)
+    res["init_s"] = time.perf_counter() - t0
+    res["params"] = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt))).to(device)
+    cap = prompt + decode
+
+    # (a) the main path: prefill, then greedy decode; the clock and the
+    # counters are read after each
+    marks = []
+
+    def mark():
+        _sync(device)
+        marks.append((time.perf_counter(), dict(build.LAUNCHES)))
+        build.reset_launches()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    gen, steps, caches = greedy(api, model, cfg, prompts, decode, cap,
+                                after_prefill=mark)
+    mark()
+    (t1, res["prefill_launches"]), (t2, res["decode_launches"]) = marks
+    res["prefill_cold_s"], decode_s = t1 - t0, t2 - t1
+    res["decode_ms_per_step"] = 1e3 * decode_s / decode
+    res["finite"] = all(bool(torch.isfinite(t).all()) for t in steps)
+    res["generated"] = gen[0].tolist()
+    del caches, steps, gen
+
+    # (b) the routing of one prefill at the published capacity
+    res["routing"] = routing_readout(model, cfg, prompts, cap)
+
+    if on_card:
+        t0 = time.perf_counter()
+        _, caches = api.prefill(model, {"tokens": prompts}, cfg,
+                                cache_cap=cap)
+        torch.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        res["prefill_tokens_per_s"] = batch * prompt / res["prefill_s"]
+        res["profile_prefill"] = profile_device(lambda: api.prefill(
+            model, {"tokens": prompts}, cfg, cache_cap=cap))
+
+        def decode8():
+            t = prompts[:, -1:]
+            for i in range(8):
+                logits, _ = api.decode_step(model, t, prompt + i, caches,
+                                            cfg)
+                t = logits.argmax(-1)[:, None]
+        res["profile_decode8"] = profile_device(decode8)
+        del caches
+
+    # (c) decode against a fresh forward at the check-only capacity
+    check = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k)
+    t0 = time.perf_counter()
+    res["bf16_decode"] = decode_vs_forward(model, check, prompts, decode)
+    res["bf16_check_s"] = time.perf_counter() - t0
+    if on_card:
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) in float32 and (d): f32_layers layers at full width, built on
+    # the CPU and copied, so both devices start from the same bits
+    t0 = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=f32_layers)
+    cpu = api.init_params(small, torch.Generator().manual_seed(seed),
+                          torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(device)
+    res["f32_decode"] = decode_vs_forward(
+        card, dataclasses.replace(check, n_layers=f32_layers), prompts,
+        decode)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, check_prompt)))
+    g_card, s_card, r_card = routes_by_call(card, small, toks.to(device),
+                                            check_decode)
+    g_cpu, s_cpu, r_cpu = routes_by_call(cpu, small, toks, check_decode)
+    differs = [(i, a[0], name)
+               for i, (a, b) in enumerate(zip(r_card, r_cpu))
+               for name, x, y in zip(("topi", "keep", "slot"), a[1:], b[1:])
+               if not torch.equal(x, y)]
+    if len(r_card) != len(r_cpu):
+        differs.append(("calls", len(r_card), len(r_cpu)))
+    res["card_cpu"] = dict(
+        capacity_factor=small.capacity_factor, layers=f32_layers,
+        rel=max(_rel_err(a.cpu(), b) for a, b in zip(s_card, s_cpu)),
+        same_tokens=bool(torch.equal(g_card.cpu(), g_cpu)),
+        calls=len(r_card), route_differs=differs, prompt=check_prompt,
+        decode=check_decode,
+        dropped=sum(int((~c[2]).sum()) for c in r_card))
+    res["f32_check_s"] = time.perf_counter() - t0
+    del card, cpu
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def moe_failures(res: dict) -> list:
+    """Phase 13's verdict on ``phase_moe``'s result: every failed check,
+    named; empty when the phase passed.  The decode rules: a step at
+    which no MoE layer routes sequence 0's token differently from the
+    forward is held to BF16_FIRST_STEP_RTOL (the first step) or
+    BF16_DECODE_RTOL; in float32 no flip at all, and every step within
+    F32_CARD_CPU_RTOL.  A bf16 step with a route flip is judged on its re-runs
+    (``judge_flips``): every flip judged must be a near-tie (the
+    forward's gap between its k-th and (k+1)-th router logits at most
+    the largest |Δ router logit| of that token and layer), the re-run
+    with the judged flips pinned to the forward's experts is held to the
+    step's tolerance, and the unpinned re-run must give the step's
+    logits bit for bit."""
+    bad = []
+    if res.get("allocated_before", 0) > MOE_START_ALLOCATED:
+        bad.append(f"{res['allocated_before'] / 2 ** 30:.2f} GiB still "
+                   f"allocated when the phase began (limit "
+                   f"{MOE_START_ALLOCATED / 2 ** 30:.0f} GiB)")
+    k, n = res["kernel"], res["n_layers"]
+    pre = res["prefill_launches"]
+    if pre.get(k, 0) != n:
+        bad.append(f"a prefill launched {k} {pre.get(k, 0)} times, want {n}")
+    others = {m: c for m, c in pre.items() if m != k and c}
+    if others:
+        bad.append(f"a prefill launched {others}")
+    if any(res["decode_launches"].values()):
+        bad.append(f"decode launched {res['decode_launches']}")
+    if not res["finite"]:
+        bad.append("non-finite logits")
+    ro = res["routing"]
+    if ro["dropped"] == 0:
+        bad.append(f"no pair dropped at capacity_factor "
+                   f"{res['capacity_factor']} (capacity {ro['cap']}, "
+                   f"fullest expert {ro['fullest']})")
+    for what, d in (("bf16", res["bf16_decode"]),
+                    ("float32", res["f32_decode"])):
+        if not d["finite"]:
+            bad.append(f"{what} decode check: non-finite logits")
+        flipped = {f["step"] for f in d["flips"]}
+        if what == "float32" and d["flips"]:
+            bad.append(f"float32 decode routes differently from the "
+                       f"forward at (step, layer) "
+                       f"{[(f['step'], f['layer']) for f in d['flips']]}")
+        rel = d["step_rel"]
+        tol = ([BF16_FIRST_STEP_RTOL] + [BF16_DECODE_RTOL] * (len(rel) - 1)
+               if what == "bf16" else [F32_CARD_CPU_RTOL] * len(rel))
+        for j in d["judged"] if what == "bf16" else ():
+            i, pinned = j["step"], j["pinned"]
+            for f in j["rounds"]:
+                if not f["near_tie"]:
+                    bad.append(
+                        f"bf16 decode: the route flip at step {i}, layer "
+                        f"{f['layer']} is not a near-tie (gap "
+                        f"{f['gap']:.4g} > |Δ router logit| "
+                        f"{f['delta']:.4g})" + (
+                            f" with layers {pinned} pinned to the "
+                            f"forward's experts" if pinned else ""))
+            if (j["rounds"] and all(f["near_tie"] for f in j["rounds"])
+                    and not j["pinned_rel"] <= tol[i]):
+                bad.append(f"bf16 decode with step {i}'s near-tie flips "
+                           f"(layers {pinned}) pinned to the forward's "
+                           f"experts disagrees with a fresh forward: rel "
+                           f"err {j['pinned_rel']:.4g} (tolerance "
+                           f"{tol[i]:.4g})")
+            if not j["reproduces"]:
+                bad.append(f"bf16 decode: a re-run of step {i} does not "
+                           f"give the step's logits bit for bit")
+        over = [(i, r) for i, (r, t) in enumerate(zip(rel, tol))
+                if i not in flipped and not r <= t]
+        if over:
+            bad.append(f"{what} decode disagrees with a fresh forward at "
+                       f"steps without a route flip: (step, rel err) "
+                       f"{[(i, round(r, 5)) for i, r in over]}")
+    c = res["card_cpu"]
+    if not c["rel"] <= F32_CARD_CPU_RTOL:
+        bad.append(f"float32 card and CPU logits differ by {c['rel']:.3g} "
+                   f"(tolerance {F32_CARD_CPU_RTOL:.3g})")
+    if not c["same_tokens"]:
+        bad.append("float32 card and CPU greedy tokens differ")
+    if c["route_differs"]:
+        bad.append(f"float32 card and CPU route differently: (call, layer, "
+                   f"field) {c['route_differs'][:8]}")
+    return [f"{res['arch']}: {b}" for b in bad]
+
+
+def moe_lines(res: dict, smi: str) -> list:
+    """Phase 13's printed lines, the card's name and power limit beside
+    its times."""
+    ro, b, f, c = (res["routing"], res["bf16_decode"], res["f32_decode"],
+                   res["card_cpu"])
+    flipped = {x["step"] for x in b["flips"]}
+    calm = [r for i, r in enumerate(b["step_rel"]) if i not in flipped]
+    lines = [
+        f"{res['arch']} [moe] on {smi}: {res['n_layers']} layers (cut: "
+        f"{res['cut']}), d {res['d_model']}, {res['params'] / 1e9:.2f} B "
+        f"params; prefill {res['batch']}x{res['prompt']} in "
+        f"{res['prefill_s']:.4f} s ({res['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; cold {res['prefill_cold_s']:.4f} s), decode "
+        f"{res['decode_ms_per_step']:.3f} ms/step, peak "
+        f"{res['peak_gib']:.2f} GiB, init {res['init_s']:.1f} s; launches "
+        f"per prefill {res['prefill_launches']}, decode "
+        f"{res['decode_launches']}",
+        f"{res['arch']}: routing of one prefill at capacity_factor "
+        f"{res['capacity_factor']}: dropped {ro['dropped_share']:.4f} of "
+        f"{ro['pairs']} pairs ({ro['dropped']}; {ro['layers_dropping']} of "
+        f"{len(ro['per_layer'])} layers drop), fullest expert "
+        f"{ro['fullest']} pairs for capacity {ro['cap']}",
+        f"{res['arch']}: bf16 decode vs fresh forward at the check-only "
+        f"capacity_factor {b['capacity_factor']} (capacity = T, nothing "
+        f"drops): rel err first step {b['step_rel'][0]:.4g} (tolerance "
+        f"{BF16_FIRST_STEP_RTOL:.4g} without a flip), steps without a flip "
+        f"max {max(calm) if calm else float('nan'):.4g} (tolerance "
+        f"{BF16_DECODE_RTOL:.4g}), greedy agreement "
+        f"{b['greedy_agreement']:.3f}; route flips {len(b['flips'])}"
+        + "".join(f"; step {x['step']} layer {x['layer']}: gap "
+                  f"{x['gap']:.4g}, |Δ router logit| {x['delta']:.4g}, "
+                  f"near-tie {x['near_tie']}, "
+                  + ("the step's first flip" if x["after"] is None
+                     else f"after the flip at layer {x['after']}")
+                  + f", step rel err {b['step_rel'][x['step']]:.4g}"
+                  for x in b["flips"])
+        + "".join(f"; step {j['step']} re-run: flips judged "
+                  + ", ".join(f"layer {f['layer']} (gap {f['gap']:.4g}, "
+                              f"|Δ| {f['delta']:.4g}, near-tie "
+                              f"{f['near_tie']})" for f in j["rounds"])
+                  + f", pinned {j['pinned']}, following from them "
+                  f"{j['follows']}, rel err with them pinned "
+                  + ("n/a" if j["pinned_rel"] is None
+                     else f"{j['pinned_rel']:.4g}")
+                  + f", unpinned re-run bit-equal {j['reproduces']}"
+                  for j in b["judged"]),
+        f"{res['arch']}: float32, {c['layers']} layers at full width: decode "
+        f"vs fresh forward at capacity_factor {f['capacity_factor']}: max "
+        f"rel err {max(f['step_rel']):.3g} (tolerance "
+        f"{F32_CARD_CPU_RTOL:.3g}), route flips {len(f['flips'])}; card vs "
+        f"CPU at capacity_factor {c['capacity_factor']}, prompt "
+        f"{c['prompt']} + {c['decode']} steps: rel err {c['rel']:.3g} "
+        f"(tolerance {F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: "
+        f"{c['same_tokens']}, {c['calls']} MoE calls route alike: "
+        f"{not c['route_differs']} ({c['dropped']} pairs dropped on the "
+        f"card) ({res['f32_check_s']:.1f} s)"]
+    for what in ("prefill", "decode8"):
+        pr = res.get(f"profile_{what}")
+        if pr:
+            lines.append(
+                f"{res['arch']} profile, "
+                f"{'prefill' if what == 'prefill' else '8 decode steps'}: "
+                f"wall {pr['wall_s']:.4f} s, device {pr['device_s']:.4f} s, "
+                f"busy {pr['busy']:.3f}; top " + "; ".join(
+                    f"{k} {ms:.2f} ms x{n}" for k, ms, n in pr["top_ms"]))
+    return lines
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: training on the card
 
 
@@ -3278,6 +3894,11 @@ def main(argv=None) -> int:
     # cuBLAS's deterministic workspace, read when its first handle is
     # made: phase 11 (c) trains under deterministic algorithms
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # segments that grow in place, read when the allocator starts:
+    # phase 13's ~70 GB model needs memory that earlier phases freed,
+    # not reserved blocks of the wrong sizes
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
 
     import torch
     if not torch.cuda.is_available():
@@ -3418,6 +4039,21 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         lms[arch] = phase_lm(arch, kernel, args.lm_layers, args.seed)
         phases[f"{arch}_s"] = time.perf_counter() - t0
+    # phase 13 — mixtral-8x7b at full width, as deep as the card holds,
+    # once the memory earlier phases held is free
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    layers, cut = moe_depth(lm_config(MOE_ARCH, 0),
+                            torch.cuda.mem_get_info()[0], args.lm_layers)
+    moe = phase_moe(lm_config(MOE_ARCH, layers), args.seed, cut=cut)
+    phases[f"{MOE_ARCH}_s"] = time.perf_counter() - t0
+    for line in moe_lines(moe, smi.splitlines()[0]):
+        print(line, flush=True)
+    # read after phase 11, so that a failure here hides none of its checks
+    moe_bad = moe_failures(moe)
+    for b in moe_bad:
+        log(f"chip_smoke: phase 13: {b}")
     # phase 11 — training: both LMs, delta checkpoints and recovery, the
     # float32 card against the CPU
     gc.collect()
@@ -3442,7 +4078,7 @@ def main(argv=None) -> int:
         runs[f"{layout} replication"] = r["launches"]
     for name, r in serving["runs"].items():
         runs[f"serve {name}"] = r["launches"]
-    for arch, r in lms.items():
+    for arch, r in list(lms.items()) + [(MOE_ARCH, moe)]:
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
     for arch in lms:
@@ -3468,12 +4104,14 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
                   dense=dense, edge=edge, durable=durable, crash=crash,
                   replication=replication, sharded=sharded,
-                  serving=serving, lms=lms,
+                  serving=serving, lms=lms, moe=moe,
                   training=training, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels, "phases": phases}))
+    if moe_bad:
+        return fail("phase 13: " + "; ".join(moe_bad))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -66,8 +66,10 @@ def lm_from_numpy(params: dict, cfg, device="cuda"):
     of a ``repro`` LM param tree given as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``).  The leading group axis that
     the JAX package stacks its group params on is unstacked into the
-    ``ModuleList``; every weight keeps its JAX layout and dtype.  Raises
-    when a name or shape does not match."""
+    ``ModuleList``; every weight keeps its JAX layout and dtype (a MoE
+    layer's ``moe.{wg, w_up, w_gate, w_down}``: the router float32, the
+    experts stacked on their leading axis).  Raises when a name or
+    shape does not match."""
     dev = resolve_device(device)
     model = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, dev)

@@ -1,5 +1,5 @@
 """Unified model API — counterpart of ``repro/models/api.py`` for the
-families the port runs (dense, ssm):
+families the port runs (dense, moe, ssm):
 
   init_params(cfg, generator, dtype, device)    → params (an ``LM``)
   loss_fn(params, batch, cfg, remat)            → scalar loss (float32)
@@ -9,8 +9,8 @@ families the port runs (dense, ssm):
   init_decode_caches(cfg, batch, cache_len, dtype, device) → caches
 
 Batches are dicts holding ``tokens`` (and ``labels``, optionally
-``mask``, for the loss).  The other families raise
-``NotImplementedError``.  There is no ``impl`` argument: the device
+``mask``, for the loss).  The other families (hybrid, encdec, vlm)
+raise ``NotImplementedError``.  There is no ``impl`` argument: the device
 decides how attention runs (``models/attention.py``).
 """
 from __future__ import annotations

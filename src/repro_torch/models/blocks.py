@@ -1,22 +1,24 @@
 """Layer blocks: (mixer, ffn) pairs composed per the config's pattern —
 counterpart of ``repro/models/blocks.py``.
 
-A *group* is the config's repeating pattern of layers (dense and ssm: 1
-layer).  The JAX package scans over stacked group params; here the LM
-holds a ``ModuleList`` of groups and loops over it, and each group is a
-module holding its layers ``l0``, ``l1``, ….  The MoE FFN is not ported
-yet.
+A *group* is the config's repeating pattern of layers (dense, moe and
+ssm: 1 layer).  The JAX package scans over stacked group params; here
+the LM holds a ``ModuleList`` of groups and loops over it, and each
+group is a module holding its layers ``l0``, ``l1``, ….  A layer's FFN
+is an MLP (``mlp``) or a mixture of experts (``moe``,
+``models/moe.py``), called as a module so that forward hooks see its
+input.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch import not_ported
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.moe import init_moe
 
 
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
@@ -59,8 +61,6 @@ def n_groups(cfg: ModelConfig) -> int:
 def init_group(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
     group = nn.Module()
     for i, (mixer, ffn) in enumerate(layer_kinds(cfg)):
-        if ffn == "moe":
-            not_ported("the mixture-of-experts FFN (models/moe.py)", "A14")
         layer = nn.Module()
         layer.norm1 = init_norm(cfg, dtype, device)
         if mixer == "attn":
@@ -69,6 +69,9 @@ def init_group(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
             layer.ssm = S.init_ssm(gen, cfg, dtype, device)
         if ffn != "none":
             layer.norm2 = init_norm(cfg, dtype, device)
+        if ffn == "moe":
+            layer.moe = init_moe(gen, cfg, dtype, device)
+        elif ffn == "mlp":
             layer.mlp = init_mlp(gen, cfg, dtype, device)
         group.add_module(f"l{i}", layer)
     return group
@@ -85,6 +88,13 @@ def init_group_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
         else:
             caches[f"l{i}"] = S.init_ssm_cache(cfg, batch, dtype, device)
     return caches
+
+
+def _ffn(lp: nn.Module, ffn: str, x: torch.Tensor, cfg: ModelConfig):
+    h = apply_norm(lp.norm2, x, cfg.norm_kind)
+    if ffn == "moe":
+        return lp.moe(h, cfg)
+    return apply_mlp(lp.mlp, h, cfg.mlp_kind)
 
 
 def apply_group(group: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
@@ -107,8 +117,7 @@ def apply_group(group: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
                                    return_cache=make_cache)
         x = x + mixed
         if ffn != "none":
-            h = apply_norm(lp.norm2, x, cfg.norm_kind)
-            x = x + apply_mlp(lp.mlp, h, cfg.mlp_kind)
+            x = x + _ffn(lp, ffn, x, cfg)
         if make_cache:
             caches[f"l{i}"] = c
     return x, caches
@@ -128,7 +137,6 @@ def decode_group(group: nn.Module, x: torch.Tensor, cfg: ModelConfig,
             mixed, c = S.decode_ssm(lp.ssm, h, cfg, caches[f"l{i}"])
         x = x + mixed
         if ffn != "none":
-            h = apply_norm(lp.norm2, x, cfg.norm_kind)
-            x = x + apply_mlp(lp.mlp, h, cfg.mlp_kind)
+            x = x + _ffn(lp, ffn, x, cfg)
         caches[f"l{i}"] = c
     return x, caches

@@ -24,9 +24,11 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype,
     return x.to(device=device, dtype=dtype)
 
 
-def params_module(**tensors: torch.Tensor) -> nn.Module:
-    """An ``nn.Module`` holding ``tensors`` as parameters by name."""
-    m = nn.Module()
+def params_module(module: nn.Module | None = None, /,
+                  **tensors: torch.Tensor) -> nn.Module:
+    """``module`` (a new plain ``nn.Module`` by default) holding
+    ``tensors`` as parameters by name."""
+    m = nn.Module() if module is None else module
     for k, v in tensors.items():
         m.register_parameter(k, nn.Parameter(v))
     return m
@@ -118,12 +120,18 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_mlp(p: nn.Module, x: torch.Tensor, kind: str) -> torch.Tensor:
+def ffn(x: torch.Tensor, w_up, w_down, kind: str,
+        w_gate=None) -> torch.Tensor:
+    """The MLP on its weight matrices (one dense MLP, or one expert)."""
     if kind in ("swiglu", "geglu"):
-        g = x @ p.w_gate
+        g = x @ w_gate
         act = F.silu(g) if kind == "swiglu" else _gelu(g)
-        return (act * (x @ p.w_up)) @ p.w_down
-    return _gelu(x @ p.w_up) @ p.w_down
+        return (act * (x @ w_up)) @ w_down
+    return _gelu(x @ w_up) @ w_down
+
+
+def apply_mlp(p: nn.Module, x: torch.Tensor, kind: str) -> torch.Tensor:
+    return ffn(x, p.w_up, p.w_down, kind, getattr(p, "w_gate", None))
 
 
 # ---------------------------------------------------------------------------

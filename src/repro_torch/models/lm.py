@@ -1,5 +1,5 @@
-"""Decoder-only LM (dense / SSM) with KV/SSM caches and the three step
-entry points (forward, prefill, decode) and the training loss —
+"""Decoder-only LM (dense / MoE / SSM) with KV/SSM caches and the three
+step entry points (forward, prefill, decode) and the training loss —
 counterpart of ``repro/models/lm.py``.
 
 The model is an ``nn.Module`` tree: ``LM`` holds ``embed``, a
@@ -7,8 +7,8 @@ The model is an ``nn.Module`` tree: ``LM`` holds ``embed``, a
 stacked group params is a Python loop here, and its ``jax.checkpoint``
 of the scan body is ``torch.utils.checkpoint`` of each group
 (``remat``).  ``prefill`` and ``decode_step`` run without autograd.  The
-MoE, hybrid, encoder-decoder and VLM families are not ported yet and
-raise.
+hybrid, encoder-decoder and VLM families are not ported yet and raise,
+naming their ROADMAP step (``UNPORTED_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -25,12 +25,16 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import apply_norm, embed, init_embed, \
     init_norm, unembed
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+# the ROADMAP step that ports each other family: hybrid needs expert
+# parallelism (one jamba group at published widths exceeds one card)
+UNPORTED_FAMILIES = {"hybrid": "A17", "encdec": "A14.3b", "vlm": "A14.3b"}
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        not_ported(f"the {cfg.family!r} model family ({cfg.name})", "A14")
+        not_ported(f"the {cfg.family!r} model family ({cfg.name})",
+                   UNPORTED_FAMILIES[cfg.family])
 
 
 class LM(nn.Module):

@@ -191,6 +191,7 @@ def _attn_params(cfg, seed):
     ("gemma-2b", None, 24, 24),          # MQA, cache exactly full
     ("smollm-360m", 8, 24, 32),          # SWA ring buffer (s > window)
     ("smollm-360m", 32, 24, 32),         # SWA, prompt inside the window
+    ("mixtral-8x7b", 16, 24, 32),        # mixtral's heads, SWA ring buffer
 ])
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_attention_layer_and_cache_match_jax(arch, window, s, cap, impl):
@@ -232,3 +233,39 @@ def test_decode_attention_matches_jax(window):
     assert np.abs(to.numpy() - np.asarray(jo)).max() < 1e-5
     assert np.array_equal(tc.pos_map.numpy(), np.asarray(jc.pos_map))
     assert np.abs(tc.k.detach().numpy() - np.asarray(jc.k)).max() < 1e-5
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_flash"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "mixtral-8x7b"])
+def test_lm_forward_and_grads_match_jax_impls(arch, impl):
+    """tests/test_attention_impls.py::test_xla_flash_matches_xla on the
+    port: the reduced model's forward (1e-4) and every gradient of its
+    loss (1e-3) against the JAX package's on both of its attention
+    paths (the port has no switch; the device decides).  mixtral runs
+    its MoE FFN, so the gradients also cross the router and the
+    experts."""
+    from repro.models import api as japi
+    from repro_torch.convert import lm_from_numpy
+    from repro_torch.models import api as tapi
+    jcfg = j_reduced(j_get_config(arch))
+    cfg = reduced(get_config(arch))
+    params = japi.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    toks = np.random.default_rng(11).integers(0, cfg.vocab, (2, 40)) \
+        .astype(np.int32)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    want = np.asarray(japi.forward(params, jbatch, jcfg, impl=impl))
+    jg = jax.grad(lambda p: japi.loss_fn(p, jbatch, jcfg, impl=impl))(
+        params)
+    model = lm_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                          device="cpu")
+    grads = dict(lm_from_numpy(jax.tree.map(np.asarray, jg), cfg,
+                               device="cpu").named_parameters())
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(toks)}
+    with torch.no_grad():
+        got = tapi.forward(model, batch, cfg).numpy()
+    assert np.abs(got - want).max() < 1e-4
+    names, ps = zip(*model.named_parameters())
+    loss = tapi.loss_fn(model, batch, cfg, remat="none")
+    for n, g in zip(names, torch.autograd.grad(loss, ps)):
+        assert float((g - grads[n].detach()).abs().max()) < 1e-3, n

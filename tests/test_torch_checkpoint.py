@@ -314,7 +314,8 @@ def test_port_restores_a_jax_root(tmp_path, sequences, opt_dtype):
 
 
 @pytest.mark.parametrize("opt_dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m",
+                                  "mixtral-8x7b"])
 def test_name_map_both_ways(arch, opt_dtype):
     """``arrays_from_reference`` turns the JAX package's npz entries of
     a TrainState into the port's, and ``arrays_to_reference`` back, bit
@@ -356,3 +357,43 @@ def test_name_map_both_ways(arch, opt_dtype):
         port[k] = port[k] * 2
         with pytest.raises(ValueError, match="scales differ"):
             arrays_to_reference(port)
+
+
+def test_moe_param_tree_carries_across_both_ways():
+    """A MoE LM's param tree (mixtral, two groups): ``lm_from_numpy``
+    carries every leaf across — ``groups.<g>.l0.moe.{wg, w_up, w_gate,
+    w_down}`` unstacked by group and stacked over experts, the router
+    float32, the experts bf16 through the int16 view — and
+    ``arrays_to_reference`` takes the port's arrays back to the JAX
+    package's tree paths bit for bit."""
+    from repro.models import api as japi
+    from repro_torch.convert import lm_from_numpy
+    jcfg = j_reduced(j_get_config("mixtral-8x7b"))
+    cfg = reduced(get_config("mixtral-8x7b"))
+    params = japi.init_params(jax.random.PRNGKey(4), jcfg, jnp.bfloat16)
+    model = lm_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                          device="cpu")
+    own = dict(model.named_parameters())
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    for g in range(cfg.n_layers):
+        pre = f"groups.{g}.l0.moe."
+        assert own[pre + "wg"].dtype == torch.float32
+        assert tuple(own[pre + "wg"].shape) == (d, e)
+        for name, shape in (("w_up", (e, d, f)), ("w_gate", (e, d, f)),
+                            ("w_down", (e, f, d))):
+            assert own[pre + name].dtype == torch.bfloat16
+            assert tuple(own[pre + name].shape) == shape
+    # a TrainState's params as the JAX package names them in an npz
+    ref = {}
+    for k, leaf in _paths_and_leaves(params):
+        a = np.asarray(leaf)
+        if a.dtype == jnp.bfloat16:
+            ref[".params/" + k + "::bf16"] = a.view(np.uint16)
+        else:
+            ref[".params/" + k] = a
+    assert ".params/groups/l0/moe/wg" in ref
+    back = arrays_to_reference(io.raw_arrays({"params": model}))
+    assert set(back) == set(ref)
+    for k in ref:
+        assert back[k].dtype == ref[k].dtype and \
+            back[k].tobytes() == ref[k].tobytes(), k

@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s host side, read on CPU tensors: the kernel
 comparison, the design counts, phases 7 and 8 rehearsed at a small
 size (root layout, answer comparison, acknowledgements, the crash
-child and its arguments), and phase 9's replica child, its verdict and
-a rehearsal.
+child and its arguments), phase 9's replica child, its verdict and
+a rehearsal, and phase 13's depth, routing readout, verdict, printed
+lines and a rehearsal on the reduced mixtral.
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -720,3 +721,358 @@ def test_phase_serve_names_a_wrong_degree(monkeypatch):
     assert res["bad"] == ["point degrees differ from the op list's at 1 "
                           "of 32 queries (first [5])"]
     assert np.asarray(res["runs"]["one"]["answers"][3]).ndim == 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 13's host side: mixtral-8x7b's depth, its verdict, the routing
+# readout and a CPU rehearsal on the reduced config
+# ---------------------------------------------------------------------------
+
+
+def _mixtral(**over):
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    return reduced(get_config("mixtral-8x7b"), **over)
+
+
+def test_moe_depth_steps_down_by_four_layers():
+    from repro_torch.configs import get_config
+    cfg = get_config("mixtral-8x7b")
+    assert round(chip_smoke.moe_weight_bytes(cfg) / 1e9, 1) == 93.4
+    n, why = chip_smoke.moe_depth(cfg, int(78.5 * 2 ** 30))
+    assert n == 24 and why.startswith("24 of 32 layers: 32 layers are "
+                                      "93.4 GB") and "stepped" not in why
+    n, why = chip_smoke.moe_depth(cfg, 70 * 2 ** 30)
+    assert n == 20 and "stepped down from 24" in why
+    assert chip_smoke.moe_depth(cfg, 70 * 2 ** 30, 8) == (
+        8, "8 of 32 layers (--lm-layers)")
+
+
+def test_routing_readout_counts_drops_and_the_fullest_expert():
+    """One prefill's readout against a count made here from the MoE
+    inputs: per layer, the pairs each expert got from a top-k of the
+    router logits (numpy), those past the capacity dropped."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.models.moe import MoE, capacity
+    cfg = _mixtral(capacity_factor=1.25)
+    model = api.init_params(cfg, torch.Generator().manual_seed(3),
+                            torch.float32, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 64)))
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append(
+            (args[0].reshape(-1, cfg.d_model) @ mod.wg).detach().numpy()))
+        for m in model.modules() if isinstance(m, MoE)]
+    try:
+        ro = chip_smoke.routing_readout(model, cfg, toks, 64)
+    finally:
+        for h in hooks:
+            h.remove()
+    cap = capacity(cfg, 128)
+    assert len(ro["per_layer"]) == len(seen) == cfg.n_layers
+    for row, logits in zip(ro["per_layer"], seen):
+        top = np.argsort(-logits, axis=-1, kind="stable")[:, :cfg.top_k]
+        load = np.bincount(top.ravel(), minlength=cfg.n_experts)
+        assert row == dict(layer=row["layer"], pairs=128 * cfg.top_k,
+                           dropped=int(np.maximum(load - cap, 0).sum()),
+                           fullest=int(load.max()), cap=cap)
+    assert ro["dropped"] > 0 and ro["fullest"] > cap
+    assert ro["dropped_share"] == ro["dropped"] / ro["pairs"]
+
+
+def test_phase_moe_on_the_cpu():
+    """Phase 13 rehearsed on the reduced mixtral at its published
+    capacity factor: pairs drop in the readout, decode equals the fresh
+    forward at the check-only capacity (E / k), the float32 'card' (the
+    CPU here) equals the CPU with every route alike; only the launch
+    check fails, since no kernel runs on the CPU."""
+    cfg = _mixtral(capacity_factor=1.25)
+    res = chip_smoke.phase_moe(cfg, 7, device="cpu", batch=2, prompt=64,
+                               decode=4, check_prompt=32, check_decode=4)
+    assert chip_smoke.moe_failures(res) == [
+        "mixtral-8x7b: a prefill launched flash_attention 0 times, want 2"]
+    assert res["routing"]["dropped"] > 0
+    assert res["bf16_decode"]["capacity_factor"] == cfg.n_experts / 2
+    assert len(res["bf16_decode"]["step_rel"]) == 4
+    assert res["card_cpu"]["calls"] == cfg.n_layers * (1 + 4)
+    assert res["card_cpu"]["route_differs"] == []
+
+
+def _moe_passing():
+    """Phase 13's results as a passing run leaves them."""
+    launches = {"flash_attention": 24, "ssd_scan": 0, "delta_apply": 0}
+    return dict(
+        arch="mixtral-8x7b", n_layers=24, kernel="flash_attention",
+        capacity_factor=1.25, allocated_before=2 ** 20,
+        prefill_launches=launches,
+        decode_launches={k: 0 for k in launches}, finite=True,
+        routing=dict(dropped=4000, cap=5120, fullest=7000),
+        bf16_decode=dict(step_rel=[0.01] * 32, flips=[], judged=[],
+                         finite=True),
+        f32_decode=dict(step_rel=[1e-6] * 32, flips=[], finite=True),
+        card_cpu=dict(rel=1e-6, same_tokens=True, route_differs=[]))
+
+
+def _flip(step, gap, delta, rel, pinned_rel=0.01, reproduces=True):
+    """A route flip at ``step``, layer 5, as the served step and its
+    re-runs read it."""
+    def change(res):
+        flip = dict(gap=gap, delta=delta, near_tie=gap <= delta, layer=5)
+        res["bf16_decode"]["flips"].append(dict(step=step, after=None,
+                                                **flip))
+        res["bf16_decode"]["judged"].append(dict(
+            step=step, rounds=[flip], pinned=[5] if flip["near_tie"] else [],
+            pinned_rel=pinned_rel if flip["near_tie"] else None, follows=[],
+            reproduces=reproduces))
+        res["bf16_decode"]["step_rel"][step] = rel
+    return change
+
+
+def _cascade(second_near_tie=None, pinned_rel=0.02):
+    """Step 8: a near-tie flip at layer 2 and, in the served step, one at
+    layer 18 that is not; re-run with layer 2 pinned, layer 18 flips
+    again only if ``second_near_tie`` is not None (then judged so)."""
+    def change(res):
+        b = res["bf16_decode"]
+        first = dict(layer=2, gap=0.00185, delta=0.0115, near_tie=True)
+        b["flips"] += [dict(step=8, after=None, **first),
+                       dict(step=8, layer=18, gap=0.634, delta=0.456,
+                            near_tie=False, after=2)]
+        rounds, follows = [first], [18]
+        if second_near_tie is not None:
+            rounds.append(dict(layer=18, gap=0.05, near_tie=second_near_tie,
+                               delta=0.06 if second_near_tie else 0.01))
+            follows = []
+        b["judged"].append(dict(
+            step=8, rounds=rounds,
+            pinned=[2, 18] if second_near_tie else [2],
+            pinned_rel=pinned_rel, follows=follows, reproduces=True))
+        b["step_rel"][8] = 0.352
+    return change
+
+
+def test_moe_verdict_passes_a_passing_run_and_near_ties():
+    assert chip_smoke.moe_failures(_moe_passing()) == []
+    # a route flip that is a near-tie passes, whatever the served step
+    # reads, when the step with it pinned is within the step's tolerance
+    for step in (0, 4):
+        res = _moe_passing()
+        _flip(step, 0.002, 0.003, 0.36)(res)
+        assert chip_smoke.moe_failures(res) == []
+    # a flip that is gone once the step's earlier near-tie is pinned
+    # follows from it and is not judged; one that stays is, and passes
+    # as a near-tie
+    for second in (None, True):
+        res = _moe_passing()
+        _cascade(second)(res)
+        assert chip_smoke.moe_failures(res) == []
+
+
+@pytest.mark.parametrize("change,message", [
+    (lambda r: r.update(allocated_before=3 * 2 ** 30),
+     "3.00 GiB still allocated when the phase began"),
+    (lambda r: r["prefill_launches"].update(flash_attention=23),
+     "a prefill launched flash_attention 23 times, want 24"),
+    (lambda r: r["prefill_launches"].update(ssd_scan=1),
+     "a prefill launched {'ssd_scan': 1}"),
+    (lambda r: r["decode_launches"].update(flash_attention=1),
+     "decode launched"),
+    (lambda r: r.update(finite=False), "non-finite logits"),
+    (lambda r: r["routing"].update(dropped=0),
+     "no pair dropped at capacity_factor 1.25"),
+    (_flip(4, 0.05, 0.003, 0.36),
+     "the route flip at step 4, layer 5 is not a near-tie"),
+    (_cascade(False),
+     "the route flip at step 8, layer 18 is not a near-tie (gap 0.05 > "
+     "|Δ router logit| 0.01) with layers [2] pinned to the forward's "
+     "experts"),
+    (_flip(4, 0.002, 0.003, 0.36, pinned_rel=0.3),
+     "bf16 decode with step 4's near-tie flips (layers [5]) pinned to the "
+     "forward's experts disagrees with a fresh forward: rel err 0.3 "
+     "(tolerance 0.25)"),
+    (_flip(0, 0.002, 0.003, 0.36, pinned_rel=0.07),
+     "step 0's near-tie flips (layers [5]) pinned to the forward's "
+     "experts disagrees with a fresh forward: rel err 0.07 (tolerance "
+     "0.0625)"),
+    (_flip(4, 0.002, 0.003, 0.36, reproduces=False),
+     "a re-run of step 4 does not give the step's logits bit for bit"),
+    (lambda r: r["bf16_decode"]["step_rel"].__setitem__(0, 0.07),
+     "bf16 decode disagrees with a fresh forward at steps without a "
+     "route flip: (step, rel err) [(0, 0.07)]"),
+    (lambda r: r["bf16_decode"]["step_rel"].__setitem__(9, 0.3),
+     "(step, rel err) [(9, 0.3)]"),
+    (lambda r: r["bf16_decode"]["step_rel"].__setitem__(9, float("nan")),
+     "(step, rel err) [(9, nan)]"),
+    (lambda r: r["f32_decode"]["flips"].append(dict(
+        step=2, layer=0, gap=1e-7, delta=1e-6, near_tie=True)),
+     "float32 decode routes differently from the forward at (step, "
+     "layer) [(2, 0)]"),
+    (lambda r: r["f32_decode"]["step_rel"].__setitem__(3, 2e-4),
+     "float32 decode disagrees with a fresh forward"),
+    (lambda r: r["card_cpu"].update(rel=2e-4),
+     "float32 card and CPU logits differ"),
+    (lambda r: r["card_cpu"].update(same_tokens=False),
+     "greedy tokens differ"),
+    (lambda r: r["card_cpu"].update(route_differs=[(3, 1, "slot")]),
+     "route differently: (call, layer, field) [(3, 1, 'slot')]"),
+], ids=["memory", "launches", "other-kernel", "decode-launch", "finite",
+        "no-drop", "flip-not-near-tie", "flip-after-a-pin",
+        "pinned-step", "pinned-first-step", "rerun-differs",
+        "first-step", "later-step",
+        "nan-step", "f32-flip", "f32-step", "card-cpu", "tokens", "routes"])
+def test_moe_verdict_names_each_failed_check(change, message):
+    res = _moe_passing()
+    change(res)
+    bad = chip_smoke.moe_failures(res)
+    assert len(bad) == 1 and bad[0].startswith("mixtral-8x7b: "), bad
+    assert message in bad[0], bad
+
+
+def test_moe_lines_name_each_flip_and_the_card():
+    """Phase 13's printed lines: the card beside the times, and each
+    route flip with its gap, Δ and whether an earlier layer of the same
+    step flipped first."""
+    res = _moe_passing()
+    res["bf16_decode"].update(capacity_factor=4.0, greedy_agreement=0.94)
+    res["f32_decode"].update(capacity_factor=4.0)
+    res["card_cpu"].update(capacity_factor=1.25, layers=2, calls=66,
+                           dropped=196, prompt=256, decode=32)
+    res["routing"].update(dropped_share=0.06, pairs=786432,
+                          layers_dropping=22, per_layer=[{}] * 24)
+    res.update(cut="24 of 32 layers", d_model=4096, params=35.09e9,
+               batch=8, prompt=2048, prefill_s=0.74, prefill_cold_s=1.1,
+               prefill_tokens_per_s=22164.0, decode_ms_per_step=118.2,
+               peak_gib=71.17, init_s=0.8, f32_check_s=41.9)
+    _cascade(pinned_rel=0.0193)(res)
+    lines = chip_smoke.moe_lines(res, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "on NVIDIA H100 80GB HBM3, 700.00 W: 24 layers" in lines[0]
+    assert "route flips 2; step 8 layer 2: gap 0.00185, |Δ router logit| " \
+        "0.0115, near-tie True, the step's first flip" in lines[2]
+    assert "step 8 layer 18: gap 0.634, |Δ router logit| 0.456, near-tie " \
+        "False, after the flip at layer 2" in lines[2]
+    assert "; step 8 re-run: flips judged layer 2 (gap 0.00185, |Δ| " \
+        "0.0115, near-tie True), pinned [2], following from them [18], " \
+        "rel err with them pinned 0.0193, unpinned re-run bit-equal " \
+        "True" in lines[2]
+
+
+def test_judge_flips_pins_each_near_tie_in_layer_order():
+    """``judge_flips`` on router logits made here: the lowest flipped
+    layer is judged first and, as a near-tie, pinned to the forward's
+    experts for the re-run; a flip the re-run no longer shows is not
+    judged; it stops at a flip that is not a near-tie."""
+    fwd = {n: torch.tensor([3.0, 2.0, 1.0, 0.0]) for n in range(4)}
+    near = torch.tensor([3.0, 1.99, 2.01, 0.0])    # expert 2 for 1: gap 1
+    far = torch.tensor([3.0, 0.5, 2.5, 0.0])       # gap 1, |Δ| 1.5
+    bad = torch.tensor([3.0, 1.5, 1.7, 0.0])       # gap 1, |Δ| 0.7
+    calls = []
+
+    def rerun(answers):
+        def run(pins):
+            calls.append(sorted(pins))
+            return torch.zeros(1, 3), answers[len(calls) - 1]
+        return run
+    # served: layer 1 (near-tie) and layer 3 flip; with layer 1 pinned the
+    # re-run reads no flip
+    served = {0: fwd[0], 1: near, 2: fwd[2], 3: bad}
+    j = chip_smoke.judge_flips(fwd, served, 2, rerun([dict(fwd)]))
+    assert calls == [[1]] and j["pinned"] == [1]
+    assert [f["layer"] for f in j["rounds"]] == [1]
+    assert j["rounds"][0]["near_tie"] and j["logits"] is not None
+    # with layer 1 pinned, layer 3 still flips: judged, not a near-tie
+    calls.clear()
+    j = chip_smoke.judge_flips(fwd, served, 2, rerun([served]))
+    assert calls == [[1]] and j["pinned"] == [1]
+    assert [(f["layer"], f["near_tie"]) for f in j["rounds"]] == [
+        (1, True), (3, False)]
+    assert j["rounds"][1]["gap"] == 1.0
+    assert abs(j["rounds"][1]["delta"] - 0.7) < 1e-6
+    # a near-tie that stays is pinned too
+    calls.clear()
+    two = {0: fwd[0], 1: near, 2: fwd[2], 3: far}
+    j = chip_smoke.judge_flips(fwd, served, 2, rerun([two, dict(fwd)]))
+    assert calls == [[1], [1, 3]] and j["pinned"] == [1, 3]
+    # no flip: nothing re-run
+    calls.clear()
+    j = chip_smoke.judge_flips(fwd, dict(fwd), 2, rerun([]))
+    assert calls == [] and j == dict(rounds=[], pinned=[], logits=None)
+
+
+def test_decode_vs_forward_rejudges_each_flipped_step():
+    """``decode_vs_forward`` with a forward that routes otherwise: a hook
+    negates layer 0's MoE input in the one-sequence forward only, so
+    every step flips there (a near-tie by the rule, since |Δ router
+    logit| is twice the largest logit).  Each flipped step is re-run:
+    layer 0 judged first and pinned, the unpinned re-run bit-equal to
+    the served step, the flips that follow named apart from those
+    judged."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.models.moe import MoE
+    cfg = _mixtral(capacity_factor=2.0)
+    model = api.init_params(cfg, torch.Generator().manual_seed(9),
+                            torch.float32, "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, 16)))
+    first = [m for m in model.modules() if isinstance(m, MoE)][0]
+    hook = first.register_forward_pre_hook(
+        lambda mod, args: ((-args[0],) + args[1:]
+                           if args[0].shape[0] == 1 else None))
+    try:
+        d = chip_smoke.decode_vs_forward(model, cfg, prompts, 3)
+    finally:
+        hook.remove()
+    assert {f["step"] for f in d["flips"]} == {0, 1, 2}
+    assert [j["step"] for j in d["judged"]] == [0, 1, 2]
+    for j in d["judged"]:
+        served = {f["layer"] for f in d["flips"] if f["step"] == j["step"]}
+        judged = [f["layer"] for f in j["rounds"]]
+        assert judged[0] == 0 and j["rounds"][0]["near_tie"]
+        assert j["pinned"][0] == 0 and j["reproduces"]
+        assert isinstance(j["pinned_rel"], float)
+        assert set(j["follows"]) == served - set(judged)
+
+
+def test_pinned_step_routes_sequence_zero_as_told():
+    """``pinned_step`` on the reduced mixtral in float32 on the CPU: with
+    no pin, or sequence 0 pinned to the experts it chooses, the step
+    equals ``api.decode_step`` bit for bit; pinned to other experts at
+    layer 0, its logits move while layer 0's router logits do not; a
+    re-run after later steps gives the step again (the causal mask hides
+    their cache rows)."""
+    import numpy as np
+
+    from repro_torch.models import api
+    cfg = _mixtral(capacity_factor=2.0)
+    model = api.init_params(cfg, torch.Generator().manual_seed(5),
+                            torch.float32, "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 16)))
+    tok = prompts[:, -1:]
+    with torch.no_grad():
+        _, caches = api.prefill(model, {"tokens": prompts}, cfg,
+                                cache_cap=20)
+        want, _ = api.decode_step(model, tok, 16, caches, cfg)
+        got, seen = chip_smoke.pinned_step(model, cfg, tok, 16, caches, {})
+        assert torch.equal(got, want) and sorted(seen) == [0, 1]
+        own = torch.sort(seen[0], descending=True,
+                         stable=True).indices[:cfg.top_k]
+        same, _ = chip_smoke.pinned_step(model, cfg, tok, 16, caches,
+                                         {0: own})
+        assert torch.equal(same, want)
+        other = torch.sort(seen[0], descending=False,
+                           stable=True).indices[:cfg.top_k]
+        moved, seen_o = chip_smoke.pinned_step(model, cfg, tok, 16, caches,
+                                               {0: other})
+        assert not torch.equal(moved[0], want[0])
+        assert torch.equal(seen_o[0], seen[0])
+        assert not torch.equal(seen_o[1], seen[1])
+        chip_smoke.pinned_step(model, cfg, tok, 16, caches, {})
+        for i in range(3):
+            api.decode_step(model, tok, 17 + i, caches, cfg)
+        again, _ = chip_smoke.pinned_step(model, cfg, tok, 16, caches, {})
+        assert torch.equal(again, want)

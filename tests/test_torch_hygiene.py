@@ -67,7 +67,7 @@ def test_port_has_every_module_of_the_slice():
             "config.py", "configs/__init__.py", "configs/smollm_360m.py",
             "configs/mamba2_130m.py", "models/layers.py",
             "models/attention.py", "models/ssm.py", "models/blocks.py",
-            "models/lm.py", "models/api.py",
+            "models/lm.py", "models/api.py", "models/moe.py",
             "kernels/flash_attention/ref.py",
             "kernels/flash_attention/ops.py",
             "kernels/flash_attention/flash_attention.cu",

@@ -23,12 +23,15 @@ from repro.models import api as japi  # noqa: E402
 from repro_torch.config import reduced  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.convert import lm_from_numpy  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, moe  # noqa: E402
 
 B, S, N_DEC = 2, 32, 4
 N_PRE = S - N_DEC
 TOL = 1e-4
-PORTED = ["smollm-360m", "olmo-1b", "gemma-2b", "glm4-9b", "mamba2-130m"]
+PORTED = ["smollm-360m", "olmo-1b", "gemma-2b", "glm4-9b", "mamba2-130m",
+          "mixtral-8x7b", "kimi-k2-1t-a32b"]
+# the ROADMAP step named by each family that still raises
+QUEUE = {"hybrid": "A17", "encdec": "A14.3b", "vlm": "A14.3b"}
 
 
 def _setup(arch, impl="xla", **over):
@@ -158,19 +161,56 @@ def test_swa_ring_buffer_decode():
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
 def test_unported_families_raise(arch):
     cfg = reduced(get_config(arch))
-    assert cfg.family in ("moe", "hybrid", "encdec", "vlm")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    assert cfg.family in QUEUE
+    step = rf"not ported yet \(ROADMAP step {QUEUE[cfg.family]}\)"
+    with pytest.raises(NotImplementedError, match=step):
         api.init_params(cfg, torch.Generator().manual_seed(0),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match=step):
         api.init_decode_caches(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m"])
+@pytest.mark.parametrize("arch,over", [
+    ("kimi-k2-1t-a32b", dict(n_experts=16, top_k=8)),
+    ("mixtral-8x7b", dict(capacity_factor=1.25)),
+    ("kimi-k2-1t-a32b", dict(n_experts=16, top_k=8, capacity_factor=1.25)),
+], ids=["kimi-k8", "mixtral-drop", "kimi-k8-drop"])
+def test_moe_lm_matches_jax(arch, over):
+    """The whole reduced MoE LM — forward, prefill and decode — against
+    the JAX package's at kimi-k2's own top-8 (reduced() cuts it to 2)
+    and at the configs' published capacity factor 1.25, where the
+    forward drops pairs (counted through forward hooks on the port's
+    MoE modules)."""
+    su = _setup(arch, **over)
+    drops = []
+
+    def count(module, args, out):
+        x = args[0]
+        r = moe.route(module, x.reshape(-1, x.shape[-1]), su["cfg"])
+        drops.append(int((~r.keep).sum()))
+    hooks = [m.register_forward_hook(count) for m in su["model"].modules()
+             if isinstance(m, moe.MoE)]
+    try:
+        full, steps = _port_run(su)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(drops) == su["cfg"].n_layers * (2 + N_DEC)
+    if su["cfg"].capacity_factor == 1.25:
+        assert sum(drops) > 0
+    assert np.abs(full - su["full"]).max() < TOL
+    _same_greedy(full, su["full"])
+    for got, want in zip(steps, su["steps"]):
+        assert np.abs(got - want).max() < TOL
+        _same_greedy(got, want)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m",
+                                  "mixtral-8x7b"])
 def test_bf16_params_carry_across_bit_for_bit(arch):
     """JAX exports bfloat16 as ml_dtypes.bfloat16, which torch cannot
     take; the converter carries the bits across unchanged and keeps the
-    float32 SSM params float32."""
+    float32 SSM params and the float32 MoE router float32."""
     jcfg = j_reduced(j_get_config(arch))
     params = japi.init_params(jax.random.PRNGKey(2), jcfg, jnp.bfloat16)
     flat = jax.tree_util.tree_flatten_with_path(params)[0]
