@@ -45,15 +45,15 @@ def leaves(tree, prefix: str = ""):
 
 def stacked_copy(key: str) -> bool:
     """Whether the npz entry ``key`` repeats another entry: a later
-    group's copy of the one int8 scale of a leaf the JAX package stacks
-    (``opt/m/groups.<g>.<rest>/scale``, g > 0; the optimizer quantizes
-    a stacked leaf's groups against one absmax).  The delta store counts
-    such an entry once, as the JAX package does its stacked leaf."""
+    slice's copy of the one int8 scale of a leaf the JAX package stacks
+    (``opt/m/<stack>.<i>.<rest>/scale``, i > 0, for a prefix of
+    ``optim.adamw.STACKED``; the optimizer quantizes a stacked leaf's
+    slices against one absmax).  The delta store counts such an entry
+    once, as the JAX package does its stacked leaf."""
     segs = key.split("/")
     if segs[:1] != ["opt"] or segs[-1] != "scale" or len(segs) != 4:
         return False
-    return stack_key(segs[2]) != segs[2] \
-        and not segs[2].startswith("groups.0.")
+    return stack_key(segs[2]) != segs[2] and segs[2].split(".")[1] != "0"
 
 
 def to_numpy(leaf) -> np.ndarray:

@@ -1,11 +1,14 @@
 """Carry state across from ``repro`` as plain numpy arrays.
 
-``lm_from_numpy`` builds the port's LM from a ``repro`` LM param tree
-exported as numpy (see its docstring); ``train_state_from_numpy`` the
-port's ``TrainState`` from a ``repro`` one.  ``arrays_from_reference`` /
+``lm_from_numpy`` builds the port's model (an ``LM``, or an ``EncDec``
+for the encdec family) from a ``repro`` param tree exported as numpy
+(see its docstring); ``train_state_from_numpy`` the port's
+``TrainState`` from a ``repro`` one.  ``arrays_from_reference`` /
 ``arrays_to_reference`` map a checkpoint's named arrays between the
-JAX package's tree-path names (groups stacked on one axis) and the
-port's (``checkpoint/io.py``), both ways.
+JAX package's tree-path names (an LM's groups, an encoder-decoder's
+encoder and decoder layers, each stacked on one axis:
+``optim.adamw.STACKED``) and the port's (``checkpoint/io.py``), both
+ways.
 
 ``store_from_numpy`` builds this package's ``TemporalGraphStore`` from
 what a ``repro`` ``TemporalGraphStore`` holds, exported as numpy (the
@@ -35,7 +38,8 @@ from repro_torch.core.delta import ADD_EDGE, REM_EDGE, pow2_capacity
 from repro_torch.core.graph import DenseGraph, EdgeGraph
 from repro_torch.core.segments import Segment, build_merged_nodes
 from repro_torch.core.store import TemporalGraphStore
-from repro_torch.models import lm
+from repro_torch.models import api
+from repro_torch.optim.adamw import STACKED
 
 _COLS = ("op", "u", "v", "slot", "t")
 
@@ -62,17 +66,18 @@ def _flatten(tree, prefix=""):
 
 
 def lm_from_numpy(params: dict, cfg, device="cuda"):
-    """The port's LM (``repro_torch.models.lm.LM``) holding the weights
-    of a ``repro`` LM param tree given as nested dicts of numpy arrays
-    (``jax.tree.map(np.asarray, params)``).  The leading group axis that
-    the JAX package stacks its group params on is unstacked into the
-    ``ModuleList``; every weight keeps its JAX layout and dtype (a MoE
-    layer's ``moe.{wg, w_up, w_gate, w_down}``: the router float32, the
-    experts stacked on their leading axis).  Raises when a name or
-    shape does not match."""
+    """The port's model (``models.lm.LM``; ``models.encdec.EncDec`` for
+    the encdec family) holding the weights of a ``repro`` param tree
+    given as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
+    params)``).  The leading axis that the JAX package stacks its groups
+    (an encoder-decoder: its encoder and decoder layers) on is unstacked
+    into the ``ModuleList``; every weight keeps its JAX layout and dtype
+    (a MoE layer's ``moe.{wg, w_up, w_gate, w_down}``: the router
+    float32, the experts stacked on their leading axis; a vlm's
+    ``patch_proj``).  Raises when a name or shape does not match."""
     dev = resolve_device(device)
-    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
-                           torch.float32, dev)
+    model = api.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
     flat = _unstack(dict(_flatten(params)))
     own = dict(model.named_parameters())
     if set(own) != set(flat):
@@ -89,14 +94,14 @@ def lm_from_numpy(params: dict, cfg, device="cuda"):
 
 
 def _unstack(flat: dict) -> dict:
-    """``groups.<rest>`` stacked on a leading group axis →
-    ``groups.<g>.<rest>``, one entry per group."""
+    """``<stack>.<rest>`` stacked on a leading axis → ``<stack>.<i>.<rest>``,
+    one entry per slice, for each prefix of ``STACKED``."""
     out = {}
     for name, a in flat.items():
-        if name.startswith("groups."):
-            rest = name[len("groups."):]
+        stack, _, rest = name.partition(".")
+        if stack in STACKED:
             for g in range(np.shape(a)[0]):
-                out[f"groups.{g}.{rest}"] = a[g]
+                out[f"{stack}.{g}.{rest}"] = a[g]
         else:
             out[name] = a
     return out
@@ -110,10 +115,11 @@ def train_state_from_numpy(state, cfg, device="cuda"):
     """The port's ``TrainState`` holding a ``repro`` ``TrainState``
     exported as numpy (``jax.tree.map(np.asarray, state)``): params
     through ``lm_from_numpy``, the ``AdamWState``'s m / v (arrays, or
-    ``QTensor``s of ``q`` and ``scale``) unstacked by group under the
-    port's parameter names, each group's ``QTensor`` keeping the stacked
-    leaf's one scale, and the step counters as ints.  ``state`` and its
-    parts may be objects or dicts with those field names."""
+    ``QTensor``s of ``q`` and ``scale``) unstacked by group or layer
+    under the port's parameter names, each slice's ``QTensor`` keeping
+    the stacked leaf's one scale, and the step counters as ints.
+    ``state`` and its parts may be objects or dicts with those field
+    names."""
     from repro_torch.optim.adamw import AdamWState, QTensor
     from repro_torch.runtime.steps import TrainState
     dev = resolve_device(device)
@@ -156,10 +162,10 @@ def arrays_from_reference(raw: dict) -> dict:
     ``TrainState``'s leaves (``.params/groups/l0/attn/wq``,
     ``.opt/.m/embed/tok/.q``, ``.opt/.step``, ``.step``; ``::bf16``
     kept), renamed to the port's (``params/groups.0.l0.attn.wq``,
-    ``opt/m/embed.tok/q``, ``opt/step``, ``step``) with every group's
-    slice of a stacked leaf its own entry, a stacked ``QTensor``'s scale
-    repeated for each.  Names of other trees (plain dicts) pass
-    through."""
+    ``opt/m/embed.tok/q``, ``opt/step``, ``step``) with every slice of a
+    stacked leaf (``STACKED``: ``groups``, ``enc``, ``dec``) its own
+    entry, a stacked ``QTensor``'s scale repeated for each.  Names of
+    other trees (plain dicts) pass through."""
     out = {}
     for key, a in raw.items():
         base, suf = (key[:-len(_BF16)], _BF16) if key.endswith(_BF16) \
@@ -176,14 +182,14 @@ def arrays_from_reference(raw: dict) -> dict:
         if segs[-1] in (".q", ".scale"):
             field, rest = rest[-1], rest[:-1]
         groups = [None]
-        if rest[0] == "groups":
+        if rest[0] in STACKED:
             stacked = a
             if field == "scale":
                 stacked = raw[base[:-len(".scale")] + ".q"]
             groups = range(stacked.shape[0])
         for g in groups:
             name = ".".join(rest if g is None
-                            else ["groups", str(g)] + rest[1:])
+                            else [rest[0], str(g)] + rest[1:])
             val = a if g is None or field == "scale" else a[g]
             out["/".join([*head, name] + ([field] if field else []))
                 + suf] = np.array(val)
@@ -193,10 +199,10 @@ def arrays_from_reference(raw: dict) -> dict:
 def arrays_to_reference(raw: dict) -> dict:
     """The inverse of ``arrays_from_reference``: the port's npz entries
     of a ``TrainState`` renamed to the JAX package's tree paths, the
-    groups' entries stacked in group order.  A stacked ``QTensor`` has
-    one scale, so its groups' scales must be equal (they are for a state
+    slices' entries stacked in order.  A stacked ``QTensor`` has one
+    scale, so its slices' scales must be equal (they are for a state
     carried over from the JAX package and after any port step: the
-    optimizer quantizes a stacked leaf's groups against one absmax);
+    optimizer quantizes a stacked leaf's slices against one absmax);
     raises otherwise."""
     out, stacks = {}, {}
     for key, a in raw.items():
@@ -215,8 +221,8 @@ def arrays_to_reference(raw: dict) -> dict:
         parts = rest[0].split(".")
         dotted = ["." + h for h in head]
         tail = ["." + field] if field else []
-        if parts[0] == "groups":
-            ref = "/".join(dotted + ["groups"] + parts[2:] + tail) + suf
+        if parts[0] in STACKED:
+            ref = "/".join(dotted + parts[:1] + parts[2:] + tail) + suf
             stacks.setdefault(ref, {})[int(parts[1])] = a
         else:
             out["/".join(dotted + parts + tail) + suf] = a
@@ -224,7 +230,7 @@ def arrays_to_reference(raw: dict) -> dict:
         parts = [by_group[g] for g in sorted(by_group)]
         if ref.endswith("/.scale"):
             if any(not np.array_equal(p, parts[0]) for p in parts):
-                raise ValueError(f"{ref}: the groups' int8 scales differ; "
+                raise ValueError(f"{ref}: the slices' int8 scales differ; "
                                  "the JAX package keeps one per stacked "
                                  "leaf")
             out[ref] = parts[0]

@@ -9,7 +9,10 @@ device, so the card and the CPU see the same tokens.  They are not the
 JAX package's tokens (its threefry bits are not reproduced); the
 distribution is the same: Zipf-distributed unigrams, and in half the
 rows the last quarter repeating the first, so small models have
-learnable structure.
+learnable structure.  The encdec family's batches also carry
+``frames`` [B, enc_seq, d] and the vlm family's ``patches`` [B,
+n_patches, d]: float32, 0.02 · N(0, 1), drawn after the tokens from the
+same generator.
 """
 from __future__ import annotations
 
@@ -40,9 +43,8 @@ class SyntheticLM:
         self.device = resolve_device(device)
 
     def batch_at(self, step: int) -> dict:
-        """The batch of ``step``: int32 ``tokens`` and ``labels`` [B, S].
-        (The JAX package's ``frames`` / ``patches`` of the encdec / vlm
-        families come with those families.)"""
+        """The batch of ``step``: int32 ``tokens`` and ``labels`` [B, S],
+        and float32 ``frames`` (encdec) or ``patches`` (vlm)."""
         cfg = self.cfg
         gen = _generator(self.seed, step)
         # Zipf-ish unigrams via an exponential transform of uniforms
@@ -58,7 +60,22 @@ class SyntheticLM:
             toks[:, self.seq - quarter:] = torch.where(
                 do_copy, toks[:, :quarter], tail)
         toks = toks.to(self.device)
-        return {"tokens": toks, "labels": toks}
+        batch = {"tokens": toks, "labels": toks}
+        for name, rows in stub_rows(cfg).items():
+            batch[name] = (0.02 * torch.randn(
+                (self.batch, rows, cfg.d_model), generator=gen)).to(
+                    self.device)
+        return batch
+
+
+def stub_rows(cfg: ModelConfig) -> dict:
+    """The family's modality-stub inputs, name → rows a sequence:
+    ``frames`` (encdec), ``patches`` (vlm), none for the others."""
+    if cfg.family == "encdec":
+        return {"frames": cfg.enc_seq}
+    if cfg.family == "vlm":
+        return {"patches": cfg.n_patches}
+    return {}
 
 
 def batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
@@ -66,5 +83,8 @@ def batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     device, which hold no data)."""
     def spec(shape, dtype):
         return torch.empty(shape, dtype=dtype, device="meta")
-    return {"tokens": spec((batch, seq), torch.int32),
-            "labels": spec((batch, seq), torch.int32)}
+    specs = {"tokens": spec((batch, seq), torch.int32),
+             "labels": spec((batch, seq), torch.int32)}
+    for name, rows in stub_rows(cfg).items():
+        specs[name] = spec((batch, rows, cfg.d_model), torch.float32)
+    return specs

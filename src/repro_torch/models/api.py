@@ -1,7 +1,8 @@
-"""Unified model API — counterpart of ``repro/models/api.py`` for the
-families the port runs (dense, moe, ssm):
+"""Unified model API over the families the port runs (dense, moe, ssm,
+vlm, encdec) — counterpart of ``repro/models/api.py``:
 
-  init_params(cfg, generator, dtype, device)    → params (an ``LM``)
+  init_params(cfg, generator, dtype, device)    → params (an ``LM`` or
+                                                  an ``EncDec``)
   loss_fn(params, batch, cfg, remat)            → scalar loss (float32)
   forward(params, batch, cfg, remat)            → logits [B, S, V]
   prefill(params, batch, cfg, cache_cap)        → (logits [B, V], caches)
@@ -9,39 +10,65 @@ families the port runs (dense, moe, ssm):
   init_decode_caches(cfg, batch, cache_len, dtype, device) → caches
 
 Batches are dicts holding ``tokens`` (and ``labels``, optionally
-``mask``, for the loss).  The other families (hybrid, encdec, vlm)
-raise ``NotImplementedError``.  There is no ``impl`` argument: the device
-decides how attention runs (``models/attention.py``).
+``mask``, for the loss), plus ``frames`` [B, enc_seq, d] for encdec
+(``models/encdec.py``) and ``patches`` [B, n_patches, d] for vlm
+(``models/lm.py``; decode positions then count the patches).  The
+hybrid family raises ``NotImplementedError``.  There is no ``impl``
+argument: the device decides how attention runs
+(``models/attention.py``).  ``input_specs`` comes with the dry-run
+(ROADMAP A18).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
+
+
+def _extra(batch, cfg: ModelConfig):
+    return {"patches": batch["patches"]} if cfg.family == "vlm" else None
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda"):
+    if cfg.family == "encdec":
+        return encdec.init_params(cfg, generator, dtype, device)
     return lm.init_params(cfg, generator, dtype, device)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat="block"):
-    return lm.loss_fn(params, batch, cfg, remat=remat)
+    if cfg.family == "encdec":
+        return encdec.loss_fn(params, batch, cfg, remat=remat)
+    return lm.loss_fn(params, batch, cfg, extra=_extra(batch, cfg),
+                      remat=remat)
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat="none"):
-    return lm.forward(params, batch["tokens"], cfg, remat=remat)
+    if cfg.family == "encdec":
+        enc = encdec.encode(params, batch["frames"], cfg, remat)
+        return encdec.decode_seq(params, batch["tokens"], enc, cfg, remat)
+    return lm.forward(params, batch["tokens"], cfg, extra=_extra(batch, cfg),
+                      remat=remat)
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_cap=None):
-    return lm.prefill(params, batch["tokens"], cfg, cache_cap=cache_cap)
+    if cfg.family == "encdec":
+        return encdec.prefill(params, batch["tokens"], batch["frames"], cfg,
+                              cache_cap)
+    return lm.prefill(params, batch["tokens"], cfg, extra=_extra(batch, cfg),
+                      cache_cap=cache_cap)
 
 
 def decode_step(params, token, pos, caches, cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return encdec.decode_step(params, token, pos, caches, cfg)
     return lm.decode_step(params, token, pos, caches, cfg)
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
                        dtype=torch.bfloat16, device="cuda"):
+    if cfg.family == "encdec":
+        return encdec.init_decode_caches(cfg, batch, cache_len, dtype,
+                                         device)
     return lm.init_decode_caches(cfg, batch, cache_len, dtype, device)

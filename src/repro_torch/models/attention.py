@@ -1,13 +1,21 @@
-"""Attention: GQA/MQA, causal/sliding-window self-attention with KV
+"""Attention: GQA/MQA, causal/full/sliding-window, self/cross, with KV
 caches for decode (ring buffer under SWA) — counterpart of
 ``repro/models/attention.py``.
 
-Full-sequence attention goes through ``kernels.flash_attention``: on
-the card the hand-written kernel, on the CPU its plain version.  There
-is no ``impl`` switch; the device decides.  The one-token decode step
-is plain PyTorch (``_sdpa``), as it is XLA in the JAX package.  The JAX
-package's ``_sdpa_flash_xla`` exists only so that JAX lowers on the CPU;
-the kernel computes the same function and it is not ported.
+Full-sequence attention — self-attention, the encoder's bidirectional
+attention and cross-attention (``kv_x``) — goes through
+``kernels.flash_attention``: on the card the hand-written kernel, on
+the CPU its plain version.  There is no ``impl`` switch; the device
+decides.  The one-token decode step is plain PyTorch (``_sdpa``), as it
+is XLA in the JAX package.  The JAX package's ``_sdpa_flash_xla`` exists
+only so that JAX lowers on the CPU; the kernel computes the same
+function and it is not ported.
+
+dtypes follow JAX's promotion: the projections run in the promoted
+dtype of activation and weight (``layers.mm``), and where q, k and v
+differ (a bfloat16 decoder's queries against float32 encoder keys) the
+kernel runs in their promoted dtype and its output is cast to q's, as
+``_sdpa`` computes in float32 and returns q's dtype.
 
 Decode writes the new key/value row into the cache tensors in place
 (PyTorch's idiom; the JAX package returns fresh arrays) and returns the
@@ -22,7 +30,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import _normal, params_module, rope
+from repro_torch.models.layers import _normal, mm, params_module, rope
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -85,35 +93,49 @@ def _sdpa(q, k, v, mask, scale):
 def _project(x, w):
     """[B, S, d] @ [d, H, hd] → [B, S, H, hd] (contiguous)."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).view(*x.shape[:-1], h, hd)
+    return mm(x, w.reshape(d, h * hd)).view(*x.shape[:-1], h, hd)
 
 
 def _out(o, wo):
     """[B, S, H, hd] @ [H, hd, d] → [B, S, d]."""
     h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return mm(o.reshape(*o.shape[:-2], h * hd), wo.reshape(h * hd, d))
+
+
+def _flash(q, k, v, causal: bool, window: int | None, scale: float):
+    """The kernel on [B, S, H, hd] activations (seen as [B, H, S, hd]),
+    in the promoted dtype of q, k and v; the output in q's dtype."""
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    o = flash_attention(q.to(dt).transpose(1, 2), k.to(dt).transpose(1, 2),
+                        v.to(dt).transpose(1, 2), causal, window, scale)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
               causal: bool = True, positions: torch.Tensor | None = None,
+              kv_x: torch.Tensor | None = None, use_rope: bool = True,
               make_cache: bool = False, cache_cap: int | None = None):
-    """Full-sequence self-attention (train / prefill).  ``positions``
-    (default ``arange(S)``) feed rope; the attention itself sees token i
-    at position i.  Returns (out, cache | None)."""
+    """Full-sequence attention (train / prefill / encoder / cross).
+    ``positions`` (default ``arange(S)``) feed rope; the attention itself
+    sees token i at position i.  ``kv_x`` switches to cross-attention:
+    keys and values from the encoder sequence ``kv_x`` [B, S_enc, d], no
+    rope, no causal mask, no window.  Returns (out, cache | None)."""
     b, s, _ = x.shape
     hd = cfg.hd()
+    src = x if kv_x is None else kv_x
     q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    k = _project(src, p.wk)
+    v = _project(src, p.wv)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    if cfg.pos_kind == "rope":
+    if use_rope and kv_x is None and cfg.pos_kind == "rope":
         q = rope(q, positions[None, :], cfg.rope_theta)
         k = rope(k, positions[None, :], cfg.rope_theta)
 
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal, cfg.window, hd ** -0.5)
-    out = _out(o.transpose(1, 2), p.wo)
+    cross = kv_x is not None
+    o = _flash(q, k, v, causal and not cross, None if cross else cfg.window,
+               hd ** -0.5)
+    out = _out(o, p.wo)
 
     cache = None
     if make_cache:

@@ -5,6 +5,8 @@ Parameters live in ``nn.Module``s whose attribute names are the JAX
 param dict's keys (``repro_torch.convert`` relies on that); every init
 function takes an explicit ``torch.Generator``, a dtype and a device.
 Compute dtype is the input dtype; norms and rope compute in float32.
+A product of a float32 operand and a bfloat16 one runs in float32
+(``mm``), as JAX promotes them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,14 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype,
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) * scale
     return x.to(device=device, dtype=dtype)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two: JAX promotes a float32
+    operand and a bfloat16 one to float32, where torch's matmul raises.
+    Operands of one dtype go in unchanged."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def params_module(module: nn.Module | None = None, /,
@@ -124,10 +134,10 @@ def ffn(x: torch.Tensor, w_up, w_down, kind: str,
         w_gate=None) -> torch.Tensor:
     """The MLP on its weight matrices (one dense MLP, or one expert)."""
     if kind in ("swiglu", "geglu"):
-        g = x @ w_gate
+        g = mm(x, w_gate)
         act = F.silu(g) if kind == "swiglu" else _gelu(g)
-        return (act * (x @ w_up)) @ w_down
-    return _gelu(x @ w_up) @ w_down
+        return mm(act * mm(x, w_up), w_down)
+    return mm(_gelu(mm(x, w_up)), w_down)
 
 
 def apply_mlp(p: nn.Module, x: torch.Tensor, kind: str) -> torch.Tensor:

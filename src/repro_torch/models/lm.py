@@ -1,14 +1,22 @@
-"""Decoder-only LM (dense / MoE / SSM) with KV/SSM caches and the three
-step entry points (forward, prefill, decode) and the training loss —
-counterpart of ``repro/models/lm.py``.
+"""Decoder-only LM (dense / MoE / SSM / VLM) with KV/SSM caches and the
+three step entry points (forward, prefill, decode) and the training
+loss — counterpart of ``repro/models/lm.py``.
 
 The model is an ``nn.Module`` tree: ``LM`` holds ``embed``, a
-``ModuleList`` of groups and ``final_norm``; the JAX package's scan over
-stacked group params is a Python loop here, and its ``jax.checkpoint``
-of the scan body is ``torch.utils.checkpoint`` of each group
-(``remat``).  ``prefill`` and ``decode_step`` run without autograd.  The
-hybrid, encoder-decoder and VLM families are not ported yet and raise,
-naming their ROADMAP step (``UNPORTED_FAMILIES``).
+``ModuleList`` of groups, ``final_norm`` and, for the VLM family,
+``patch_proj``; the JAX package's scan over stacked group params is a
+Python loop here, and its ``jax.checkpoint`` of the scan body is
+``torch.utils.checkpoint`` of each group (``remat``).  ``prefill`` and
+``decode_step`` run without autograd.
+
+VLM: the vision frontend is a stub, as in the JAX package.
+``extra["patches"]`` [B, P, d] is cast to the params' dtype, projected
+by ``patch_proj`` and put before the tokens; positions run over P + S,
+``forward`` drops the prefix before the unembed, and a caller decodes
+at absolute position P + len + i with a ``cache_cap`` that holds the
+patches too.  The encoder-decoder family is ``models/encdec.py``.  The
+hybrid family is not ported yet and raises, naming its ROADMAP step
+(``UNPORTED_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -22,13 +30,14 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import not_ported, resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.layers import apply_norm, embed, init_embed, \
-    init_norm, unembed
+from repro_torch.models.layers import _normal, apply_norm, embed, \
+    init_embed, init_norm, unembed
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+# encdec is served by models/encdec.py, through models/api.py
+PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "encdec")
 # the ROADMAP step that ports each other family: hybrid needs expert
 # parallelism (one jamba group at published widths exceeds one card)
-UNPORTED_FAMILIES = {"hybrid": "A17", "encdec": "A14.3b", "vlm": "A14.3b"}
+UNPORTED_FAMILIES = {"hybrid": "A17"}
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -39,15 +48,19 @@ def check_family(cfg: ModelConfig) -> None:
 
 class LM(nn.Module):
     """Parameters of one decoder-only LM (names as the JAX param tree:
-    ``embed.tok``, ``groups.<g>.l<i>.attn.wq``, ``final_norm.scale``)."""
+    ``embed.tok``, ``groups.<g>.l<i>.attn.wq``, ``final_norm.scale``,
+    ``patch_proj``)."""
 
     def __init__(self, cfg: ModelConfig, embed: nn.Module,
-                 groups: list[nn.Module], final_norm: nn.Module):
+                 groups: list[nn.Module], final_norm: nn.Module,
+                 patch_proj: torch.Tensor | None = None):
         super().__init__()
         self.cfg = cfg
         self.embed = embed
         self.groups = nn.ModuleList(groups)
         self.final_norm = final_norm
+        if patch_proj is not None:
+            self.patch_proj = nn.Parameter(patch_proj)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens, self.cfg)
@@ -62,13 +75,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     emb = init_embed(generator, cfg, dtype, dev)
     groups = [B.init_group(generator, cfg, dtype, dev)
               for _ in range(B.n_groups(cfg))]
-    return LM(cfg, emb, groups, init_norm(cfg, dtype, dev))
+    final_norm = init_norm(cfg, dtype, dev)
+    patch_proj = (_normal(generator, (cfg.d_model, cfg.d_model),
+                          cfg.d_model ** -0.5, dtype, dev)
+                  if cfg.family == "vlm" else None)
+    return LM(cfg, emb, groups, final_norm, patch_proj)
 
 
 def _embed(params: LM, tokens: torch.Tensor, cfg: ModelConfig, pos0: int):
     positions = torch.arange(pos0, pos0 + tokens.shape[1],
                              device=tokens.device)
     return embed(params.embed, tokens.long(), cfg, positions=positions)
+
+
+def _with_patches(params: LM, x: torch.Tensor, cfg: ModelConfig, extra):
+    """VLM: (the projected patches followed by ``x``, the patch count);
+    any other family: (``x``, 0)."""
+    if cfg.family != "vlm":
+        return x, 0
+    if not extra or "patches" not in extra:
+        raise ValueError(f"{cfg.name}: the vlm family needs "
+                         "extra={'patches': [B, P, d]}")
+    patches = extra["patches"].to(x.dtype) @ params.patch_proj
+    return torch.cat([patches, x], dim=1), patches.shape[1]
 
 
 # the products without batch dimensions, ``x @ W`` (JAX's
@@ -109,21 +138,26 @@ def _apply_groups(params: LM, x, cfg: ModelConfig, positions,
 
 
 def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
-            remat: str = "none") -> torch.Tensor:
-    """Training/eval forward: tokens [B, S] → logits [B, S, V] (f32)."""
+            extra: dict | None = None, remat: str = "none") -> torch.Tensor:
+    """Training/eval forward: tokens [B, S] → logits [B, S, V] (f32).
+    ``extra``: the modality-stub inputs, ``patches`` [B, P, d] for vlm
+    (prepended after projection; their logits are dropped)."""
     x = _embed(params, tokens, cfg, 0)
+    x, n_prefix = _with_patches(params, x, cfg, extra)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x = _apply_groups(params, x, cfg, positions, remat)
     x = apply_norm(params.final_norm, x, cfg.norm_kind)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return unembed(params.embed, x, cfg)
 
 
 def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
-            remat: str = "block") -> torch.Tensor:
+            extra: dict | None = None, remat: str = "block") -> torch.Tensor:
     """Next-token cross entropy (mean over non-masked positions), in
     float32: ``batch`` holds ``tokens`` and ``labels`` [B, S] and
-    optionally ``mask`` [B, S]."""
-    logits = forward(params, batch["tokens"], cfg, remat=remat)
+    optionally ``mask`` [B, S]; ``extra`` as ``forward`` takes it."""
+    logits = forward(params, batch["tokens"], cfg, extra=extra, remat=remat)
     targets = batch["labels"][:, 1:].long()
     lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
@@ -136,10 +170,11 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
 
 @torch.no_grad()
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cache_cap: int | None = None):
-    """Build caches for decode.  Returns (last_logits [B, V], caches: one
-    dict per group)."""
+            extra: dict | None = None, cache_cap: int | None = None):
+    """Build caches for decode (over the patches and the tokens, for
+    vlm).  Returns (last_logits [B, V], caches: one dict per group)."""
     x = _embed(params, tokens, cfg, 0)
+    x, _ = _with_patches(params, x, cfg, extra)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cap = cache_cap or x.shape[1]
     caches = []

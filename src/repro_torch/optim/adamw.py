@@ -19,11 +19,13 @@ writes the new values into the parameters in place (PyTorch's idiom;
 the JAX package returns fresh arrays) and returns new m / v.
 
 The JAX package stacks every group's copy of a parameter on one leaf
-(``groups/l0/attn/wq``) and quantizes that leaf against one absmax.
-The port keeps a tensor a group (``groups.0.l0.attn.wq``, ...), so an
-int8 update quantizes the groups of one stacked leaf together
-(``stack_key``): one shared scale, the max over every group's tensor,
-and so the same q and scale as the JAX package, group by group.
+(``groups/l0/attn/wq``; an encoder-decoder's layers under ``enc`` and
+``dec``, ``STACKED``) and quantizes that leaf against one absmax.  The
+port keeps a tensor a group or layer (``groups.0.l0.attn.wq``,
+``enc.0.attn.wq``, ...), so an int8 update quantizes the slices of one
+stacked leaf together (``stack_key``): one shared scale, the max over
+every slice's tensor, and so the same q and scale as the JAX package,
+slice by slice.
 """
 from __future__ import annotations
 
@@ -69,12 +71,18 @@ def named(params) -> dict[str, torch.Tensor]:
     return dict(params)
 
 
+# the top-level names under which the JAX package stacks layers on a
+# leading axis: an LM's groups, an encoder-decoder's encoder and decoder
+# layers (``convert`` and ``checkpoint/io.py`` read it too)
+STACKED = ("groups", "enc", "dec")
+
+
 def stack_key(name: str) -> str:
     """The JAX package's stacked leaf a parameter belongs to:
-    ``groups.<g>.<rest>`` → ``groups.<rest>``; any other name is a leaf
-    of its own."""
+    ``<stack>.<i>.<rest>`` → ``<stack>.<rest>`` for a ``STACKED`` prefix;
+    any other name is a leaf of its own."""
     parts = name.split(".")
-    if parts[0] == "groups" and len(parts) > 2 and parts[1].isdigit():
+    if parts[0] in STACKED and len(parts) > 2 and parts[1].isdigit():
         return ".".join([parts[0]] + parts[2:])
     return name
 

@@ -12,7 +12,10 @@ policies, the history log, the npz round trip), and the port against
   leaf that stacks every group, the port a copy a group; the port's
   store counts those copies once (``ops_since_snap``);
 * the port restores a root written by the JAX package at every logged
-  step, bit-equal to the JAX restore carried over by ``convert``.
+  step, bit-equal to the JAX restore carried over by ``convert``;
+* the same for an encoder-decoder (whisper-small, its encoder and
+  decoder layers stacked under ``enc`` / ``dec``) and the name map of a
+  vlm (internvl2-1b, with ``patch_proj``), float32 and int8.
 """
 import json
 import os
@@ -315,11 +318,13 @@ def test_port_restores_a_jax_root(tmp_path, sequences, opt_dtype):
 
 @pytest.mark.parametrize("opt_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "whisper-small",
+                                  "internvl2-1b"])
 def test_name_map_both_ways(arch, opt_dtype):
     """``arrays_from_reference`` turns the JAX package's npz entries of
     a TrainState into the port's, and ``arrays_to_reference`` back, bit
-    for bit; a stacked int8 leaf's one scale goes to every group."""
+    for bit; a stacked int8 leaf's one scale goes to every group (an
+    encoder-decoder: to every encoder layer, and every decoder layer)."""
     jcfg = j_reduced(j_get_config(arch))
     js = j_init(jax.random.PRNGKey(1), jcfg, JTrainConfig(
         param_dtype="bfloat16", opt_state_dtype=opt_dtype))
@@ -343,16 +348,22 @@ def test_name_map_both_ways(arch, opt_dtype):
     for k in ref:
         assert back[k].dtype == ref[k].dtype and \
             back[k].tobytes() == ref[k].tobytes(), k
+    if arch == "internvl2-1b":
+        assert "params/patch_proj::bf16" in port
+    stacks = ({"enc": jcfg.n_enc_layers, "dec": jcfg.n_layers}
+              if jcfg.family == "encdec" else {"groups": jcfg.n_layers})
     if opt_dtype == "int8":
-        scales = [port[k] for k in port
-                  if k.startswith("opt/m/groups.") and k.endswith(
-                      "l0.ssm.in_proj/scale" if arch.startswith("mamba")
-                      else "l0.attn.wq/scale")]
-        assert len(scales) == jcfg.n_layers and \
-            all(s.tobytes() == scales[0].tobytes() for s in scales)
+        for stack, n in stacks.items():
+            scales = [port[k] for k in port
+                      if k.startswith(f"opt/m/{stack}.") and k.endswith(
+                          "l0.ssm.in_proj/scale" if arch.startswith("mamba")
+                          else ".attn.wq/scale")]
+            assert len(scales) == n and \
+                all(s.tobytes() == scales[0].tobytes() for s in scales)
         # groups with scales of their own have no JAX counterpart
         port = dict(port)
-        k = next(k for k in port if k.startswith("opt/m/groups.1.")
+        k = next(k for k in port
+                 if k.startswith(f"opt/m/{list(stacks)[-1]}.1.")
                  and k.endswith("/scale"))
         port[k] = port[k] * 2
         with pytest.raises(ValueError, match="scales differ"):
@@ -397,3 +408,68 @@ def test_moe_param_tree_carries_across_both_ways():
     for k in ref:
         assert back[k].dtype == ref[k].dtype and \
             back[k].tobytes() == ref[k].tobytes(), k
+
+
+@pytest.fixture(scope="module")
+def encdec_sequences():
+    return {od: _jax_states("whisper-small", od, len(STEPS), 5)
+            for od in ("int8", "float32")}
+
+
+@pytest.mark.parametrize("opt_dtype", ["int8", "float32"])
+def test_port_restores_a_jax_encdec_root(tmp_path, encdec_sequences,
+                                         opt_dtype):
+    """A root the JAX package writes for reduced whisper-small (layers
+    stacked under ``enc`` and ``dec``): the port restores every logged
+    step bit-equal to the JAX restore carried over, and a port store fed
+    the same states writes the same manifest (the repeated int8 scales of
+    ``enc`` / ``dec`` counted once, ``io.stacked_copy``) and byte-equal
+    arrays under the name map."""
+    jcfg, states = encdec_sequences[opt_dtype]
+    cfg = reduced(get_config("whisper-small"))
+    jroot, root = str(tmp_path / "jax"), str(tmp_path / "port")
+    jstore = jckpt.DeltaCheckpointStore(jroot, jckpt.DeltaPolicy(
+        kind="opcount", op_budget=250000.0))
+    store = DeltaCheckpointStore(root, DeltaPolicy(kind="opcount",
+                                                   op_budget=250000.0))
+    for step, st in zip(STEPS, states):
+        jstore.save(step, jax.tree.map(jnp.asarray, st))
+        store.save(step, train_state_from_numpy(st, cfg, device="cpu"))
+    with open(os.path.join(jroot, "manifest.json")) as f:
+        jman = json.load(f)
+    with open(os.path.join(root, "manifest.json")) as f:
+        assert json.load(f) == jman
+    assert 1 < len(jman["snapshots"]) < len(STEPS), jman["snapshots"]
+    for d in ("snapshots", "deltas"):
+        for name in os.listdir(os.path.join(jroot, d)):
+            want = _ref_npz(os.path.join(jroot, d, name))
+            got = arrays_to_reference(_ref_npz(os.path.join(root, d, name)))
+            assert set(got) == set(want), name
+            for k in want:
+                assert got[k].tobytes() == want[k].tobytes(), (name, k)
+
+    restorer = DeltaCheckpointStore(jroot)
+    jtemplate = jax.eval_shape(lambda: jax.tree.map(jnp.asarray, states[0]))
+    template = init_train_state(cfg, TrainConfig(
+        param_dtype="bfloat16", opt_state_dtype=opt_dtype), device="cpu")
+    for step in STEPS:
+        want = io.raw_arrays(train_state_from_numpy(
+            jax.tree.map(np.asarray, jstore.restore(step, jtemplate)), cfg,
+            device="cpu"))
+        got = io.raw_arrays(restorer.restore(step, template))
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and \
+                got[k].tobytes() == want[k].tobytes(), (step, k)
+
+
+def test_stacked_copy_names_every_stacked_prefix():
+    """A later slice's int8 scale of a stacked leaf repeats the first
+    slice's, under every prefix the JAX package stacks."""
+    for stack in ("groups", "enc", "dec"):
+        assert not io.stacked_copy(f"opt/m/{stack}.0.attn.wq/scale")
+        assert io.stacked_copy(f"opt/v/{stack}.1.attn.wq/scale")
+        assert not io.stacked_copy(f"opt/m/{stack}.1.attn.wq/q")
+    for key in ("opt/m/enc_norm.scale/scale", "opt/m/patch_proj/scale",
+                "params/enc.1.attn.wq"):
+        assert not io.stacked_copy(key)

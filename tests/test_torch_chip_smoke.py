@@ -2,8 +2,10 @@
 comparison, the design counts, phases 7 and 8 rehearsed at a small
 size (root layout, answer comparison, acknowledgements, the crash
 child and its arguments), phase 9's replica child, its verdict and
-a rehearsal, and phase 13's depth, routing readout, verdict, printed
-lines and a rehearsal on the reduced mixtral.
+a rehearsal, phase 13's depth, routing readout, verdict, printed
+lines and a rehearsal on the reduced mixtral, and phase 14's (whisper
+and internvl2: ``phase_family``, ``family_failures``, ``family_lines``,
+the generalised ``greedy`` / ``phase_lm`` of phases 5 and 6).
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -1076,3 +1078,191 @@ def test_pinned_step_routes_sequence_zero_as_told():
             api.decode_step(model, tok, 17 + i, caches, cfg)
         again, _ = chip_smoke.pinned_step(model, cfg, tok, 16, caches, {})
         assert torch.equal(again, want)
+
+
+
+# ---------------------------------------------------------------------------
+# Phases 5, 6 and 14: the serving path of the LMs, the encoder-decoder
+# and the vlm, rehearsed on reduced configs on the CPU
+# ---------------------------------------------------------------------------
+
+
+class _RecordingApi:
+    """``models.api``'s prefill / decode_step as ``greedy`` calls them:
+    the batches and positions it passes, fixed logits back."""
+
+    def __init__(self, vocab=8):
+        self.prefills, self.positions, self.vocab = [], [], vocab
+
+    def prefill(self, model, batch, cfg, cache_cap=None):
+        self.prefills.append((dict(batch), cache_cap))
+        return torch.zeros((batch["tokens"].shape[0], self.vocab)), "caches"
+
+    def decode_step(self, model, token, pos, caches, cfg):
+        self.positions.append(pos)
+        return torch.zeros((token.shape[0], self.vocab)), caches
+
+
+def test_greedy_keeps_phase_5_6_batches_and_positions():
+    """Without stub inputs and offset (phases 5, 6 and 13) the prefill
+    batch holds the tokens alone and decode runs at len + i; with them
+    (phase 14) the batch carries the frames / patches and the positions
+    start past the patches."""
+    tokens = torch.zeros((2, 5), dtype=torch.long)
+    api = _RecordingApi()
+    gen, steps, caches = chip_smoke.greedy(api, None, None, tokens, 3, 8)
+    (batch, cap), = api.prefills
+    assert set(batch) == {"tokens"} and batch["tokens"] is tokens
+    assert cap == 8 and api.positions == [5, 6, 7]
+    assert gen.shape == (2, 4) and len(steps) == 4 and caches == "caches"
+    patches = torch.ones((2, 3, 4))
+    api = _RecordingApi()
+    chip_smoke.greedy(api, None, None, tokens, 3, 11,
+                      extra={"patches": patches}, offset=3)
+    (batch, cap), = api.prefills
+    assert set(batch) == {"tokens", "patches"} and batch["patches"] is patches
+    assert cap == 11 and api.positions == [8, 9, 10]
+
+
+def test_stub_inputs_are_seeded_and_sequence_zero_is_shared():
+    whisper, vlm = _reduced("whisper-small"), _reduced("internvl2-1b")
+    assert chip_smoke.stub_inputs(_reduced("smollm-360m"), 7) is None
+    make = chip_smoke.stub_inputs(whisper, 7)
+    eight = make(8, torch.bfloat16, "cpu")["frames"]
+    one = make(1, torch.float32, "cpu")["frames"]
+    assert eight.shape == (8, whisper.enc_seq, whisper.d_model)
+    assert eight.dtype == torch.bfloat16 and one.dtype == torch.float32
+    assert torch.equal(eight[:1], one.to(torch.bfloat16))
+    assert torch.equal(one, make(1, torch.float32, "cpu")["frames"])
+    p = chip_smoke.stub_inputs(vlm, 7)(2, torch.float32, "cpu")["patches"]
+    assert p.shape == (2, vlm.n_patches, vlm.d_model)
+    assert chip_smoke.prefill_launches_want(whisper, "flash_attention") == \
+        {"flash_attention": 6}
+    assert chip_smoke.prefill_launches_want(vlm, "flash_attention") == \
+        {"flash_attention": 2}
+
+
+def test_phase_lm_on_the_cpu():
+    """Phase 5's path (no stub input, no offset) on the reduced
+    smollm-360m: decode equals the fresh forward, the float32 'card'
+    (the CPU here) equals the CPU; only the launch checks fail."""
+    cfg = _reduced("smollm-360m")
+    res = chip_smoke.phase_lm(cfg, "flash_attention", 7, device="cpu",
+                              batch=2, prompt=16, decode=4, check_prompt=16,
+                              check_decode=4)
+    assert res["offset"] == 0 and res["stub"] == {}
+    assert len(res["generated"]) == 5
+    assert chip_smoke.family_failures(res) == [
+        "smollm-360m: a prefill launched flash_attention 0 times, want 2",
+        "smollm-360m: float32 prefill launched flash_attention 0 times, "
+        "want 2"]
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_phase_family_on_the_cpu(arch):
+    """Phase 14 rehearsed on the reduced whisper / internvl2: decode
+    equals the fresh forward over sequence 0 with its frames / patches,
+    the float32 'card' (the CPU here) equals the CPU, whisper's
+    mixed-dtype prefill runs B5 (its plain version here) as the card
+    must — float32 encoder and cross, bf16 decoder self — with JAX's
+    output dtypes; only the launch checks fail."""
+    cfg = _reduced(arch)
+    res = chip_smoke.phase_family(cfg, 7, 16, device="cpu", batch=2,
+                                  decode=4, check_prompt=16, check_decode=4)
+    want = 6 if cfg.family == "encdec" else 2
+    bad = [f"{arch}: a prefill launched flash_attention 0 times, want "
+           f"{want}",
+           f"{arch}: float32 prefill launched flash_attention 0 times, "
+           f"want {want}"]
+    if cfg.family == "encdec":
+        pr = res["promotion"]
+        assert pr["by_dtype"] == pr["want_by_dtype"] == [
+            ["bfloat16", True, 16, 16, 2], ["float32", False, 16, 64, 2],
+            ["float32", False, 64, 64, 2]]
+        assert pr["dtypes"] == pr["want_dtypes"]
+        bad.append(f"{arch}: the mixed-dtype prefill launched "
+                   "flash_attention 0 times, want 6")
+        assert res["stub"] == {"frames": [2, 64, 128]}
+        assert res["offset"] == 0
+    else:
+        assert res["stub"] == {"patches": [2, 16, 128]}
+        assert res["offset"] == 16 and "promotion" not in res
+    assert chip_smoke.family_failures(res) == bad
+    lines = chip_smoke.family_lines(res, "CPU, 0 W")
+    assert lines[0].startswith(f"{arch} [{cfg.family}] on CPU, 0 W: ")
+    assert ("encoder frames/s" in lines[0]) == (cfg.family == "encdec")
+    assert len(lines) == (2 if cfg.family == "encdec" else 1)
+
+
+def _family_passing():
+    """Phase 14's whisper results as a passing run leaves them."""
+    bd = [["bfloat16", True, 416, 416, 12], ["float32", False, 416, 1500, 12],
+          ["float32", False, 1500, 1500, 12]]
+    dt = {"encoder": ["float32"], "xk/xv": ["float32"],
+          "self-KV": ["bfloat16"], "logits": ["float32"]}
+    return dict(
+        arch="whisper-small", kernel="flash_attention",
+        want_launches={"flash_attention": 36},
+        prefill_launches={"flash_attention": 36, "ssd_scan": 0},
+        decode_launches={"flash_attention": 0, "ssd_scan": 0}, finite=True,
+        decode_rel_err_by_step=[0.01] * 32, f32_launches=36,
+        f32_rel_err=1e-6, f32_greedy_identical=True,
+        promotion=dict(launches={"flash_attention": 36}, want_total=36,
+                       by_dtype=[list(b) for b in bd], want_by_dtype=bd,
+                       dtypes=dict(dt), want_dtypes=dt,
+                       rel=dict(encoder=1e-6, xk=1e-6, xv=1e-6,
+                                logits=0.01)))
+
+
+@pytest.mark.parametrize("change,message", [
+    (lambda r: r["prefill_launches"].update(flash_attention=24),
+     "a prefill launched flash_attention 24 times, want 36"),
+    (lambda r: r["prefill_launches"].update(ssd_scan=1),
+     "a prefill launched ssd_scan 1 times, want 0"),
+    (lambda r: r["decode_launches"].update(flash_attention=1),
+     "decode launched"),
+    (lambda r: r.update(finite=False), "non-finite logits"),
+    (lambda r: r["decode_rel_err_by_step"].__setitem__(0, 0.07),
+     "bf16 decode disagrees with a fresh forward"),
+    (lambda r: r["decode_rel_err_by_step"].__setitem__(9, float("nan")),
+     "bf16 decode disagrees with a fresh forward"),
+    (lambda r: r.update(f32_launches=12),
+     "float32 prefill launched flash_attention 12 times, want 36"),
+    (lambda r: r.update(f32_rel_err=2e-4), "float32 card and CPU disagree"),
+    (lambda r: r.update(f32_greedy_identical=False),
+     "greedy tokens identical: False"),
+    (lambda r: r["promotion"]["launches"].update(flash_attention=24),
+     "the mixed-dtype prefill launched flash_attention 24 times"),
+    (lambda r: r["promotion"]["by_dtype"][1].__setitem__(0, "bfloat16"),
+     "the mixed-dtype prefill ran B5 as"),
+    (lambda r: r["promotion"]["dtypes"].update(encoder=["bfloat16"]),
+     "mixed-dtype outputs"),
+    (lambda r: r["promotion"]["rel"].update(xk=2e-4),
+     "float32 xk differs from the CPU's by 0.0002"),
+    (lambda r: r["promotion"]["rel"].update(logits=0.07),
+     "the mixed-dtype prefill's logits differ from the CPU's"),
+], ids=["launches", "other-kernel", "decode-launch", "finite", "first-step",
+        "nan-step", "f32-launches", "card-cpu", "tokens", "mixed-launches",
+        "mixed-dtype", "mixed-outputs", "mixed-f32", "mixed-logits"])
+def test_family_verdict_names_each_failed_check(change, message):
+    assert chip_smoke.family_failures(_family_passing()) == []
+    res = _family_passing()
+    change(res)
+    bad = chip_smoke.family_failures(res)
+    assert len(bad) == 1 and bad[0].startswith("whisper-small: "), bad
+    assert message in bad[0], bad
+
+
+def test_attention_case_full_non_causal_builds_no_mask():
+    """A non-causal case with no kv_len and no window hands the library
+    no mask (an all-true one would send it off its fast path): the case
+    builds on the CPU, where a mask would be made on the card, and the
+    library call equals the plain version."""
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dtype)
+    case = chip_smoke.attention_case(randn, 1, 4, 2, 6, 10, 32,
+                                     torch.float32, False, None, None)
+    assert float((case["library"]() - case["plain"]()).abs().max()) < 1e-5
+    assert case["ops"] == 4 * 32 * 6 * 10 * 4

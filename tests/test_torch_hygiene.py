@@ -68,6 +68,8 @@ def test_port_has_every_module_of_the_slice():
             "configs/mamba2_130m.py", "models/layers.py",
             "models/attention.py", "models/ssm.py", "models/blocks.py",
             "models/lm.py", "models/api.py", "models/moe.py",
+            "models/encdec.py", "configs/whisper_small.py",
+            "configs/internvl2_1b.py",
             "kernels/flash_attention/ref.py",
             "kernels/flash_attention/ops.py",
             "kernels/flash_attention/flash_attention.cu",
@@ -131,6 +133,12 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         lm_api.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_api.init_decode_caches(cfg, 1, 8)
+    for arch in ("whisper-small", "internvl2-1b"):
+        fam = reduced(get_config(arch))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm_api.init_params(fam, torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm_api.init_decode_caches(fam, 1, 8)
     # training: the trainer, its command line, its state and its data
     from repro_torch.config import ShardingConfig, TrainConfig
     from repro_torch.data import SyntheticLM

@@ -2,7 +2,9 @@
 ``repro.models`` on ``reduced()`` configs, in float32, with the JAX
 params carried across by ``repro_torch.convert.lm_from_numpy``.
 
-Tokens come from numpy with a fixed seed.  Logits are held to 1e-4
+Tokens (and internvl2's patch embeddings, as ``tests/test_models.py``
+makes them) come from numpy with a fixed seed; internvl2 decodes at
+absolute positions past its 16 patches.  Logits are held to 1e-4
 (float32 through two layers; the two packages round matmuls and
 transcendental functions differently, measured ≤ 5e-6 on logits of
 magnitude ≤ 5), and the greedy tokens must be identical.  The port's own
@@ -29,35 +31,43 @@ B, S, N_DEC = 2, 32, 4
 N_PRE = S - N_DEC
 TOL = 1e-4
 PORTED = ["smollm-360m", "olmo-1b", "gemma-2b", "glm4-9b", "mamba2-130m",
-          "mixtral-8x7b", "kimi-k2-1t-a32b"]
-# the ROADMAP step named by each family that still raises
-QUEUE = {"hybrid": "A17", "encdec": "A14.3b", "vlm": "A14.3b"}
+          "mixtral-8x7b", "kimi-k2-1t-a32b", "internvl2-1b"]
+# the ROADMAP step named by each family that still raises (the
+# encoder-decoder, whisper-small, is tests/test_torch_encdec.py's)
+QUEUE = {"hybrid": "A17"}
 
 
 def _setup(arch, impl="xla", **over):
     """JAX params / logits and the port's model for one reduced arch:
     forward over S tokens, prefill over the first N_PRE, N_DEC decode
-    steps fed the true next tokens."""
+    steps fed the true next tokens (vlm: after the patches, at absolute
+    positions ``n_patches`` + N_PRE + i)."""
     jcfg = j_reduced(j_get_config(arch), **over)
     cfg = reduced(get_config(arch), **over)
     params = japi.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
-    toks = np.random.default_rng(7).integers(0, jcfg.vocab, (B, S)) \
-        .astype(np.int32)
-    full = np.asarray(japi.forward(params, {"tokens": jnp.asarray(toks)},
-                                   jcfg, impl=impl))
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    extra, off = {}, 0
+    if jcfg.family == "vlm":
+        extra = {"patches": rng.standard_normal(
+            (B, jcfg.n_patches, jcfg.d_model)).astype(np.float32)}
+        off = jcfg.n_patches
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    full = np.asarray(japi.forward(
+        params, {"tokens": jnp.asarray(toks), **jextra}, jcfg, impl=impl))
     logits, caches = japi.prefill(
-        params, {"tokens": jnp.asarray(toks[:, :N_PRE])}, jcfg,
-        cache_cap=S, impl=impl)
+        params, {"tokens": jnp.asarray(toks[:, :N_PRE]), **jextra}, jcfg,
+        cache_cap=off + S, impl=impl)
     steps = [np.asarray(logits)]
     for i in range(N_DEC):
         logits, caches = japi.decode_step(
             params, jnp.asarray(toks[:, N_PRE + i:N_PRE + i + 1]),
-            jnp.int32(N_PRE + i), caches, jcfg)
+            jnp.int32(off + N_PRE + i), caches, jcfg)
         steps.append(np.asarray(logits))
     model = lm_from_numpy(jax.tree.map(np.asarray, params), cfg,
                           device="cpu")
     return dict(cfg=cfg, params=params, toks=toks, full=full, steps=steps,
-                model=model)
+                model=model, extra=extra, off=off)
 
 
 @pytest.fixture(scope="module")
@@ -72,17 +82,19 @@ def setups():
 
 
 def _port_run(su):
-    model, cfg, toks = su["model"], su["cfg"], su["toks"]
+    model, cfg, toks, off = su["model"], su["cfg"], su["toks"], su["off"]
+    extra = {k: torch.from_numpy(v) for k, v in su["extra"].items()}
     with torch.no_grad():
-        full = api.forward(model, {"tokens": torch.from_numpy(toks)}, cfg)
+        full = api.forward(model, {"tokens": torch.from_numpy(toks),
+                                   **extra}, cfg)
     logits, caches = api.prefill(
-        model, {"tokens": torch.from_numpy(toks[:, :N_PRE])}, cfg,
-        cache_cap=S)
+        model, {"tokens": torch.from_numpy(toks[:, :N_PRE]), **extra}, cfg,
+        cache_cap=off + S)
     steps = [logits]
     for i in range(N_DEC):
         logits, caches = api.decode_step(
             model, torch.from_numpy(toks[:, N_PRE + i:N_PRE + i + 1]),
-            N_PRE + i, caches, cfg)
+            off + N_PRE + i, caches, cfg)
         steps.append(logits)
     return full.numpy(), [s.numpy() for s in steps]
 
@@ -103,10 +115,12 @@ def test_forward_prefill_decode_match_jax(setups, arch):
         _same_greedy(got, want)
 
 
-def test_matches_jax_pallas_path(setups):
+@pytest.mark.parametrize("arch", ["smollm-360m", "internvl2-1b"])
+def test_matches_jax_pallas_path(setups, arch):
     """The JAX package's Pallas attention (interpret mode) is the
-    function the port's attention kernel replaces."""
-    su = setups("smollm-360m", "pallas")
+    function the port's attention kernel replaces (internvl2: GQA group
+    2, over patches and tokens)."""
+    su = setups(arch, "pallas")
     full, steps = _port_run(su)
     assert np.abs(full - su["full"]).max() < TOL
     for got, want in zip(steps, su["steps"]):
@@ -158,7 +172,8 @@ def test_swa_ring_buffer_decode():
     assert max(errs) < 2e-3, errs
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)
+                                         - {"whisper-small"}))
 def test_unported_families_raise(arch):
     cfg = reduced(get_config(arch))
     assert cfg.family in QUEUE

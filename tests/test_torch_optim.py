@@ -7,8 +7,11 @@ Tolerances: one ``adamw_update`` of params, m and v within 1e-6
 relative (both packages compute it in float32, op for op; the global
 norm sums its leaves in orders of their own), the int8 ``QTensor``'s q
 and scale bit-equal, and ``lr_schedule`` within 1e-7 of lr (float32,
-one ``cos``).  ``compress.py`` (the int8 cross-device reduce) is not
-ported yet, so ``test_error_feedback_unbiased`` has no counterpart.
+one ``cos``).  An int8 state over an encoder-decoder's layers, which
+the JAX package stacks under ``enc`` and ``dec``, gives its q and scale
+layer by layer (one absmax a stacked leaf, ``adamw.STACKED``).
+``compress.py`` (the int8 cross-device reduce) is not ported yet, so
+``test_error_feedback_unbiased`` has no counterpart.
 """
 import numpy as np
 import pytest
@@ -217,3 +220,67 @@ def test_adamw_init_matches_jax_shapes_and_dtypes():
             else:
                 assert str(ours.dtype).endswith(np.asarray(theirs).dtype.name)
                 assert not ours.any()
+
+
+def test_stack_key_names_every_stacked_prefix():
+    from repro_torch.optim.adamw import STACKED, stack_key
+    assert STACKED == ("groups", "enc", "dec")
+    assert stack_key("groups.3.l0.attn.wq") == "groups.l0.attn.wq"
+    assert stack_key("enc.11.mlp.w_up") == "enc.mlp.w_up"
+    assert stack_key("dec.0.xattn.wk") == "dec.xattn.wk"
+    for own in ("enc_norm.scale", "patch_proj", "embed.tok", "final_norm"):
+        assert stack_key(own) == own
+
+
+def test_int8_state_of_encdec_layers_matches_jax():
+    """Two int8 updates of reduced whisper-small's params from the JAX
+    package's initial state with the same numpy gradients: every encoder
+    and decoder layer's q and scale equal the JAX package's stacked
+    leaf's slice, bit for bit (its layers share one absmax a leaf)."""
+    from repro.config import reduced as j_reduced
+    from repro.configs import get_config as j_get_config
+    from repro.runtime import init_train_state as j_init
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_from_numpy, train_state_from_numpy
+    jcfg = j_reduced(j_get_config("whisper-small"))
+    cfg = reduced(get_config("whisper-small"))
+    kw = dict(lr=1e-2, weight_decay=0.1, opt_state_dtype="int8",
+              param_dtype="float32", grad_clip=1e9)
+    jtcfg, tcfg = JTrainConfig(**kw), TrainConfig(**kw)
+    jstate = j_init(jax.random.PRNGKey(4), jcfg, jtcfg)
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                   device="cpu")
+    jparams, jopt = jstate.params, jstate.opt
+    params, opt = state.params, state.opt
+    rng = np.random.default_rng(6)
+    for step in range(2):
+        # layers of one leaf far apart in size: a per-layer absmax would
+        # give each its own scale
+        g_np = jax.tree.map(
+            lambda p: (rng.standard_normal(p.shape) * 3 * (
+                np.arange(p.shape[0]).reshape((-1,) + (1,) * (p.ndim - 1))
+                + 1.0 if p.ndim > 1 else 1.0)).astype(np.float32),
+            jax.tree.map(np.asarray, jparams))
+        grads = dict(lm_from_numpy(g_np, cfg, device="cpu")
+                     .named_parameters())
+        params, opt, _ = adamw_update({n: g.detach()
+                                       for n, g in grads.items()},
+                                      opt, params, tcfg, 1e-2)
+        jparams, jopt, _ = jadamw.adamw_update(
+            jax.tree.map(jnp.asarray, g_np), jopt, jparams, jtcfg,
+            jnp.float32(1e-2))
+        for moment in ("m", "v"):
+            ours = getattr(opt, moment)
+            theirs = getattr(jopt, moment)
+            for stack in ("enc", "dec"):
+                for i in range(2):
+                    for name in ("attn.wq", "mlp.w_up", "norm1.scale"):
+                        leaf = theirs[stack]
+                        for part in name.split("."):
+                            leaf = leaf[part]
+                        q = ours[f"{stack}.{i}.{name}"]
+                        assert np.array_equal(q.q.numpy(),
+                                              np.asarray(leaf.q)[i])
+                        assert q.scale.numpy().tobytes() == np.asarray(
+                            leaf.scale, np.float32).tobytes()

@@ -16,6 +16,14 @@ made with numpy:
 * B6's ``autograd.Function`` (its forward swapped for the plain version,
   as there is no kernel on the CPU): gradients within 1e-4 of
   ``jax.grad`` of the reference scan;
+* the encoder-decoder (whisper-small) and the vlm (internvl2-1b), the
+  batches carrying ``frames`` / ``patches`` made with numpy: three
+  ``train_step``s against JAX's ``make_train_step`` (the loss and the
+  grad norm within 1e-4 relative at every step, every parameter within
+  1e-3 × max|p| but for at most 1 element in 10^4, as above, and the
+  params moved, as ``tests/test_models.py`` asks of the JAX package);
+  ``SyntheticLM`` gives them ``frames`` / ``patches`` and the trainer
+  takes them unchanged;
 * an int8 optimizer state over a model of several groups: two
   ``adamw_update``s from the same state and gradients give the JAX
   package's q and scale bit for bit, group by group (one absmax a
@@ -465,3 +473,97 @@ def test_int8_state_shares_one_scale_per_stacked_leaf(arch):
                                                       20 + i)))
         arrays_to_reference(io.raw_arrays(state))
     assert state.step == 3
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and vlm families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ["whisper-small", "internvl2-1b"]
+
+
+def _family_batch(cfg, toks, seed):
+    """tokens / labels and the family's stub input (``frames`` or
+    ``patches``, standard normal float32, as ``tests/test_models.py``
+    makes them), as numpy."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": toks, "labels": toks}
+    name, rows = (("frames", cfg.enc_seq) if cfg.family == "encdec"
+                  else ("patches", cfg.n_patches))
+    b[name] = rng.standard_normal((toks.shape[0], rows, cfg.d_model)) \
+        .astype(np.float32)
+    return b
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_steps_match_jax(arch):
+    jcfg = j_reduced(j_get_config(arch))
+    cfg = reduced(get_config(arch))
+    kw = dict(global_batch=2, seq_len=32, lr=1e-3, warmup_steps=2,
+              total_steps=10, param_dtype="float32")
+    jtcfg, tcfg = JTrainConfig(**kw), TrainConfig(**kw)
+    jstate = j_init(jax.random.PRNGKey(0), jcfg, jtcfg)
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                   device="cpu")
+    start = [p.detach().clone() for p in state.params.parameters()]
+    jstep = jax.jit(j_make_train_step(jcfg, jtcfg, JShardingConfig()))
+    step = make_train_step(cfg, tcfg, ShardingConfig())
+    lr_sum = 0.0
+    for i in range(3):
+        nb = _family_batch(jcfg, _tokens(jcfg.vocab, (2, 32), 10 + i), i)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in nb.items()})
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in nb.items()})
+        assert np.isfinite(float(m["loss"]))
+        assert abs(float(m["loss"]) / float(jm["loss"]) - 1) < 1e-4, i
+        assert abs(float(m["grad_norm"]) / float(jm["grad_norm"]) - 1) \
+            < 1e-4, i
+        lr_sum += float(m["lr"])
+        want = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                      device="cpu")
+        for (n, p), w in zip(state.params.named_parameters(),
+                             want.params.parameters()):
+            w = w.detach()
+            err = (p.detach() - w).abs()
+            assert float(err.max()) <= 2 * lr_sum, (i, n)
+            assert float((err > 1e-3 * float(w.abs().max())).float()
+                         .mean()) <= 1e-4, (i, n)
+    assert state.step == int(jstate.step) == 3
+    moved = sum(float((p.detach() - q).abs().sum())
+                for p, q in zip(state.params.parameters(), start))
+    assert moved > 0
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_synthetic_batches_carry_frames_and_patches(arch):
+    """``batch_at`` adds the family's float32 stub input, 0.02 · N(0, 1)
+    from the step's generator: a pure function of (seed, step), and its
+    batch specs say the same shapes; the trainer takes the batches as
+    they come."""
+    cfg = reduced(get_config(arch))
+    name, rows = (("frames", cfg.enc_seq) if cfg.family == "encdec"
+                  else ("patches", cfg.n_patches))
+    data = SyntheticLM(cfg, 4, 32, seed=3, device="cpu")
+    b = data.batch_at(17)
+    assert set(b) == {"tokens", "labels", name}
+    x = b[name]
+    assert x.dtype == torch.float32 and x.shape == (4, rows, cfg.d_model)
+    assert 0.015 < float(x.std()) < 0.025
+    assert torch.equal(x, SyntheticLM(cfg, 4, 32, seed=3,
+                                      device="cpu").batch_at(17)[name])
+    assert torch.equal(b["tokens"], SyntheticLM(
+        cfg, 4, 32, seed=3, device="cpu").batch_at(17)["tokens"])
+    assert not torch.equal(x, data.batch_at(18)[name])
+    assert not torch.equal(x, SyntheticLM(cfg, 4, 32, seed=4,
+                                          device="cpu").batch_at(17)[name])
+    spec = batch_specs(cfg, 4, 32)[name]
+    assert spec.is_meta and spec.shape == x.shape and spec.dtype == x.dtype
+    # the tokens are those of a family without stub inputs
+    plain = reduced(get_config("smollm-360m"), vocab=cfg.vocab)
+    assert torch.equal(b["tokens"], SyntheticLM(
+        plain, 4, 32, seed=3, device="cpu").batch_at(17)["tokens"])
+    tcfg = TrainConfig(global_batch=4, seq_len=32, total_steps=2,
+                       param_dtype="float32", microbatches=2)
+    state = init_train_state(cfg, tcfg, device="cpu")
+    state, m = make_train_step(cfg, tcfg, ShardingConfig())(state, b)
+    assert np.isfinite(float(m["loss"])) and state.step == 1
