@@ -7,7 +7,8 @@ serve two decoder LMs (prefill + greedy decode) at their published
 width and depth, an encoder-decoder (whisper-small) and a VLM
 (internvl2-1b) at theirs, and a mixture-of-experts LM (mixtral-8x7b) at
 its published width, as deep as the card holds, and train the two
-decoder LMs, with delta checkpoints and a recovery.
+decoder LMs, with delta checkpoints and a recovery, the encoder-decoder,
+VLM and MoE LMs, and the dense LM on a ``DeviceMesh``.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -148,10 +149,11 @@ Phases, in order (any failure exits non-zero):
    into a delta store (a temporary root) with one injected failure at
    step 3: the state restored at the failure must equal the state saved
    there, and the final state the uninterrupted run's, bit for bit;
-   printed: storage bytes, save and restore seconds.  (d) both models,
-   2 layers at full width, float32, 2 × 256 tokens, 3 steps on the
-   card and on the CPU from the same initial state: per-step loss and
-   grad norm within the tolerance printed.
+   printed: storage bytes, save and restore seconds; 12 of mamba2's 24
+   layers (``RECOVERY_LAYERS``).  (d) both models, 2 layers at full
+   width, float32, 2 × 256 tokens, 3 steps on the card and on the CPU
+   from the same initial state: per-step loss and grad norm within the
+   tolerance printed.
 
 12. serving driver — ``repro_torch.launch.serve.main`` (the paper's
    workload driver, ``--nodes 8192 --queries 1024 --seed 7``: the
@@ -196,8 +198,8 @@ Phases, in order (any failure exits non-zero):
    that is gone once the earlier ones are pinned follows from them).
    The re-run with every judged flip pinned is held to the step's
    tolerance, and an unpinned re-run must give the step's logits bit
-   for bit.  In float32 (2 layers at full width) no flip at all and
-   every step within ``F32_CARD_CPU_RTOL``.  (d) those 2 float32 layers on
+   for bit.  In float32 (1 layer at full width) no flip at all and
+   every step within ``F32_CARD_CPU_RTOL``.  (d) that float32 layer on
    the card and on the CPU at the published capacity, one prompt of 256
    tokens and 32 steps: logits within ``F32_CARD_CPU_RTOL``, the same
    greedy tokens, and every MoE call's top-k, keep mask and slots equal.
@@ -238,9 +240,33 @@ Phases, in order (any failure exits non-zero):
    prefill and 8 decode steps, beside the card's name and power limit;
    the verdict is ``family_failures``, read after phase 11.
 
+15. training every family and the dense LM on a mesh — (a)
+   whisper-small (8 × 448 tokens over 8 × 1500 float32 frames from
+   ``SyntheticLM``: its encoder and cross-attention run in float32
+   under bf16 params, as JAX promotes), internvl2-1b (8 × 2048 tokens
+   after 256 patches) and mixtral-8x7b (8 × 2048 tokens, capacity factor
+   1.25, published width, as deep as ``moe_train_depth`` reckons from
+   the card's free memory, printed) through ``launch.train.train`` as
+   phase 11 (a), bf16 params, 6 steps: flash attention twice a call a
+   step (forward and remat's recompute: whisper 2 × 36, internvl2 2 ×
+   24, mixtral 2 × layers), no plain attention forward, the plain
+   version once a call a step (B5's backward); (b) the three at 2
+   layers of published width (whisper 2 + 2; mixtral 1, its ~27 GB of
+   float32 state a side, the host's free memory printed first), float32
+   card vs CPU as phase 11 (d), for mixtral also step 1's routes: a
+   token routed differently must be a near-tie (``route_flip``); (c) a
+   (data n, model 1) ``DeviceMesh`` over the n visible cards under NCCL,
+   one process a card (``--mesh-child``): smollm-360m at published size
+   through ``train(mesh=)``, B5 64 times a step, its step against phase
+   11's; 2 float32 layers mesh vs plain within 1e-4; ``compressed_psum``
+   over the data dimension bit-equal to its numpy form; a delta-store
+   save and ``reshard_from_checkpoint`` bit-equal.  Verdicts
+   ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
+   the end.
+
 Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
-phase 14 runs after phases 5 and 6, phase 13 after phase 14, and phase
-11 runs last.
+phase 14 runs after phases 5 and 6, phase 13 after phase 14, phase 11
+after them, and phase 15 last.
 ``main`` sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
 before the first CUDA allocation, so that memory earlier phases freed
 can hold phase 13's model.
@@ -331,6 +357,9 @@ PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
 # the card and on the CPU
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
 CKPT_EVERY, CKPT_FAIL_AT = 2, 3
+# (c) trains 12 of mamba2's 24 layers: the whole script stays near 850 s
+# with phase 15 (24 layers took ~65 s)
+RECOVERY_LAYERS = 12
 CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
 CHECK_TRAIN_STEPS = 3
 # float32 training on the card against the CPU: per step, |Δ loss| /
@@ -1151,7 +1180,7 @@ def ssd_case(randn, b, s, h, p, n, chunk, with_state0: bool) -> dict:
 def lm_kernel_cases(seed: int):
     """Flash attention and the SSD scan on seeded random inputs: the
     main-path shape of each first (smollm-360m / mamba2-130m prefill),
-    then flash attention at the shapes phases 13 and 14 give it and the
+    then flash attention at the shapes phases 13, 14 and 15 give it and the
     other head dims and masks it takes, and the scan continuing a
     cache."""
     import torch
@@ -1177,6 +1206,12 @@ def lm_kernel_cases(seed: int):
          None),                                       # whisper decoder self
         (LM_BATCH, 14, 2, 256 + LM_PROMPT, 256 + LM_PROMPT, 64, bf16, True,
          None, None),                                 # internvl2-1b prefill
+        (LM_BATCH, 12, 12, 1500, 1500, 64, f32, False, None,
+         None),                       # whisper encoder, training: f32 frames
+        (LM_BATCH, 12, 12, WHISPER_TEXT_CTX, 1500, 64, f32, False, None,
+         None),                                       # whisper cross, training
+        (LM_BATCH, 12, 12, WHISPER_TEXT_CTX, WHISPER_TEXT_CTX, 64, bf16,
+         True, None, None),                           # whisper self, training
         (1, 8, 1, 512, 512, 256, bf16, True, None, None),    # gemma-2b heads
         (1, 8, 2, 1000, 1000, 128, f32, True, 256, None),    # sliding window
         (1, 8, 2, 1000, 1000, 128, bf16, True, 256, None),
@@ -3192,8 +3227,9 @@ MOE_TRANSIENT_BYTES = 8 * 2 ** 30
 # more than this still allocated when phase 13 starts fails it: a model
 # of ~70 GB needs the memory that earlier phases held
 MOE_START_ALLOCATED = 2 * 2 ** 30
-# (c)'s float32 half and (d): 2 layers at full width, 11.6 GB in float32
-MOE_F32_LAYERS = 2
+# (c)'s float32 half and (d): 1 layer at full width, 5.8 GB in float32
+# (its CPU half sets the phase's time: 2 layers took ~50 s)
+MOE_F32_LAYERS = 1
 
 
 def moe_weight_bytes(cfg) -> int:
@@ -3752,11 +3788,35 @@ def train_configs(cfg, batch: int, seq: int, steps: int, param_dtype=None):
                        warmup_steps=1, param_dtype=dtype), ShardingConfig()
 
 
+def attention_calls(cfg, seq: int) -> list[dict]:
+    """Flash attention's calls in one training forward at ``seq`` tokens,
+    one dict a shape with its count: every attention layer of a decoder
+    (a vlm's over its patches and tokens); an encoder-decoder's encoder
+    (full), decoder self (causal) and cross-attention (full, ``seq``
+    against the frames).  ``f32``: the call runs in float32 whatever the
+    params, as JAX promotes float32 frames (encoder and cross)."""
+    hd, hq, hkv = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
+    if cfg.family == "encdec":
+        e = cfg.enc_seq
+        return [dict(count=cfg.n_enc_layers, hq=hq, hkv=hkv, sq=e, skv=e,
+                     d=hd, causal=False, window=None, f32=True),
+                dict(count=cfg.n_layers, hq=hq, hkv=hkv, sq=seq, skv=seq,
+                     d=hd, causal=True, window=cfg.window, f32=False),
+                dict(count=cfg.n_layers, hq=hq, hkv=hkv, sq=seq, skv=e,
+                     d=hd, causal=False, window=None, f32=True)]
+    s = seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+    return [dict(count=cfg.n_layers, hq=hq, hkv=hkv, sq=s, skv=s, d=hd,
+                 causal=True, window=cfg.window, f32=False)]
+
+
 def launches_per_step(cfg, scfg) -> int:
-    """A training step's launches of the model's kernel: one a layer in
-    the forward, and one more a layer where ``remat`` recomputes each
-    group in the backward (the backward itself is the plain version)."""
-    return cfg.n_layers * (1 if scfg.remat == "none" else 2)
+    """A training step's launches of the model's kernel: one a call in
+    the forward (the SSM: one a layer; attention: ``attention_calls``),
+    and one more a call where ``remat`` recomputes each group or layer in
+    the backward (the backward itself is the plain version)."""
+    calls = (cfg.n_layers if cfg.family == "ssm"
+             else sum(c["count"] for c in attention_calls(cfg, 1)))
+    return calls * (1 if scfg.remat == "none" else 2)
 
 
 def step_split(cfg, tcfg, scfg, state, batch) -> dict:
@@ -3788,10 +3848,13 @@ def step_split(cfg, tcfg, scfg, state, batch) -> dict:
         ("optimizer", optimizer))}
 
 
-def plain_backward_ms(cfg, batch: int, seq: int, seed: int) -> float:
-    """Card ms of the backward of one layer's kernel call at the
-    training shape — what the kernel's ``autograd.Function`` runs: the
-    plain version again, under autograd (CUDA events)."""
+def plain_backward_ms(cfg, batch: int, seq: int, seed: int,
+                      param_dtype: str = "bfloat16") -> float:
+    """Card ms of the backward of one training step's kernel calls —
+    what the kernel's ``autograd.Function`` runs: the plain version
+    again, under autograd (CUDA events), once a shape
+    (``attention_calls``) times its count; the SSM: one layer's call
+    times the layers."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -3801,49 +3864,80 @@ def plain_backward_ms(cfg, batch: int, seq: int, seed: int) -> float:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype).requires_grad_()
-    if cfg.family == "ssm":
-        h, p, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state
-        x, b, c = (randn(batch, seq, h, p), randn(batch, seq, n),
-                   randn(batch, seq, n))
-        dt = (torch.nn.functional.softplus(randn(batch, seq, h)) * 0.1
-              ).detach().requires_grad_()
-        a = (-torch.linspace(1.0, 16.0, h, device="cuda")).requires_grad_()
-        ins = (x, dt, a, b, c)
+    if cfg.family != "ssm":
+        total = 0.0
+        for c in attention_calls(cfg, seq):
+            dt = (torch.float32 if c["f32"] or param_dtype == "float32"
+                  else torch.bfloat16)
+            q = randn(batch, c["hq"], c["sq"], c["d"], dtype=dt)
+            k, v = (randn(batch, c["hkv"], c["skv"], c["d"], dtype=dt)
+                    for _ in range(2))
 
-        def run():
-            y, st = ssd_chunked(*ins, cfg.ssm_chunk)
-            torch.autograd.grad((y, st), ins, (torch.ones_like(y),
-                                               torch.ones_like(st)))
-    else:
-        q = randn(batch, cfg.n_heads, seq, cfg.hd(), dtype=torch.bfloat16)
-        k, v = (randn(batch, cfg.n_kv_heads, seq, cfg.hd(),
-                      dtype=torch.bfloat16) for _ in range(2))
+            def run():
+                out = attention_ref(q, k, v, causal=c["causal"],
+                                    window=c["window"], scale=c["d"] ** -0.5)
+                torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+            total += c["count"] * cuda_ms(run, 3)[0]
+            del q, k, v
+            torch.cuda.empty_cache()
+        return total
+    h, p, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state
+    x, b, c = (randn(batch, seq, h, p), randn(batch, seq, n),
+               randn(batch, seq, n))
+    dt = (torch.nn.functional.softplus(randn(batch, seq, h)) * 0.1
+          ).detach().requires_grad_()
+    a = (-torch.linspace(1.0, 16.0, h, device="cuda")).requires_grad_()
+    ins = (x, dt, a, b, c)
 
-        def run():
-            out = attention_ref(q, k, v, causal=True, window=cfg.window,
-                                scale=cfg.hd() ** -0.5)
-            torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
-    return cuda_ms(run, 3)[0]
+    def run():
+        y, st = ssd_chunked(*ins, cfg.ssm_chunk)
+        torch.autograd.grad((y, st), ins, (torch.ones_like(y),
+                                           torch.ones_like(st)))
+    return cfg.n_layers * cuda_ms(run, 3)[0]
+
+
+class counting:
+    """Counts the calls of ``module.<name>`` inside the block (the
+    module's own calls by that global name included)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
 
 
 def phase_train(cfg, kernel: str, seed: int, device="cuda",
                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                steps: int = TRAIN_STEPS) -> dict:
-    """Phase 11 (a) / (b): train ``cfg`` through
+                steps: int = TRAIN_STEPS, param_dtype=None) -> dict:
+    """Phase 11 (a) / (b) and 15 (a): train ``cfg`` through
     ``repro_torch.launch.train.train`` for ``steps`` steps.  First the
     first step's gradients (``make_grad_fn`` on the same initial state
     and batch), every parameter's read; then the main path, counters
-    zeroed just before it and read just after; on the card also one
-    step's device split and the plain backward's share.  The verdict is
-    ``train_failures``."""
+    zeroed just before it and read just after — with the calls of the
+    plain attention forward (``attention._sdpa``, decode's) and of the
+    plain version B5's backward runs (``attention_ref``) counted; on
+    the card also one step's device split and the plain backward's
+    share.  The verdict is ``train_failures``."""
     import torch
 
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.train import train
+    from repro_torch.models import attention
     from repro_torch.runtime import init_train_state, make_grad_fn
 
-    tcfg, scfg = train_configs(cfg, batch, seq, steps)
+    tcfg, scfg = train_configs(cfg, batch, seq, steps, param_dtype)
     on_card = torch.device(device).type == "cuda"
     res = dict(arch=cfg.name, n_layers=cfg.n_layers, kernel=kernel,
                batch=batch, seq=seq, steps=steps,
@@ -3867,10 +3961,15 @@ def phase_train(cfg, kernel: str, seed: int, device="cuda",
         torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
-    state, hist, _ = train(cfg, tcfg, scfg, device=device, log_every=1)
-    _sync(device)
+    with counting(attention, "_sdpa") as fwd, \
+            counting(flash_ops, "attention_ref") as bwd:
+        state, hist, _ = train(cfg, tcfg, scfg, device=device, log_every=1)
+        _sync(device)
     res["train_s"] = time.perf_counter() - t0
     res["launches"] = dict(build.LAUNCHES)
+    if kernel == "flash_attention":
+        res["plain_forward"], res["plain_backward_calls"] = \
+            fwd.calls, bwd.calls
     res["loss"] = hist.rows["loss"]
     res["grad_norm"] = hist.rows["grad_norm"]
     res["step_s"] = [ms / 1e3 for ms in hist.rows["step_ms"]]
@@ -3881,12 +3980,52 @@ def phase_train(cfg, kernel: str, seed: int, device="cuda",
         del state
         torch.cuda.empty_cache()
         res["plain_backward_ms"] = uncounted(
-            lambda: plain_backward_ms(cfg, batch, seq, seed))
+            lambda: plain_backward_ms(cfg, batch, seq, seed,
+                                      tcfg.param_dtype))
         warm = sorted(res["step_s"][1:]) or res["step_s"]
-        res["plain_backward_share"] = (res["plain_backward_ms"]
-                                       * cfg.n_layers / 1e3
+        res["plain_backward_share"] = (res["plain_backward_ms"] / 1e3
                                        / warm[len(warm) // 2])
     return res
+
+
+def warm_median(step_s: list) -> float:
+    warm = sorted(step_s[1:]) or step_s
+    return warm[len(warm) // 2]
+
+
+def train_lines(r: dict, smi: str = "") -> list:
+    """A training run's printed lines (phases 11 (a) / (b), 15 (a)): its
+    step seconds, device split, peak memory, launches, loss and grad
+    norm, the plain backward's share, and the profile of each part."""
+    k, sp = r["kernel"], r["split"]
+    tokens = r["batch"] * r["seq"]
+    lines = [
+        f"train {r['arch']}: {r['n_layers']} layers, {r['param_dtype']} "
+        f"params, remat {r['remat']}, {r['batch']}x{r['seq']} tokens a "
+        f"step; step s " + ", ".join(f"{x:.4f}" for x in r["step_s"])
+        + f" (warm median {warm_median(r['step_s']):.4f}, "
+        f"{tokens / warm_median(r['step_s']):.0f} tokens/s); "
+        f"device s a step: forward {sp['forward']['device_s']:.4f}, "
+        f"backward {sp['backward']['device_s']:.4f}, optimizer "
+        f"{sp['optimizer']['device_s']:.4f}; peak {r['peak_gib']:.2f} GiB; "
+        f"{k} launches: first step {r['grad_launches'].get(k, 0)}, "
+        f"{r['steps']} steps {r['launches'].get(k, 0)} (want "
+        f"{r['per_step']} a step); loss "
+        + ", ".join(f"{x:.4f}" for x in r["loss"]) + "; grad norm "
+        + ", ".join(f"{x:.4g}" for x in r["grad_norm"])
+        + f"; plain backward of a step's {k} calls "
+        f"{r['plain_backward_ms']:.3f} ms = "
+        f"{r['plain_backward_share']:.3f} of a warm step"
+        + (f"; plain forward calls {r['plain_forward']}, plain backward "
+           f"calls {r['plain_backward_calls']}" if "plain_forward" in r
+           else "") + (f"  [{smi}]" if smi else "")]
+    for part, pr in sp.items():
+        lines.append(
+            f"train {r['arch']} profile, {part}: wall {pr['wall_s']:.4f} s, "
+            f"device {pr['device_s']:.4f} s, busy {pr['busy']:.3f}; top "
+            + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in
+                        pr["top_ms"]))
+    return lines
 
 
 def train_failures(res: dict) -> list:
@@ -3911,6 +4050,15 @@ def train_failures(res: dict) -> list:
                    f"{res['grad_norm']}")
     if len(res["loss"]) != res["steps"]:
         bad.append(f"{len(res['loss'])} steps logged of {res['steps']}")
+    if res.get("plain_forward"):
+        bad.append(f"the plain attention forward ran {res['plain_forward']} "
+                   "times")
+    # one plain backward a forward call: B5's autograd.Function
+    calls = res["steps"] * per // (2 if res.get("remat") != "none" else 1)
+    if "plain_backward_calls" in res and \
+            res["plain_backward_calls"] != calls:
+        bad.append(f"the plain version ran {res['plain_backward_calls']} "
+                   f"times, want {calls} (one a forward call's backward)")
     return bad
 
 
@@ -4047,36 +4195,122 @@ def recovery_failures(res: dict) -> list:
     return bad
 
 
+def step1_router_logits(state, cfg, tcfg, device) -> dict:
+    """Every MoE layer's router logits [T, E] (on the host) in the
+    forward of training step 1 from ``state``, over step 0's batch."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.models.moe import route
+    batch = SyntheticLM(cfg, tcfg.global_batch, tcfg.seq_len, seed=tcfg.seed,
+                        device=device).batch_at(0)
+    seen = {}
+
+    def read(layer, mod, x):
+        if layer not in seen:
+            seen[layer] = route(mod, x.reshape(-1, x.shape[-1]),
+                                cfg).logits.float().cpu()
+    with torch.no_grad(), moe_inputs(state.params, read):
+        api.loss_fn(state.params, batch, cfg)
+    return seen
+
+
+def step1_route_flips(card: dict, cpu: dict, k: int) -> list:
+    """Each token whose top-k experts differ between the card's and the
+    CPU's router logits, judged by C7's near-tie test (``route_flip``,
+    the CPU in the forward's place)."""
+    flips = []
+    for layer in sorted(cpu):
+        for t in range(cpu[layer].shape[0]):
+            f = route_flip(card[layer][t], cpu[layer][t], k)
+            if f:
+                flips.append(dict(layer=layer, token=t, **f))
+    return flips
+
+
 def phase_train_card_cpu(cfg, seed: int, device="cuda",
                          batch: int = CHECK_TRAIN_BATCH,
                          seq: int = CHECK_TRAIN_SEQ,
                          steps: int = CHECK_TRAIN_STEPS) -> dict:
-    """Phase 11 (d): ``cfg`` in float32 trained ``steps`` steps on
-    ``device`` and on the CPU from the same initial state (drawn from
-    the seeded CPU generator that ``init_train_state`` uses, and read
-    bit-equal on both devices): per-step loss and grad norm, as
-    relative differences."""
+    """Phase 11 (d) / 15 (b): ``cfg`` in float32 trained ``steps`` steps
+    (``make_train_step`` over ``SyntheticLM``'s batches, as
+    ``launch.train.train`` runs them) on ``device`` and on the CPU from
+    the same initial parameters (drawn from the seeded CPU generator
+    that ``init_train_state`` uses, and read bit-equal on both devices):
+    per-step loss and grad norm, as relative differences; for the MoE
+    family also step 1's routes on both (``step1_route_flips``).  The
+    verdict is ``card_cpu_failures``."""
     from repro_torch.checkpoint import io
+    from repro_torch.data import SyntheticLM
     from repro_torch.kernels import build
-    from repro_torch.launch.train import train
-    from repro_torch.runtime import init_train_state
+    from repro_torch.runtime import init_train_state, make_train_step
 
     tcfg, scfg = train_configs(cfg, batch, seq, steps, "float32")
-    init_differing = differing_arrays(
-        io.raw_arrays(init_train_state(cfg, tcfg, device=device)),
-        io.raw_arrays(init_train_state(cfg, tcfg, device="cpu")))
-    build.reset_launches()
-    _, on_card, _ = train(cfg, tcfg, scfg, device=device, log_every=1)
-    _sync(device)
-    launches = dict(build.LAUNCHES)
-    _, on_cpu, _ = train(cfg, tcfg, scfg, device="cpu", log_every=1)
+    states = {dev: init_train_state(cfg, tcfg, device=dev)
+              for dev in (device, "cpu")}
+    init_differing = differing_arrays(io.raw_arrays(states[device].params),
+                                      io.raw_arrays(states["cpu"].params))
+    flips = None
+    if cfg.family == "moe":
+        logits = {dev: step1_router_logits(st, cfg, tcfg, dev)
+                  for dev, st in states.items()}
+        flips = step1_route_flips(logits[device], logits["cpu"], cfg.top_k)
+    rows = {}
+    for dev, state in states.items():
+        build.reset_launches()
+        step = make_train_step(cfg, tcfg, scfg)
+        data = SyntheticLM(cfg, batch, seq, seed=tcfg.seed, device=dev)
+        rows[dev] = {"loss": [], "grad_norm": []}
+        for i in range(steps):
+            state, m = step(state, data.batch_at(i))
+            for k in rows[dev]:
+                rows[dev][k].append(float(m[k]))
+        if dev == device:
+            launches = dict(build.LAUNCHES)
+        states[dev] = None
     rel = {m: [abs(a - b) / max(abs(b), 1e-30)
-               for a, b in zip(on_card.rows[m], on_cpu.rows[m])]
+               for a, b in zip(rows[device][m], rows["cpu"][m])]
            for m in ("loss", "grad_norm")}
-    return dict(arch=cfg.name, n_layers=cfg.n_layers, launches=launches,
-                init_differing=init_differing,
-                loss_card=on_card.rows["loss"], loss_cpu=on_cpu.rows["loss"],
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
+                steps=steps, launches=launches,
+                init_differing=init_differing, route_flips=flips,
+                loss_card=rows[device]["loss"], loss_cpu=rows["cpu"]["loss"],
                 rel=rel, max_rel=max(max(v) for v in rel.values()))
+
+
+def card_cpu_failures(r: dict) -> list:
+    """Phase 11 (d) / 15 (b)'s verdict on ``phase_train_card_cpu``."""
+    bad = []
+    if r["init_differing"]:
+        bad.append(f"initial parameters differ in {r['init_differing'][:5]}")
+    if not r["max_rel"] <= F32_TRAIN_CARD_CPU_RTOL:
+        bad.append(f"float32 card and CPU disagree: {r['rel']}")
+    far = [f for f in r.get("route_flips") or [] if not f["near_tie"]]
+    if far:
+        bad.append(f"{len(far)} step-1 route flips are no near-tie: "
+                   f"{far[:3]}")
+    return bad
+
+
+def card_cpu_line(r: dict) -> str:
+    flips = r.get("route_flips")
+    return (f"train {r['arch']}: float32 card vs CPU, {r['n_layers']} "
+            f"layers, {r['batch']}x{r['seq']}, {r['steps']} steps: loss card "
+            + ", ".join(f"{x:.6f}" for x in r["loss_card"]) + " / CPU "
+            + ", ".join(f"{x:.6f}" for x in r["loss_cpu"])
+            + "; rel err loss " + ", ".join(f"{x:.3g}" for x in
+                                           r["rel"]["loss"])
+            + ", grad norm " + ", ".join(f"{x:.3g}" for x in
+                                         r["rel"]["grad_norm"])
+            + f" (tolerance {F32_TRAIN_CARD_CPU_RTOL:.3g}); initial "
+            f"parameters bit-equal: {not r['init_differing']}"
+            + ("" if flips is None else
+               f"; step-1 route flips {len(flips)} (gap, delta: "
+               + ", ".join(f"{f['gap']:.4g} <= {f['delta']:.4g}"
+                           if f["near_tie"] else
+                           f"{f['gap']:.4g} > {f['delta']:.4g}"
+                           for f in flips[:8]) + ")"))
 
 
 def phase_training(layers: int, seed: int) -> dict:
@@ -4093,31 +4327,8 @@ def phase_training(layers: int, seed: int) -> dict:
         t0 = time.perf_counter()
         r = phase_train(cfg, kernel, seed)
         r["phase_s"] = time.perf_counter() - t0
-        sp = r["split"]
-        warm = r["step_s"][1:]
-        print(f"train {arch}: {cfg.n_layers} layers, {r['param_dtype']} "
-              f"params, remat {r['remat']}, {TRAIN_BATCH}x{TRAIN_SEQ} "
-              f"tokens a step; step s "
-              + ", ".join(f"{x:.4f}" for x in r["step_s"])
-              + f" (warm median {sorted(warm)[len(warm) // 2]:.4f}); "
-              f"device s a step: forward {sp['forward']['device_s']:.4f}, "
-              f"backward {sp['backward']['device_s']:.4f}, optimizer "
-              f"{sp['optimizer']['device_s']:.4f}; peak "
-              f"{r['peak_gib']:.2f} GiB; {kernel} launches: first step "
-              f"{r['grad_launches'][kernel]}, {r['steps']} steps "
-              f"{r['launches'][kernel]} (want {r['per_step']} a step); "
-              f"loss " + ", ".join(f"{x:.4f}" for x in r["loss"])
-              + "; grad norm " + ", ".join(f"{x:.4g}" for x in
-                                          r["grad_norm"])
-              + f"; plain backward of one {kernel} call "
-              f"{r['plain_backward_ms']:.3f} ms, x{cfg.n_layers} = "
-              f"{r['plain_backward_share']:.3f} of a warm step", flush=True)
-        for part, pr in sp.items():
-            print(f"train {arch} profile, {part}: wall {pr['wall_s']:.4f} s,"
-                  f" device {pr['device_s']:.4f} s, busy {pr['busy']:.3f}; "
-                  "top " + "; ".join(f"{k} {ms:.2f} ms x{n}"
-                                     for k, ms, n in pr["top_ms"]),
-                  flush=True)
+        for line in train_lines(r):
+            print(line, flush=True)
         bad = train_failures(r)
         if bad:
             raise AssertionError(f"train {arch}: " + "; ".join(bad))
@@ -4125,7 +4336,8 @@ def phase_training(layers: int, seed: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    cfg = lm_config("mamba2-130m", layers)
+    cfg = lm_config("mamba2-130m", min(layers or RECOVERY_LAYERS,
+                                       RECOVERY_LAYERS))
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         t0 = time.perf_counter()
@@ -4154,23 +4366,355 @@ def phase_training(layers: int, seed: int) -> dict:
     out["card_cpu"] = {}
     for arch in ("smollm-360m", "mamba2-130m"):
         r = phase_train_card_cpu(lm_config(arch, CHECK_TRAIN_LAYERS), seed)
-        print(f"train {arch}: float32 card vs CPU, {CHECK_TRAIN_LAYERS} "
-              f"layers, {CHECK_TRAIN_BATCH}x{CHECK_TRAIN_SEQ}, "
-              f"{CHECK_TRAIN_STEPS} steps: loss card "
-              + ", ".join(f"{x:.6f}" for x in r["loss_card"]) + " / CPU "
-              + ", ".join(f"{x:.6f}" for x in r["loss_cpu"])
-              + "; rel err loss " + ", ".join(f"{x:.3g}" for x in
-                                             r["rel"]["loss"])
-              + ", grad norm " + ", ".join(f"{x:.3g}" for x in
-                                           r["rel"]["grad_norm"])
-              + f" (tolerance {F32_TRAIN_CARD_CPU_RTOL:.3g}); initial "
-              f"states bit-equal: {not r['init_differing']}", flush=True)
-        if r["init_differing"] or not r["max_rel"] <= F32_TRAIN_CARD_CPU_RTOL:
-            raise AssertionError(f"train {arch}: float32 card and CPU "
-                                 f"disagree: {r['rel']}, initial states "
-                                 f"differ in {r['init_differing'][:5]}")
+        print(card_cpu_line(r), flush=True)
+        bad = card_cpu_failures(r)
+        if bad:
+            raise AssertionError(f"train {arch}: " + "; ".join(bad))
         out["card_cpu"][arch] = r
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: every served family trains on the card; the dense LM on a mesh
+
+# (a): whisper-small's decoder at Whisper's text context over its 1500
+# frames, internvl2-1b at 2048 tokens after its 256 patches, mixtral at
+# 2048 tokens; bf16 params
+FAMILY_TRAIN = (("whisper-small", WHISPER_TEXT_CTX),
+                ("internvl2-1b", TRAIN_SEQ))
+# (a) mixtral's depth: bf16 param and gradient, float32 moments
+MOE_TRAIN_BYTES_PER_PARAM = 12
+# a step's memory beside the state: the plain attention backward at (8,
+# 32, 2048², float32) holds a few 4.3 GB score-sized tensors, the logits
+# and their gradient 2 × 2.1 GB, AdamW's float32 temporaries of one 470
+# M-entry expert stack ~9.4 GB (one part at a time)
+MOE_TRAIN_TRANSIENT_BYTES = 24 * 2 ** 30
+# the outputs remat="block" keeps, a layer: 8 experts' [5120, 14336] gate
+# and up and [5120, 4096] down products and the q / k / v / o projections,
+# bf16
+MOE_TRAIN_SAVED_BYTES_PER_LAYER = 3 * 10 ** 9
+# (b): 2 layers of whisper-small (2 + 2) and internvl2-1b, 1 of mixtral,
+# at published width
+FAMILY_CHECK_LAYERS = {"whisper-small": 2, "internvl2-1b": 2,
+                       MOE_ARCH: 1}
+# (c): smollm-360m at published size on the mesh; 2 float32 layers, 8 ×
+# 256 tokens, 3 steps, mesh against the plain step within the
+# reference's own bound (test_distributed.py:496-499)
+MESH_ARCH, MESH_CHECK_SEQ, MESH_ATOL = "smollm-360m", 256, 1e-4
+MESH_CHILD_TIMEOUT_S = 900
+
+
+def moe_train_params(cfg) -> int:
+    """``cfg``'s parameter count (router included)."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    attn = d * cfg.hd() * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    layer = attn + 2 * d + 3 * e * d * f + d * e
+    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return cfg.n_layers * layer + embed + d
+
+
+def moe_train_depth(cfg, free_bytes: int, override: int = 0) -> tuple:
+    """Phase 15 (a)'s mixtral depth and its reckoning, as printed: the
+    deepest n (down from the published depth) whose training state at
+    MOE_TRAIN_BYTES_PER_PARAM, kept products and MOE_TRAIN_TRANSIENT_BYTES
+    fit ``free_bytes``; ``override`` (``--lm-layers``) if given.  The
+    width and the experts are never cut."""
+    import dataclasses
+
+    def need(n):
+        c = dataclasses.replace(cfg, n_layers=n)
+        return (MOE_TRAIN_BYTES_PER_PARAM * moe_train_params(c)
+                + n * MOE_TRAIN_SAVED_BYTES_PER_LAYER
+                + MOE_TRAIN_TRANSIENT_BYTES)
+    n = override or cfg.n_layers
+    while not override and n > 1 and need(n) > free_bytes:
+        n -= 1
+    if override:
+        return n, f"{n} of {cfg.n_layers} layers (--lm-layers)"
+    embed = moe_train_params(dataclasses.replace(cfg, n_layers=0))
+    layer = moe_train_params(dataclasses.replace(cfg, n_layers=1)) - embed
+    return n, (f"{n} of {cfg.n_layers} layers (a layer {layer:,} params, "
+               f"embeddings {embed:,}; {MOE_TRAIN_BYTES_PER_PARAM} B a "
+               f"param + {MOE_TRAIN_SAVED_BYTES_PER_LAYER / 1e9:.1f} GB kept "
+               f"a layer + {MOE_TRAIN_TRANSIENT_BYTES / 2 ** 30:.0f} GiB "
+               f"transient: {n} layers need {need(n) / 1e9:.1f} GB, "
+               f"{n + 1} need {need(n + 1) / 1e9:.1f} GB; free "
+               f"{free_bytes / 1e9:.1f} GB)")
+
+
+def family_check_config(arch: str):
+    """Phase 15 (b)'s cut of ``arch``: FAMILY_CHECK_LAYERS layers at
+    published width (an encoder-decoder: as many encoder layers)."""
+    import dataclasses
+    n = FAMILY_CHECK_LAYERS[arch]
+    cfg = lm_config(arch, n)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=n)
+    return cfg
+
+
+def host_free_gib() -> float:
+    """The host's available memory (``/proc/meminfo``), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def phase_family_training(layers: int, seed: int, smi: str) -> dict:
+    """Phase 15 (a) and (b): whisper-small, internvl2-1b and mixtral-8x7b
+    trained at published width (mixtral as deep as ``moe_train_depth``
+    reckons) and their float32 card-vs-CPU checks; the verdicts are
+    ``train_failures`` and ``card_cpu_failures``, collected."""
+    import torch
+    out, bad = {"train": {}, "card_cpu": {}}, []
+    for arch, seq in FAMILY_TRAIN + ((MOE_ARCH, TRAIN_SEQ),):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = lm_config(arch, layers)
+        if arch == MOE_ARCH:
+            n, cut = moe_train_depth(lm_config(arch, 0),
+                                     torch.cuda.mem_get_info()[0], layers)
+            print(f"train {arch}: depth {cut}", flush=True)
+            cfg = lm_config(arch, n)
+            out["moe_depth"] = dict(layers=n, cut=cut)
+        t0 = time.perf_counter()
+        r = phase_train(cfg, "flash_attention", seed, seq=seq,
+                        param_dtype="bfloat16")
+        r["phase_s"] = time.perf_counter() - t0
+        for line in train_lines(r, smi):
+            print(line, flush=True)
+        bad += [f"train {arch}: {b}" for b in train_failures(r)]
+        out["train"][arch] = r
+    for arch in FAMILY_CHECK_LAYERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train {arch}: float32 card vs CPU, host memory available "
+              f"{host_free_gib():.1f} GiB", flush=True)
+        t0 = time.perf_counter()
+        r = phase_train_card_cpu(family_check_config(arch), seed)
+        r["phase_s"] = time.perf_counter() - t0
+        print(card_cpu_line(r), flush=True)
+        bad += [f"train {arch}: {b}" for b in card_cpu_failures(r)]
+        out["card_cpu"][arch] = r
+    out["failures"] = bad
+    return out
+
+
+def mesh_checks(rank: int, world: int, init: str, seed: int,
+                device_type: str = "cuda", layers: int = 0,
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                steps: int = TRAIN_STEPS, check_layers: int = 2,
+                check_seq: int = MESH_CHECK_SEQ,
+                check_steps: int = CHECK_TRAIN_STEPS,
+                root: str | None = None, cfg=None) -> dict:
+    """Phase 15 (c) on one process of a (data ``world``, model 1) mesh
+    (``launch.mesh.make_test_mesh``; NCCL on the card, one process a
+    card): (1) smollm-360m (depth ``layers`` or the published one) in
+    bf16 through ``launch.train.train(mesh=)``, counters zeroed around
+    it; (2) ``check_layers`` float32 layers trained on the mesh and
+    plainly on the same device; (3) ``compressed_psum`` over the data
+    dimension of the mesh run's gradients; (4) the mesh state saved
+    through a delta store (``root``, this process's own) and
+    ``reshard_from_checkpoint`` onto the mesh.  ``cfg`` replaces
+    smollm-360m (a CPU rehearsal).  The verdict is ``mesh_failures``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import DeltaCheckpointStore, io
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import batch_sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.optim import compressed_psum
+    from repro_torch.runtime import (init_train_state, make_grad_fn,
+                                     reshard_from_checkpoint)
+    from repro_torch.runtime.elastic import place_tree
+    from repro_torch.sharding import mesh_context
+
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=init, rank=rank, world_size=world)
+    try:
+        mesh = make_test_mesh(world, 1, device_type=device_type)
+        dev = torch.device(device_type, rank) if device_type == "cuda" \
+            else torch.device("cpu")
+        res = dict(world=world, mesh=dict(zip(mesh.mesh_dim_names,
+                                              mesh.shape)))
+        full = cfg or lm_config(MESH_ARCH, layers)
+        tcfg, scfg = train_configs(full, batch, seq, steps, "bfloat16")
+        build.reset_launches()
+        t0 = time.perf_counter()
+        _, hist, _ = train(full, tcfg, scfg, device=dev, log_every=1,
+                           mesh=mesh)
+        _sync(dev)
+        res.update(arch=full.name, n_layers=full.n_layers, batch=batch,
+                   seq=seq, steps=steps, train_s=time.perf_counter() - t0,
+                   launches=dict(build.LAUNCHES),
+                   per_step=launches_per_step(full, scfg),
+                   loss=hist.rows["loss"], grad_norm=hist.rows["grad_norm"],
+                   step_s=[ms / 1e3 for ms in hist.rows["step_ms"]])
+
+        cfg = dataclasses.replace(full, n_layers=check_layers)
+        tcfg, scfg = train_configs(cfg, batch, check_seq, check_steps,
+                                   "float32")
+        meshed, mh, _ = train(cfg, tcfg, scfg, device=dev, log_every=1,
+                              mesh=mesh)
+        plain, ph, _ = train(cfg, tcfg, scfg, device=dev, log_every=1)
+        a, b = io.raw_arrays(meshed), io.raw_arrays(plain)
+        res["check"] = dict(
+            layers=check_layers, seq=check_seq, steps=check_steps,
+            loss_mesh=mh.rows["loss"], loss_plain=ph.rows["loss"],
+            loss_diff=max(abs(x - y) for x, y in
+                          zip(mh.rows["loss"], ph.rows["loss"])),
+            param_diff=max(float(np.abs(a[k].astype(np.float64)
+                                        - b[k].astype(np.float64)).max())
+                           for k in a if k.startswith("params/")),
+            bit_equal=not differing_arrays(a, b))
+        del plain, a, b
+
+        batch0 = SyntheticLM(cfg, batch, check_seq, seed=tcfg.seed,
+                             device=dev).batch_at(0)
+        with mesh_context(mesh):
+            _, grads = make_grad_fn(cfg, tcfg, scfg)(
+                meshed.params,
+                place_tree(batch0, batch_sharding(batch0, mesh)))
+            full = {n: g.full_tensor() for n, g in grads.items()}
+            errs = {n: torch.zeros_like(g) for n, g in full.items()}
+            tot, new_e = compressed_psum(full, errs, "data")
+        res["psum_differing"] = psum_differing(
+            {n: g.cpu().numpy() for n, g in full.items()},
+            {n: t.cpu().numpy() for n, t in tot.items()},
+            {n: t.cpu().numpy() for n, t in new_e.items()}, world)
+        del grads, full, errs, tot, new_e
+
+        store = DeltaCheckpointStore(root)
+        store.save(check_steps - 1, meshed)
+        saved = io.raw_arrays(meshed)
+        restored = reshard_from_checkpoint(
+            store, check_steps - 1,
+            init_train_state(cfg, tcfg, device=dev), mesh)
+        res["restore_differing"] = differing_arrays(
+            io.raw_arrays(restored), saved)
+        res["restore_on_mesh"] = all(
+            p.device_mesh == mesh for p in restored.params.parameters())
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def psum_differing(grads: dict, out: dict, new_err: dict,
+                   world: int) -> list:
+    """The leaves where ``compressed_psum`` of ``grads`` (the same on each
+    of ``world`` processes, zero error feedback) differs from the
+    reference's arithmetic in numpy: scale max|g| / 127 (1.0 if 0), the
+    int32 sum of ``world`` equal quantized copies, the residual."""
+    import numpy as np
+    f32 = np.float32
+    bad = []
+    for n, g in grads.items():
+        g = g.astype(f32)
+        a = f32(np.abs(g).max()) / f32(127.0)
+        a = a if a > 0 else f32(1.0)
+        gq = np.clip(np.round(g / a), -127, 127).astype(np.int32)
+        want = (gq * world).astype(f32) * a
+        err = g - gq.astype(f32) * a
+        if out[n].tobytes() != want.tobytes() or \
+                new_err[n].tobytes() != err.tobytes():
+            bad.append(n)
+    return bad
+
+
+def mesh_failures(res: dict, plain_step_s: float | None = None) -> list:
+    """Phase 15 (c)'s verdict on rank 0's ``mesh_checks``."""
+    bad = []
+    k, per = "flash_attention", res["per_step"]
+    if res["launches"].get(k, 0) != per * res["steps"]:
+        bad.append(f"the mesh run launched {k} {res['launches'].get(k, 0)} "
+                   f"times, want {per * res['steps']}")
+    others = {n: c for n, c in res["launches"].items() if n != k and c}
+    if others:
+        bad.append(f"the mesh run launched {others}")
+    if not all(math.isfinite(x) for x in res["loss"] + res["grad_norm"]):
+        bad.append(f"non-finite loss {res['loss']} or grad norm "
+                   f"{res['grad_norm']}")
+    c = res["check"]
+    if not (c["loss_diff"] <= MESH_ATOL and c["param_diff"] <= MESH_ATOL):
+        bad.append(f"float32 mesh and plain steps differ: loss "
+                   f"{c['loss_diff']:.3g}, parameters {c['param_diff']:.3g} "
+                   f"(bound {MESH_ATOL})")
+    if res["psum_differing"]:
+        bad.append(f"compressed_psum differs from the reference's "
+                   f"arithmetic in {res['psum_differing'][:5]}")
+    if res["restore_differing"] or not res["restore_on_mesh"]:
+        bad.append(f"reshard_from_checkpoint differs in "
+                   f"{res['restore_differing'][:5]} (on the mesh: "
+                   f"{res['restore_on_mesh']})")
+    return bad
+
+
+def mesh_line(res: dict, plain_step_s: float, smi: str) -> str:
+    c = res["check"]
+    ws = warm_median(res["step_s"])
+    return (f"train {res['arch']} on a mesh {res['mesh']} ({res['world']} "
+            f"process(es), NCCL): {res['n_layers']} layers, bf16, "
+            f"{res['batch']}x{res['seq']} tokens; step s "
+            + ", ".join(f"{x:.4f}" for x in res["step_s"])
+            + f" (warm median {ws:.4f}; plain step of phase 11 "
+            f"{plain_step_s:.4f}, x{ws / plain_step_s:.3f}); "
+            f"flash_attention {res['launches'].get('flash_attention', 0)} "
+            f"(want {res['per_step']} a step); loss "
+            + ", ".join(f"{x:.4f}" for x in res["loss"])
+            + f"; float32 {c['layers']} layers x {c['steps']} steps, mesh "
+            f"vs plain: loss {c['loss_diff']:.3g}, parameters "
+            f"{c['param_diff']:.3g} (bound {MESH_ATOL}), bit-equal "
+            f"{c['bit_equal']}; compressed_psum == numpy form: "
+            f"{not res['psum_differing']}; reshard_from_checkpoint "
+            f"bit-equal: {not res['restore_differing']}  [{smi}]")
+
+
+def mesh_child(rank: int, world: int, init: str, seed: int,
+               layers: int) -> int:
+    """A process of phase 15 (c)'s mesh beyond the first (``--mesh-child``:
+    one a card, started by rank 0)."""
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{rank}_")
+    try:
+        mesh_checks(rank, world, init, seed, layers=layers, root=root)
+        return 0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_mesh(seed: int, layers: int) -> dict:
+    """Phase 15 (c): a (data n, model 1) mesh over the n visible cards,
+    one process a card: this process is rank 0 and starts the others;
+    a ``file://`` rendezvous in a temporary directory."""
+    import torch
+    world = torch.cuda.device_count()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    init = f"file://{work}/rendezvous"
+    children = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child",
+         str(r), str(world), init, "--seed", str(seed), "--lm-layers",
+         str(layers)]) for r in range(1, world)]
+    try:
+        res = mesh_checks(0, world, init, seed, layers=layers,
+                          root=os.path.join(work, "ckpt"))
+        res["children"] = [p.wait(timeout=MESH_CHILD_TIMEOUT_S)
+                           for p in children]
+        return res
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4183,7 +4727,7 @@ def parse_args(argv=None):
     ap.add_argument("--edge-e-cap", type=int, default=1 << 21)
     ap.add_argument("--lm-layers", type=int, default=0,
                     help="cut the LMs' depth, served and trained (0: the "
-                         "published depth)")
+                         "published depth; mixtral's as the card holds)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--first-call", action="store_true",
                     help="build with ptxas's report, run small kernel "
@@ -4197,6 +4741,10 @@ def parse_args(argv=None):
                     help="phase 9's child: reopen the replica mirror, "
                          "sync it from the publish root and die mid-sync "
                          "(the parent starts it)")
+    ap.add_argument("--mesh-child", nargs=3,
+                    metavar=("RANK", "WORLD", "INIT"),
+                    help="phase 15 (c)'s process RANK of WORLD (one a card; "
+                         "rank 0 starts it)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="run phases 3, 4 and 10 and stop; on a host with "
                          "several cards phase 10's mesh spans them")
@@ -4233,6 +4781,10 @@ def main(argv=None) -> int:
         return crash_child(args.crash_child, args.dense_nodes, args.seed)
     if args.replica_child:
         return replica_child(*args.replica_child)
+    if args.mesh_child:
+        rank, world, init = args.mesh_child
+        return mesh_child(int(rank), int(world), init, args.seed,
+                          args.lm_layers)
     phases = {}
 
     t0 = time.perf_counter()
@@ -4395,6 +4947,26 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     training = phase_training(args.lm_layers, args.seed)
     phases["train_s"] = time.perf_counter() - t0
+    # phase 15 — every served family trains on the card; the dense LM on
+    # a mesh of the visible cards.  Read at the end, as phase 13's.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family_train = phase_family_training(args.lm_layers, args.seed,
+                                         smi.splitlines()[0])
+    phases["family_train_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = phase_mesh(args.seed, args.lm_layers)
+    phases["mesh_s"] = time.perf_counter() - t0
+    print(mesh_line(mesh, warm_median(training["smollm-360m"]["step_s"]),
+                    smi.splitlines()[0]), flush=True)
+    train_bad = family_train["failures"] + mesh_failures(mesh) + [
+        f"mesh process {r} exited {c}"
+        for r, c in enumerate(mesh["children"], 1) if c]
+    for b in train_bad:
+        log(f"chip_smoke: phase 15: {b}")
     phases["dense_session_s"] = dense["seconds"]
     phases["dense_cpu_s"] = dense["cpu_seconds"]
     phases["edge_session_s"] = edge["seconds"]
@@ -4423,6 +4995,11 @@ def main(argv=None) -> int:
     runs["mamba2-130m train uninterrupted"] = \
         training["recovery"]["clean_launches"]
     runs["mamba2-130m train recovered"] = training["recovery"]["launches"]
+    for arch, r in family_train["train"].items():
+        runs[f"{arch} train"] = r["launches"]
+    for arch, r in family_train["card_cpu"].items():
+        runs[f"{arch} train float32 (card vs CPU)"] = r["launches"]
+    runs[f"{MESH_ARCH} train on a mesh"] = mesh["launches"]
     for k in kernels:
         k["launches_by_run"] = {run: n.get(k["name"], 0)
                                for run, n in runs.items()}
@@ -4440,14 +5017,16 @@ def main(argv=None) -> int:
                   dense=dense, edge=edge, durable=durable, crash=crash,
                   replication=replication, sharded=sharded,
                   serving=serving, lms=lms, families=families, moe=moe,
-                  training=training, args=vars(args))
+                  training=training, family_train=family_train, mesh=mesh,
+                  args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels, "phases": phases}))
-    if moe_bad or family_bad:
+    if moe_bad or family_bad or train_bad:
         return fail("; ".join([f"phase 13: {b}" for b in moe_bad]
-                              + [f"phase 14: {b}" for b in family_bad]))
+                              + [f"phase 14: {b}" for b in family_bad]
+                              + [f"phase 15: {b}" for b in train_bad]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,11 @@ same leaves by its tree paths, with every group stacked on one axis;
 
 bfloat16 goes through 16-bit integer views in both directions (numpy
 has no bfloat16, and ``ml_dtypes`` is not used).
+
+A state on a mesh (DTensor leaves) is written gathered — every process
+of the mesh must take part, each gets the whole arrays — and a
+template's DTensor leaf is filled by placing the loaded array as that
+leaf is placed.
 """
 from __future__ import annotations
 
@@ -60,12 +65,30 @@ def to_numpy(leaf) -> np.ndarray:
     """A leaf as a host numpy array; bfloat16 as its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(np.uint16)
         return t.cpu().numpy()
     if isinstance(leaf, (bool, int)):
         return np.asarray(leaf, np.int32)
     return np.asarray(leaf)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` (a loaded array) on ``like``'s device, or placed as ``like``
+    is on its mesh."""
+    if _is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        mesh = like.device_mesh
+        return distribute_tensor(t.to(mesh.device_type), mesh,
+                                 like.placements)
+    return t.to(like.device)
 
 
 def raw_arrays(tree) -> dict[str, np.ndarray]:
@@ -123,7 +146,7 @@ def fill(template, tensors: dict[str, torch.Tensor], prefix: str = ""):
     if isinstance(template, nn.Module):
         with torch.no_grad():
             for name, p in template.named_parameters():
-                p.copy_(_take(tensors, prefix + name, p))
+                p.copy_(_placed_like(_take(tensors, prefix + name, p), p))
         return template
     if dataclasses.is_dataclass(template) and not isinstance(template, type):
         return dataclasses.replace(template, **{
@@ -136,7 +159,7 @@ def fill(template, tensors: dict[str, torch.Tensor], prefix: str = ""):
     name = prefix[:-1]
     t = _take(tensors, name, template)
     if isinstance(template, torch.Tensor):
-        return t.to(template.device)
+        return _placed_like(t, template)
     if isinstance(template, (bool, int)):
         return int(t)
     return t.numpy()

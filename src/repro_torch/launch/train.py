@@ -9,6 +9,13 @@ historical metric logging, failure recovery and straggler-policy hooks
 
 The step time (``step_ms`` in the history) is read on the host clock
 after the device has finished the step.
+
+``train(..., mesh=)`` trains on a ``DeviceMesh`` (``launch/mesh.py``;
+one process a device, every process calling ``train``): the state is
+placed by the param rules (``runtime.elastic.reshard_state``), each
+batch by ``launch.dryrun.batch_sharding``, and every step runs inside
+``sharding.mesh_context``.  A checkpoint store then holds the gathered
+state, written by every process: give each its own ``ckpt_dir``.
 """
 from __future__ import annotations
 
@@ -22,11 +29,14 @@ from repro_torch.checkpoint import (DeltaCheckpointStore, DeltaPolicy,
 from repro_torch.config import ShardingConfig, TrainConfig, reduced
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.dryrun import batch_sharding
 from repro_torch.obs import clock
 from repro_torch.runtime import (FailureInjector, TrainState,
                                  init_train_state, make_train_step,
-                                 run_with_recovery)
+                                 reshard_state, run_with_recovery)
+from repro_torch.runtime.elastic import place_tree
 from repro_torch.runtime.stragglers import StragglerPolicy
+from repro_torch.sharding import mesh_context
 
 
 def train(cfg, tcfg: TrainConfig, scfg: ShardingConfig, *, device="cuda",
@@ -35,7 +45,7 @@ def train(cfg, tcfg: TrainConfig, scfg: ShardingConfig, *, device="cuda",
           injector: FailureInjector | None = None,
           history: HistoryLog | None = None,
           log_every: int = 10, straggler: StragglerPolicy | None = None,
-          log_tensor_norms: bool = False):
+          log_tensor_norms: bool = False, mesh=None):
     """Returns (final TrainState, HistoryLog, DeltaCheckpointStore|None).
 
     Recovery contract: if any step raises, re-enter with the store's
@@ -56,12 +66,19 @@ def train(cfg, tcfg: TrainConfig, scfg: ShardingConfig, *, device="cuda",
                 store.latest_step() is not None:
             state = store.restore(store.latest_step(), state)
             start_step = state.step
+        if mesh is not None:
+            state = reshard_state(state, mesh)
         for step in range(start_step, tcfg.total_steps):
             if injector is not None:
                 injector.check(step)
             t0 = clock.now()
             batch = data.batch_at(step)
-            state, metrics = step_fn(state, batch)
+            if mesh is None:
+                state, metrics = step_fn(state, batch)
+            else:
+                with mesh_context(mesh):
+                    state, metrics = step_fn(state, place_tree(
+                        batch, batch_sharding(batch, mesh)))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             dt_ms = (clock.now() - t0) * 1e3

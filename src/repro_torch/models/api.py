@@ -15,15 +15,34 @@ Batches are dicts holding ``tokens`` (and ``labels``, optionally
 (``models/lm.py``; decode positions then count the patches).  The
 hybrid family raises ``NotImplementedError``.  There is no ``impl``
 argument: the device decides how attention runs
-(``models/attention.py``).  ``input_specs`` comes with the dry-run
-(ROADMAP A18).
+(``models/attention.py``).  On a mesh only the dense family's
+``loss_fn`` / ``forward`` run; everything else raises, naming its
+ROADMAP step (``check_lm_mesh``).  ``input_specs`` comes with the
+dry-run (ROADMAP A18).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import not_ported
 from repro_torch.config import ModelConfig
 from repro_torch.models import encdec, lm
+from repro_torch.sharding import current_mesh
+
+# the families whose training step runs on a mesh; the others (and
+# prefill and decode, ``cache_sharding``) come with expert parallelism
+MESH_FAMILIES = ("dense",)
+
+
+def check_lm_mesh(cfg: ModelConfig, what: str = "training") -> None:
+    """Raise, naming the ROADMAP step, where a mesh is in scope and
+    ``cfg``'s family (or ``what``) does not run on one yet."""
+    if current_mesh() is None:
+        return
+    lm.check_family(cfg)
+    if cfg.family not in MESH_FAMILIES or what != "training":
+        not_ported(f"{what} of the {cfg.family!r} family ({cfg.name}) on a "
+                   "mesh", "A17")
 
 
 def _extra(batch, cfg: ModelConfig):
@@ -38,6 +57,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat="block"):
+    check_lm_mesh(cfg)
     if cfg.family == "encdec":
         return encdec.loss_fn(params, batch, cfg, remat=remat)
     return lm.loss_fn(params, batch, cfg, extra=_extra(batch, cfg),
@@ -45,6 +65,7 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat="block"):
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat="none"):
+    check_lm_mesh(cfg)
     if cfg.family == "encdec":
         enc = encdec.encode(params, batch["frames"], cfg, remat)
         return encdec.decode_seq(params, batch["tokens"], enc, cfg, remat)
@@ -53,6 +74,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat="none"):
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_cap=None):
+    check_lm_mesh(cfg, "prefill")
     if cfg.family == "encdec":
         return encdec.prefill(params, batch["tokens"], batch["frames"], cfg,
                               cache_cap)
@@ -61,6 +83,7 @@ def prefill(params, batch, cfg: ModelConfig, cache_cap=None):
 
 
 def decode_step(params, token, pos, caches, cfg: ModelConfig):
+    check_lm_mesh(cfg, "decode")
     if cfg.family == "encdec":
         return encdec.decode_step(params, token, pos, caches, cfg)
     return lm.decode_step(params, token, pos, caches, cfg)

@@ -17,6 +17,14 @@ differ (a bfloat16 decoder's queries against float32 encoder keys) the
 kernel runs in their promoted dtype and its output is cast to q's, as
 ``_sdpa`` computes in float32 and returns q's dtype.
 
+On a mesh (``sharding.mesh_context``) q, k and v are annotated as the
+reference annotates them — batch over the ``batch`` axes, heads over
+``model``, each where it divides — and the kernel runs under
+``local_map`` on each process's shards (``_flash_on_mesh``): a
+hand-written kernel has no DTensor sharding rule.  Where q's heads are
+split and k / v's are not (GQA with fewer kv heads than the ``model``
+axis), each process takes the kv heads of its own q heads.
+
 Decode writes the new key/value row into the cache tensors in place
 (PyTorch's idiom; the JAX package returns fresh arrays) and returns the
 same cache object.
@@ -31,6 +39,8 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import _normal, mm, params_module, rope
+from repro_torch.sharding import (axes_of, current_mesh, on_local_shards,
+                                  shard, spec)
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -91,7 +101,21 @@ def _sdpa(q, k, v, mask, scale):
 
 
 def _project(x, w):
-    """[B, S, d] @ [d, H, hd] → [B, S, H, hd] (contiguous)."""
+    """[B, S, d] @ [d, H, hd] → [B, S, H, hd] (contiguous).  On a mesh,
+    under ``local_map`` with the output placed as the reference's
+    ``shard(.., "batch", None, "model", None)``: x split by batch, w by
+    heads, d whole on each process.  (DTensor left to itself may split
+    the product's H · hd columns where H does not divide, which no view
+    can unflatten.)"""
+    if current_mesh() is None:
+        return _project_local(x, w)
+    sy = spec("batch", None, "model", None, dims=(*x.shape[:-1],
+                                                  *w.shape[1:]))
+    return on_local_shards(_project_local, sy, ((sy[0], None, None),
+                                                (None, sy[2], None)), x, w)
+
+
+def _project_local(x, w):
     d, h, hd = w.shape
     return mm(x, w.reshape(d, h * hd)).view(*x.shape[:-1], h, hd)
 
@@ -105,6 +129,51 @@ def _out(o, wo):
 def _flash(q, k, v, causal: bool, window: int | None, scale: float):
     """The kernel on [B, S, H, hd] activations (seen as [B, H, S, hd]),
     in the promoted dtype of q, k and v; the output in q's dtype."""
+    if current_mesh() is not None:
+        return _flash_on_mesh(q, k, v, causal, window, scale)
+    return _flash_local(q, k, v, causal, window, scale)
+
+
+def _shard_index(mesh, axes: tuple) -> int:
+    """This process's index along mesh axes ``axes`` taken together
+    (the first the slowest), as DTensor splits a dimension over them."""
+    i = 0
+    for a in axes:
+        i = i * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return i
+
+
+def kv_heads_for(q0: int, n_q: int, group: int) -> torch.Tensor:
+    """The kv head of each of q heads ``q0 .. q0 + n_q - 1`` (GQA: q
+    head h reads kv head ``h // group``)."""
+    return torch.arange(q0, q0 + n_q) // group
+
+
+def _flash_on_mesh(q, k, v, causal, window, scale):
+    """``_flash`` under ``local_map``: q / k / v [B, S, H, hd] placed as
+    the reference's ``shard(.., "batch", None, "model", None)`` resolves
+    them, the kernel on each process's shards, the output placed as
+    q."""
+    mesh = current_mesh()
+    hq, hkv = q.shape[2], k.shape[2]
+    sq = spec("batch", None, "model", None, dims=q.shape)
+    skv = spec("batch", None, "model", None, dims=k.shape)
+    heads = axes_of(sq[2])
+    split_q_only = heads and not axes_of(skv[2])
+
+    def local(ql, kl, vl):
+        if split_q_only:    # this process's q heads read their kv heads
+            idx = kv_heads_for(_shard_index(mesh, heads) * ql.shape[2],
+                               ql.shape[2], hq // hkv).to(kl.device)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return _flash_local(ql, kl, vl, causal, window, scale)
+
+    return on_local_shards(local, sq, (sq, skv, skv), q, k, v)
+
+
+def _flash_local(q, k, v, causal, window, scale):
+    """``_flash`` on tensors of one device."""
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     o = flash_attention(q.to(dt).transpose(1, 2), k.to(dt).transpose(1, 2),
                         v.to(dt).transpose(1, 2), causal, window, scale)
@@ -123,9 +192,9 @@ def attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     hd = cfg.hd()
     src = x if kv_x is None else kv_x
-    q = _project(x, p.wq)
-    k = _project(src, p.wk)
-    v = _project(src, p.wv)
+    q = shard(_project(x, p.wq), "batch", None, "model", None)
+    k = shard(_project(src, p.wk), "batch", None, "model", None)
+    v = shard(_project(src, p.wv), "batch", None, "model", None)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     if use_rope and kv_x is None and cfg.pos_kind == "rope":
@@ -135,7 +204,7 @@ def attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
     cross = kv_x is not None
     o = _flash(q, k, v, causal and not cross, None if cross else cfg.window,
                hd ** -0.5)
-    out = _out(o, p.wo)
+    out = shard(_out(o, p.wo), "batch", None, None)
 
     cache = None
     if make_cache:

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.sharding import (current_mesh, on_local_shards,
+                                  replicated_like, spec)
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype,
@@ -92,8 +94,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                    device=x.device) / half)
     ang = positions[..., :, None].float() * freq           # [..., S, half]
-    cos = torch.cos(ang)[..., :, None, :]
-    sin = torch.sin(ang)[..., :, None, :]
+    cos = replicated_like(torch.cos(ang)[..., :, None, :], x)
+    sin = replicated_like(torch.sin(ang)[..., :, None, :], x)
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                      dim=-1).to(x.dtype)
@@ -160,9 +162,20 @@ def init_embed(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
     return params_module(**p)
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a mesh, under ``local_map``: tokens split by
+    batch, the table whole on each process (DTensor's own rules for a
+    lookup in a split table are not relied on)."""
+    if current_mesh() is None:
+        return table[tokens]
+    rows = spec("batch", None, dims=tokens.shape)[0]
+    return on_local_shards(lambda tl, wl: wl[tl], (rows, None, None),
+                           ((rows, None), (None, None)), tokens, table)
+
+
 def embed(p: nn.Module, tokens: torch.Tensor, cfg: ModelConfig,
           positions: torch.Tensor | None = None) -> torch.Tensor:
-    x = p.tok[tokens]
+    x = _lookup(p.tok, tokens)
     if cfg.pos_kind == "learned":
         x = x + p.pos[positions]
     elif cfg.pos_kind == "sinusoidal":

@@ -17,6 +17,15 @@ at absolute position P + len + i with a ``cache_cap`` that holds the
 patches too.  The encoder-decoder family is ``models/encdec.py``.  The
 hybrid family is not ported yet and raises, naming its ROADMAP step
 (``UNPORTED_FAMILIES``).
+
+On a mesh (``sharding.mesh_context`` of a ``DeviceMesh``, parameters and
+batch placed as DTensors, ``runtime.elastic.reshard_state`` /
+``launch.dryrun.batch_sharding``) the dense family's ``forward`` and
+``loss_fn`` run as DTensor programs: activations are annotated at the
+reference's ``shard`` sites and attention runs the kernel on each
+process's shards (``models/attention.py``).  ``models/api.py`` refuses
+the other families, and prefill and decode, on a mesh
+(``api.check_lm_mesh``).
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import _normal, apply_norm, embed, \
     init_embed, init_norm, unembed
+from repro_torch.sharding import current_mesh, on_local_shards, shard, spec
 
 # encdec is served by models/encdec.py, through models/api.py
 PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "encdec")
@@ -142,14 +152,16 @@ def forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Training/eval forward: tokens [B, S] → logits [B, S, V] (f32).
     ``extra``: the modality-stub inputs, ``patches`` [B, P, d] for vlm
     (prepended after projection; their logits are dropped)."""
+    tokens = shard(tokens, "batch", None)
     x = _embed(params, tokens, cfg, 0)
     x, n_prefix = _with_patches(params, x, cfg, extra)
+    x = shard(x, "batch", None, None)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x = _apply_groups(params, x, cfg, positions, remat)
     x = apply_norm(params.final_norm, x, cfg.norm_kind)
     if n_prefix:
         x = x[:, n_prefix:]
-    return unembed(params.embed, x, cfg)
+    return shard(unembed(params.embed, x, cfg), "batch", None, "model")
 
 
 def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
@@ -159,8 +171,13 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
     optionally ``mask`` [B, S]; ``extra`` as ``forward`` takes it."""
     logits = forward(params, batch["tokens"], cfg, extra=extra, remat=remat)
     targets = batch["labels"][:, 1:].long()
-    lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    if current_mesh() is None:
+        nll = _token_nll(logits[:, :-1], targets)
+    else:   # each process its batch rows, the vocabulary whole
+        rows = spec("batch", dims=targets.shape)[0]
+        nll = on_local_shards(_token_nll, (rows, None),
+                              ((rows, None, None), (rows, None)),
+                              logits[:, :-1], shard(targets, "batch", None))
     mask = batch.get("mask")
     if mask is not None:
         m = mask[:, 1:].float()
@@ -168,11 +185,18 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
     return nll.mean()
 
 
+def _token_nll(logits, targets):
+    """−log softmax(logits)[target] at each position, in float32."""
+    lp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(lp, -1, targets[..., None])[..., 0]
+
+
 @torch.no_grad()
 def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
             extra: dict | None = None, cache_cap: int | None = None):
     """Build caches for decode (over the patches and the tokens, for
     vlm).  Returns (last_logits [B, V], caches: one dict per group)."""
+    tokens = shard(tokens, "batch", None)
     x = _embed(params, tokens, cfg, 0)
     x, _ = _with_patches(params, x, cfg, extra)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -202,7 +226,7 @@ def decode_step(params: LM, token: torch.Tensor, pos: int, caches,
     token; caches: as ``prefill`` returns them, updated in place.
     → (logits [B, V], caches)."""
     pos = int(pos)
-    x = _embed(params, token, cfg, pos)
+    x = shard(_embed(params, token, cfg, pos), "batch", None, None)
     for g, c in zip(params.groups, caches):
         x, _ = B.decode_group(g, x, cfg, c, pos)
     x = apply_norm(params.final_norm, x[:, -1], cfg.norm_kind)

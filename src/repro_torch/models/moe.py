@@ -28,9 +28,9 @@ Every step is allowed under ``torch.use_deterministic_algorithms(True)``
 and differentiable through autograd (the indices carry no gradient).
 
 The reference's ``apply_moe_sharded`` / ``_local_moe`` (expert
-parallelism under ``shard_map``) belong to multi-device LM training
-(ROADMAP A17).  The port has no LM mesh, so no caller can reach that
-path and nothing here raises for it.
+parallelism under ``shard_map``), which it takes whenever a mesh is in
+scope, are not ported yet: ``apply_moe`` raises on a mesh (ROADMAP
+A17).
 """
 from __future__ import annotations
 
@@ -39,9 +39,11 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch import not_ported
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import _normal, at_least_f32, ffn, \
     params_module
+from repro_torch.sharding import current_mesh
 
 
 class MoE(nn.Module):
@@ -120,6 +122,8 @@ def route_to(logits: torch.Tensor, topi: torch.Tensor,
 def apply_moe(p: nn.Module, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """x: [B, S, d] → [B, S, d]."""
+    if current_mesh() is not None:
+        not_ported("apply_moe_sharded (expert parallelism)", "A17")
     return apply_routed(p, x, route(p, x.reshape(-1, x.shape[-1]), cfg),
                         cfg)
 

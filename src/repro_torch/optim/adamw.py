@@ -14,7 +14,10 @@ dtype.  ``torch.optim.AdamW`` is not used: it applies the decay as a
 separate multiply (other rounding) and has no int8 state.
 
 Parameters are an ``nn.Module`` (its ``named_parameters``) or a dict of
-tensors; m and v are dicts under the same names.  ``adamw_update``
+tensors; m and v are dicts under the same names.  On a mesh they are
+DTensors: the float32 and bfloat16 states take their parameters'
+placements and the clip reads the global norm; the int8 state raises
+there (ROADMAP A17).  ``adamw_update``
 writes the new values into the parameters in place (PyTorch's idiom;
 the JAX package returns fresh arrays) and returns new m / v.
 
@@ -34,7 +37,9 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch import not_ported
 from repro_torch.config import TrainConfig
+from repro_torch.sharding import current_mesh
 
 
 @dataclasses.dataclass
@@ -110,9 +115,16 @@ def _load(x) -> torch.Tensor:
     return x.float()
 
 
+def _check_int8_off_mesh(cfg: TrainConfig) -> None:
+    if cfg.opt_state_dtype == "int8" and current_mesh() is not None:
+        not_ported("the int8 optimizer state on a mesh", "A17")
+
+
 def adamw_init(params, cfg: TrainConfig) -> AdamWState:
+    _check_int8_off_mesh(cfg)
+
     def zeros():
-        z = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        z = {n: torch.zeros_like(p, dtype=torch.float32)
              for n, p in named(params).items()}
         if cfg.opt_state_dtype == "int8":
             return _quantize_stacked(z)
@@ -132,6 +144,7 @@ def adamw_update(grads: dict, state: AdamWState, params, cfg: TrainConfig,
     """One AdamW step with global-norm clipping; ``grads`` by parameter
     name, ``lr`` a float or a 0-d float32 tensor.  Updates ``params`` in
     place.  Returns (params, new_state, stats)."""
+    _check_int8_off_mesh(cfg)
     step = state.step + 1
     ps = named(params)
     gnorm = global_norm(grads[n] for n in ps)

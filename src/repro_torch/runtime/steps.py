@@ -8,6 +8,12 @@ its first axis and the gradients are summed in float32 over the slices,
 then divided by their count, as the JAX package's ``lax.scan`` does.
 The learning rate of the step is ``lr_schedule(step + 1)``: 1-indexed,
 so the first warmup step's rate is lr/W, never zero.
+
+On a mesh (the state placed by ``runtime.elastic.reshard_state``, the
+batch by ``launch.dryrun.batch_sharding``, the step called inside
+``sharding.mesh_context``) the same code runs on DTensors: each
+gradient is placed as its parameter, the float32 accumulators keep
+that placement, and the loss and the clip read the global values.
 """
 from __future__ import annotations
 
@@ -41,21 +47,36 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig,
         n = tcfg.microbatches
         if n == 1:
             loss = api.loss_fn(params, batch, cfg, remat=scfg.remat)
-            grads = torch.autograd.grad(loss, ps)
+            grads = _placed_as(torch.autograd.grad(loss, ps), ps)
             return loss.detach(), dict(zip(names, grads))
         size = batch["tokens"].shape[0] // n
-        loss = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in ps]
+        losses = []
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
         for i in range(n):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             l = api.loss_fn(params, mb, cfg, remat=scfg.remat)
-            for a, g in zip(acc, torch.autograd.grad(l, ps)):
+            for a, g in zip(acc, _placed_as(torch.autograd.grad(l, ps), ps)):
                 a.add_(g)
-            loss = loss + l.detach()
-        return loss / n, {k: a / n for k, a in zip(names, acc)}
+            losses.append(l.detach())
+        return sum(losses) / n, {k: a / n for k, a in zip(names, acc)}
 
     return grad_fn
+
+
+def _placed_as(grads, ps):
+    """Each gradient placed as its parameter (a DTensor's gradient may
+    come back partial or otherwise split); plain tensors as they are."""
+    from torch.distributed.tensor import DTensor
+    return [g.redistribute(p.device_mesh, p.placements)
+            if isinstance(g, DTensor) and g.placements != p.placements
+            else g for g, p in zip(grads, ps)]
+
+
+def _global(x):
+    """A metric as one plain value on every process (a DTensor's may be
+    a partial sum or average until reduced)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -69,7 +90,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         params, opt, stats = adamw_update(grads, state.opt, state.params,
                                           tcfg, lr)
         return (TrainState(params=params, opt=opt, step=state.step + 1),
-                {"loss": loss, **stats})
+                {k: _global(v) for k, v in {"loss": loss, **stats}.items()})
 
     return train_step
 

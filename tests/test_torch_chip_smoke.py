@@ -5,7 +5,10 @@ child and its arguments), phase 9's replica child, its verdict and
 a rehearsal, phase 13's depth, routing readout, verdict, printed
 lines and a rehearsal on the reduced mixtral, and phase 14's (whisper
 and internvl2: ``phase_family``, ``family_failures``, ``family_lines``,
-the generalised ``greedy`` / ``phase_lm`` of phases 5 and 6).
+the generalised ``greedy`` / ``phase_lm`` of phases 5 and 6), and
+phase 15's (the training launch counts and mixtral's training depth
+fixed in advance, phase 11's trainer on the three families, the step-1
+route flips, the mesh phase in one gloo process, the verdicts).
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -570,15 +573,190 @@ def _reduced(arch):
 def test_phase_train_on_the_cpu(arch, kernel):
     """Phase 11 (a) / (b) rehearsed on the CPU: every parameter gets a
     finite nonzero gradient, loss and grad norm are finite at every
-    step; only the launch checks fail (no kernel runs on the CPU)."""
+    step; only the launch checks fail (no kernel runs on the CPU) and,
+    for attention, the count of plain-version calls (on the CPU the
+    forward is the plain version too: twice a call a step)."""
     cfg = _reduced(arch)
     res = chip_smoke.phase_train(cfg, kernel, 7, device="cpu", batch=2,
                                  seq=32, steps=2)
     per = 2 * cfg.n_layers            # forward + remat recompute
     assert res["per_step"] == per and res["n_params"] > 0
+    want = [f"the first step launched {kernel} 0 times, want {per}",
+            f"2 steps launched {kernel} 0 times, want {2 * per}"]
+    if kernel == "flash_attention":
+        assert res["plain_forward"] == 0
+        want.append(f"the plain version ran {2 * per} times, want {per} "
+                    "(one a forward call's backward)")
+    assert chip_smoke.train_failures(res) == want
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: every family trains; the dense LM on a mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,calls", [
+    ("smollm-360m", 32), ("mamba2-130m", 24), ("whisper-small", 36),
+    ("internvl2-1b", 24), ("mixtral-8x7b", 32)])
+def test_launches_per_step_count_every_attention_call(arch, calls):
+    """B5's launches a training step, fixed before the run: twice a
+    forward call under remat (its recompute), once without; whisper's
+    calls are 12 encoder + 12 decoder self + 12 cross."""
+    from repro_torch.config import ShardingConfig
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    assert chip_smoke.launches_per_step(cfg, ShardingConfig()) == 2 * calls
+    assert chip_smoke.launches_per_step(
+        cfg, ShardingConfig(remat="none")) == calls
+    if cfg.family == "encdec":
+        enc, self_, cross = chip_smoke.attention_calls(cfg, 448)
+        assert (enc["sq"], enc["skv"], enc["f32"]) == (1500, 1500, True)
+        assert (self_["sq"], self_["causal"], self_["f32"]) == (448, True,
+                                                              False)
+        assert (cross["sq"], cross["skv"], cross["f32"]) == (448, 1500, True)
+    if cfg.family == "vlm":
+        assert chip_smoke.attention_calls(cfg, 2048)[0]["sq"] == 2304
+
+
+def test_moe_train_depth_reckons_two_layers_on_an_h100():
+    """mixtral's training depth from the card's free memory: 1.451 B
+    params a layer + 0.262 B of embeddings at 12 B a param, 3 GB kept
+    a layer, 24 GiB transient: 2 layers on an 80 GB card's ~79 GiB free,
+    more on a larger one; never below 1; the override wins."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mixtral-8x7b")
+    zero = chip_smoke.moe_train_params(
+        __import__("dataclasses").replace(cfg, n_layers=0))
+    one = chip_smoke.moe_train_params(
+        __import__("dataclasses").replace(cfg, n_layers=1))
+    assert round((one - zero) / 1e9, 3) == 1.451
+    assert round(zero / 1e9, 3) == 0.262
+    n, why = chip_smoke.moe_train_depth(cfg, int(79.1 * 2 ** 30))
+    assert n == 2 and why.startswith("2 of 32 layers (a layer ")
+    assert "3 need" in why
+    assert chip_smoke.moe_train_depth(cfg, 200 * 2 ** 30)[0] == 9
+    assert chip_smoke.moe_train_depth(cfg, 10 * 2 ** 30)[0] == 1
+    assert chip_smoke.moe_train_depth(cfg, 10 * 2 ** 30, 3) == (
+        3, "3 of 32 layers (--lm-layers)")
+
+
+def test_family_check_config_cuts_both_stacks():
+    cfg = chip_smoke.family_check_config("whisper-small")
+    assert (cfg.n_layers, cfg.n_enc_layers, cfg.d_model) == (2, 2, 768)
+    assert chip_smoke.family_check_config("mixtral-8x7b").n_layers == 1
+    assert chip_smoke.family_check_config("internvl2-1b").d_model == 896
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b",
+                                  "mixtral-8x7b"])
+def test_phase_15_train_on_the_cpu(arch):
+    """Phase 15 (a) rehearsed on the CPU in bf16 params (whisper's
+    frames float32): gradients finite and nonzero, no plain attention
+    forward; only the launch checks and the plain-version count fail."""
+    cfg = _reduced(arch)
+    res = chip_smoke.phase_train(cfg, "flash_attention", 7, device="cpu",
+                                 batch=2, seq=32, steps=2,
+                                 param_dtype="bfloat16")
+    per = chip_smoke.launches_per_step(cfg, __import__(
+        "repro_torch.config", fromlist=["ShardingConfig"]).ShardingConfig())
+    assert res["param_dtype"] == "bfloat16" and res["plain_forward"] == 0
     assert chip_smoke.train_failures(res) == [
-        f"the first step launched {kernel} 0 times, want {per}",
-        f"2 steps launched {kernel} 0 times, want {2 * per}"]
+        f"the first step launched flash_attention 0 times, want {per}",
+        f"2 steps launched flash_attention 0 times, want {2 * per}",
+        f"the plain version ran {2 * per} times, want {per} (one a "
+        "forward call's backward)"]
+
+
+def test_phase_train_card_cpu_routes_on_the_cpu():
+    """Phase 15 (b) for the MoE family with the CPU in the card's place:
+    the same initial parameters, no step-1 route flip, equal losses."""
+    res = chip_smoke.phase_train_card_cpu(_mixtral(capacity_factor=1.25), 7,
+                                          device="cpu", batch=2, seq=32,
+                                          steps=2)
+    assert res["route_flips"] == [] and res["max_rel"] == 0.0
+    assert chip_smoke.card_cpu_failures(res) == []
+    line = chip_smoke.card_cpu_line(res)
+    assert "2x32, 2 steps" in line and "step-1 route flips 0" in line
+
+
+def test_step1_route_flips_are_judged_as_near_ties():
+    cpu = {0: torch.tensor([[3.0, 2.0, 1.99, 0.0], [1.0, 0.5, 0.0, -1.0]])}
+    card = {0: torch.tensor([[3.0, 1.99, 2.0, 0.0], [1.0, 0.5, 0.0, -1.0]])}
+    flips = chip_smoke.step1_route_flips(card, cpu, 2)
+    assert len(flips) == 1 and flips[0]["token"] == 0 and flips[0]["near_tie"]
+    # the CPU's 2nd and 3rd logits 1.0 apart, each moved by at most 0.6
+    cpu2 = {0: torch.tensor([[3.0, 2.0, 1.0, 0.0]])}
+    far = {0: torch.tensor([[3.0, 1.5, 1.6, 0.0]])}
+    [f] = chip_smoke.step1_route_flips(far, cpu2, 2)
+    assert (f["gap"], round(f["delta"], 6)) == (1.0, 0.6)
+    assert not f["near_tie"]
+    ok = dict(init_differing=[], max_rel=1e-6, rel={}, route_flips=flips)
+    assert chip_smoke.card_cpu_failures(ok) == []
+    assert "no near-tie" in chip_smoke.card_cpu_failures(
+        dict(ok, route_flips=[f]))[0]
+    assert "initial parameters differ" in chip_smoke.card_cpu_failures(
+        dict(ok, init_differing=["params/embed.tok"]))[0]
+    assert "disagree" in chip_smoke.card_cpu_failures(
+        dict(ok, max_rel=1e-3))[0]
+
+
+def test_psum_differing_is_the_numpy_form():
+    import numpy as np
+    g = {"a": np.array([0.5, -127.0, 3.25], np.float32),
+         "z": np.zeros(3, np.float32)}
+    for world in (1, 4):
+        from repro_torch.optim import compress_with_feedback
+        out, err = {}, {}
+        for n, x in g.items():
+            q, a, e = compress_with_feedback(torch.from_numpy(x),
+                                             torch.zeros(3))
+            out[n] = (q.to(torch.int32) * world).float().numpy() * a.numpy()
+            err[n] = e.numpy()
+        assert chip_smoke.psum_differing(g, out, err, world) == []
+        assert chip_smoke.psum_differing(
+            g, dict(out, a=out["a"] + 1), err, world) == ["a"]
+
+
+def test_phase_15_mesh_on_the_cpu(tmp_path):
+    """Phase 15 (c) rehearsed on the CPU: one gloo process, a reduced
+    smollm in place of the published one: the float32 mesh and plain
+    steps within the bound, compressed_psum and the checkpoint round
+    trip bit-exact; only the launch check fails."""
+    cfg = chip_smoke.lm_config("smollm-360m", 0)
+    from repro_torch.config import reduced
+    res = chip_smoke.mesh_checks(
+        0, 1, f"file://{tmp_path}/rendezvous", 7, device_type="cpu",
+        batch=2, seq=32, steps=2, check_seq=32, check_steps=2,
+        root=str(tmp_path / "ckpt"), cfg=reduced(cfg))
+    assert res["mesh"] == {"data": 1, "model": 1}
+    assert res["check"]["param_diff"] <= chip_smoke.MESH_ATOL
+    assert chip_smoke.mesh_failures(res) == [
+        f"the mesh run launched flash_attention 0 times, want "
+        f"{2 * res['per_step']}"]
+    line = chip_smoke.mesh_line(res, 1.0, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "700.00 W" in line and "reshard_from_checkpoint" in line
+
+
+def _mesh_passing():
+    return dict(per_step=64, steps=6, launches={"flash_attention": 384},
+                loss=[10.0, 9.0], grad_norm=[1.0, 1.0],
+                check=dict(loss_diff=1e-6, param_diff=1e-6),
+                psum_differing=[], restore_differing=[],
+                restore_on_mesh=True)
+
+
+@pytest.mark.parametrize("change,message", [
+    (dict(launches={"flash_attention": 383}), "launched flash_attention 383"),
+    (dict(launches={"flash_attention": 384, "ssd_scan": 1}), "'ssd_scan'"),
+    (dict(loss=[float("nan")]), "non-finite"),
+    (dict(check=dict(loss_diff=1e-6, param_diff=2e-4)), "parameters 0.0002"),
+    (dict(psum_differing=["embed.tok"]), "compressed_psum differs"),
+    (dict(restore_differing=["params/embed.tok"]), "reshard_from_check"),
+    (dict(restore_on_mesh=False), "on the mesh: False")])
+def test_mesh_verdict_names_each_failed_check(change, message):
+    assert chip_smoke.mesh_failures(_mesh_passing()) == []
+    bad = chip_smoke.mesh_failures(dict(_mesh_passing(), **change))
+    assert any(message in b for b in bad), bad
 
 
 def _passing_train():
@@ -799,7 +977,7 @@ def test_phase_moe_on_the_cpu():
     assert res["routing"]["dropped"] > 0
     assert res["bf16_decode"]["capacity_factor"] == cfg.n_experts / 2
     assert len(res["bf16_decode"]["step_rel"]) == 4
-    assert res["card_cpu"]["calls"] == cfg.n_layers * (1 + 4)
+    assert res["card_cpu"]["calls"] == chip_smoke.MOE_F32_LAYERS * (1 + 4)
     assert res["card_cpu"]["route_differs"] == []
 
 

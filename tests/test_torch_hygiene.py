@@ -76,9 +76,11 @@ def test_port_has_every_module_of_the_slice():
             "kernels/ssd_scan/ref.py", "kernels/ssd_scan/ops.py",
             "kernels/ssd_scan/ssd_scan.cu",
             "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+            "optim/compress.py",
             "data/__init__.py", "data/synthetic.py",
             "runtime/__init__.py", "runtime/steps.py",
             "runtime/failures.py", "runtime/stragglers.py",
+            "runtime/elastic.py", "launch/mesh.py", "launch/dryrun.py",
             "checkpoint/__init__.py", "checkpoint/io.py",
             "checkpoint/deltastore.py", "checkpoint/history.py",
             "launch/__init__.py", "launch/train.py", "launch/serve.py",

@@ -6,8 +6,9 @@ pipeline), and the port against the JAX package on the same inputs
 made with numpy:
 
 * ``loss_fn`` within 1e-5 relative of JAX's, and every parameter's
-  gradient within 1e-4 × max|g| of ``jax.grad``'s, for both families
-  and every ``remat``;
+  gradient within 1e-4 × max|g| of ``jax.grad``'s, for the dense, SSM
+  and MoE families (smollm-360m, mamba2-130m, mixtral-8x7b and
+  kimi-k2 at ``reduced()``) and every ``remat``;
 * three ``train_step``s from ``train_state_from_numpy`` of a JAX
   ``init_train_state``, one microbatch and two: the loss within 1e-4
   relative at every step, every parameter within 1e-3 × max|p| but for
@@ -30,8 +31,9 @@ made with numpy:
   stacked leaf), and ``convert.arrays_to_reference`` accepts the state
   after every update and after int8 ``train_step``s.
 
-The JAX package's ``test_elastic_reshard_preserves_values`` has no
-counterpart: multi-device training is not ported yet.
+Multi-device training (the JAX package's
+``test_elastic_reshard_preserves_values`` and its mesh steps) is held
+in ``tests/test_torch_sharding.py``.
 """
 import numpy as np
 import pytest
@@ -65,6 +67,8 @@ from repro_torch.runtime import (FailureInjector, StragglerPolicy,  # noqa: E402
                                  make_train_step)
 
 ARCHS = ["smollm-360m", "mamba2-130m"]
+# the MoE family, held to JAX by the loss / gradient and train-step tests
+MOE_ARCHS = ["mixtral-8x7b", "kimi-k2-1t-a32b"]
 TINY = dict(n_layers=1, d_model=64, n_heads=2, n_kv_heads=1, head_dim=32,
             d_ff=128, vocab=128)
 
@@ -296,7 +300,7 @@ def test_block_remat_keeps_the_products(arch):
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         jcfg = j_reduced(j_get_config(arch))
         params = japi.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
         out[arch] = (jcfg, reduced(get_config(arch)), params)
@@ -305,7 +309,7 @@ def models():
 
 @pytest.mark.parametrize("masked", [False, True], ids=["all", "mask"])
 @pytest.mark.parametrize("remat", ["none", "block", "full"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_loss_and_gradients_match_jax(models, arch, remat, masked):
     jcfg, cfg, params = models[arch]
     toks = _tokens(jcfg.vocab, (2, 64), 1)
@@ -327,7 +331,7 @@ def test_loss_and_gradients_match_jax(models, arch, remat, masked):
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_train_steps_match_jax(arch, microbatches):
     jcfg = j_reduced(j_get_config(arch))
     cfg = reduced(get_config(arch))
