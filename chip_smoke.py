@@ -5,10 +5,12 @@ both layouts — in memory, sharded over a mesh, durable and indexed,
 reopened and crashed, replicated — run the paper's serving driver,
 serve two decoder LMs (prefill + greedy decode) at their published
 width and depth, an encoder-decoder (whisper-small) and a VLM
-(internvl2-1b) at theirs, and a mixture-of-experts LM (mixtral-8x7b) at
-its published width, as deep as the card holds, and train the two
-decoder LMs, with delta checkpoints and a recovery, the encoder-decoder,
-VLM and MoE LMs, and the dense LM on a ``DeviceMesh``.
+(internvl2-1b) at theirs, a mixture-of-experts LM (mixtral-8x7b) at
+its published width, as deep as the card holds, and a hybrid LM
+(jamba-1.5-large) at its published width over one period, and train
+the two decoder LMs, with delta checkpoints and a recovery, the
+encoder-decoder, VLM and MoE LMs, and the dense LM on a
+``DeviceMesh``.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -43,11 +45,14 @@ Phases, in order (any failure exits non-zero):
    phase 14's four: whisper-small's encoder (B 8, H 12, S 1500, D 64,
    full), its cross-attention (Sq 416 against Skv 1500, full) and its
    decoder's self-attention (S 416, causal), internvl2-1b's prefill (B
-   8, Hq 14, Hkv 2, S 2304, D 64, causal), all bf16 — plus head dims
-   128 / 256, and a sliding window and a kv_len-padded non-causal case
-   with ragged Sq, each in float32 and bf16) and the
+   8, Hq 14, Hkv 2, S 2304, D 64, causal), kimi-k2's prefill (B 8, Hq
+   64, Hkv 8, S 2048, D 112, causal: run padded to D 128) and phase 16's
+   jamba-1.5-large prefill (the same with D 128), all bf16 — plus head
+   dims 128 / 256, and a sliding window and a kv_len-padded non-causal
+   case with ragged Sq, each in float32 and bf16) and the
    SSD scan (at the mamba2-130m prefill shape, output and final state,
-   from a zero state and continuing a cache) on seeded random inputs,
+   from a zero state and continuing a cache, and at jamba-1.5-large's,
+   H 256) on seeded random inputs,
    within the tolerance printed.  Each main case is timed (CUDA
    events, behind a device sleep that covers the host's launches; the
    host's own time per call beside it) beside its bound, the plain
@@ -264,12 +269,42 @@ Phases, in order (any failure exits non-zero):
    ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
    the end.
 
+16. jamba-1.5-large — the hybrid family at published width over one
+   whole period (8 layers: seven Mamba2 mixers and one attention layer
+   at offset 4, d 8192, 64 / 8 heads of 128, no positions; an MLP of
+   d_ff 24,576 or, every second layer, 16 experts top-2 of d_ff 24,576
+   at capacity_factor 1.25; ssm_state 128, headdim 64, expand 2, conv
+   4, chunk 256; vocab 65,536), random bf16 weights from a seeded
+   generator, memory freed first as in phase 13.  The period's four
+   MoE layers are ~77 GB of experts; ``hybrid_distinct_moe`` reckons
+   how many get experts of their own (the weights and 18 GiB of
+   activations within the free memory; ``--hybrid-distinct``
+   overrides), and each later MoE layer routes its own tokens through
+   its own router over the last distinct layer's 16 experts (the same
+   Parameters), so every FLOP and launch of the period runs.  (a)
+   prefill 8 × 2048 and 32 greedy decode steps, counters zeroed around
+   each: flash attention once and the SSD scan seven times a prefill,
+   nothing else, nothing in decode; (b) one prefill's routing (pairs
+   dropped, the fullest expert against the capacity, 2560); (c) bf16
+   decode against a fresh forward over sequence 0 at the check-only
+   capacity_factor E / k = 8, under phase 13's rules; (d) float32 on
+   the card against the CPU at d 1024, 8 / 1 heads of 128, d_ff 3072
+   and everything else published (~3.3 GB a side), one prompt of 256
+   tokens and 32 steps: logits within F32_CARD_CPU_RTOL, the same
+   greedy tokens, and every MoE call routing alike or, a token routed
+   differently, a near-tie (``route_flip``).  Printed: parameters as
+   served and as stored and which layers share experts, peak memory,
+   prefill seconds and tokens/s (warm and cold), decode ms/step, the
+   device profile of one prefill and of 8 decode steps, beside the
+   card's name and power limit; the verdict is ``hybrid_failures``,
+   read after phase 11.
+
 Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
-phase 14 runs after phases 5 and 6, phase 13 after phase 14, phase 11
-after them, and phase 15 last.
+phase 14 runs after phases 5 and 6, phase 13 after phase 14, phase 16
+after phase 13, phase 11 after them, and phase 15 last.
 ``main`` sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
 before the first CUDA allocation, so that memory earlier phases freed
-can hold phase 13's model.
+can hold phase 13's and phase 16's models.
 
 Phases 3, 4, 7, 8, 9, 10 and 12 zero the launch counters before driving
 each session (and each reopen, each driver run) and read them after:
@@ -1180,9 +1215,9 @@ def ssd_case(randn, b, s, h, p, n, chunk, with_state0: bool) -> dict:
 def lm_kernel_cases(seed: int):
     """Flash attention and the SSD scan on seeded random inputs: the
     main-path shape of each first (smollm-360m / mamba2-130m prefill),
-    then flash attention at the shapes phases 13, 14 and 15 give it and the
-    other head dims and masks it takes, and the scan continuing a
-    cache."""
+    then flash attention at the shapes phases 13, 14, 15 and 16 give it,
+    kimi-k2's prefill (head dim 112) and the other head dims and masks it
+    takes, and the scan continuing a cache and at phase 16's shape."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1206,6 +1241,10 @@ def lm_kernel_cases(seed: int):
          None),                                       # whisper decoder self
         (LM_BATCH, 14, 2, 256 + LM_PROMPT, 256 + LM_PROMPT, 64, bf16, True,
          None, None),                                 # internvl2-1b prefill
+        (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 112, bf16, True, None,
+         None),             # kimi-k2 prefill: D 112, run padded to 128 (C9)
+        (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 128, bf16, True, None,
+         None),                                       # jamba-1.5-large prefill
         (LM_BATCH, 12, 12, 1500, 1500, 64, f32, False, None,
          None),                       # whisper encoder, training: f32 frames
         (LM_BATCH, 12, 12, WHISPER_TEXT_CTX, 1500, 64, f32, False, None,
@@ -1218,9 +1257,12 @@ def lm_kernel_cases(seed: int):
         (2, 4, 2, 300, 512, 64, f32, False, None, 450),      # kv_len padding
         (2, 4, 2, 300, 512, 64, bf16, False, None, 450))]
     # the SSD scan at the mamba2-130m prefill: B 8, S 2048, H 24, P 64,
-    # N 128, chunk 256; from a zero state and continuing a cache
+    # N 128, chunk 256; from a zero state and continuing a cache; and at
+    # jamba-1.5-large's: H 256 (d_inner 16,384 / headdim 64)
     cases += [ssd_case(randn, LM_BATCH, LM_PROMPT, 24, 64, 128, 256, s0)
               for s0 in (False, True)]
+    cases.append(ssd_case(randn, LM_BATCH, LM_PROMPT, 256, 64, 128, 256,
+                          False))
     return cases
 
 
@@ -1269,6 +1311,7 @@ def first_call(seed: int) -> int:
         (1, 3, 1, 300, 300, 64, bf16, True, None, None),
         (2, 4, 2, 200, 200, 128, bf16, True, 96, None),
         (1, 2, 1, 130, 130, 256, bf16, True, None, None),
+        (1, 4, 2, 200, 200, 112, bf16, True, None, None),
         (1, 2, 1, 100, 256, 64, bf16, False, None, 150))]
     cases += [ssd_case(randn, 2, 512, 4, 64, 128, 256, False),
               ssd_case(randn, 2, 300, 3, 64, 128, 100, True)]
@@ -2762,12 +2805,14 @@ def lm_config(arch: str, layers: int):
 
 
 def greedy(api, model, cfg, tokens, n_steps: int, cache_cap: int,
-           after_prefill=None, extra=None, offset: int = 0):
+           after_prefill=None, extra=None, offset: int = 0,
+           before_step=None):
     """Prefill ``tokens`` (with the batch's ``extra`` inputs: ``frames``
     or ``patches``) then ``n_steps`` greedy decode steps at absolute
     positions ``offset`` + len + i (vlm: ``offset`` = its patch count),
-    calling ``after_prefill()`` between the two.  Returns (generated [B,
-    n_steps + 1], logits of every step, caches)."""
+    calling ``after_prefill()`` between the two and ``before_step(i,
+    caches)`` before step i.  Returns (generated [B, n_steps + 1],
+    logits of every step, caches)."""
     import torch
     logits, caches = api.prefill(model, {"tokens": tokens, **(extra or {})},
                                  cfg, cache_cap=cache_cap)
@@ -2775,6 +2820,8 @@ def greedy(api, model, cfg, tokens, n_steps: int, cache_cap: int,
         after_prefill()
     out, steps = [logits.argmax(-1)], [logits]
     for i in range(n_steps):
+        if before_step:
+            before_step(i, caches)
         logits, caches = api.decode_step(model, out[-1][:, None],
                                          offset + tokens.shape[1] + i,
                                          caches, cfg)
@@ -3399,13 +3446,23 @@ def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
     (``judged``: the flips judged, the layers pinned, the pinned
     re-run's error, and whether a last unpinned re-run, which also puts
     the step's own row back into the cache, gave the step's logits bit
-    for bit)."""
+    for bit).  A re-run reads the key / value rows of earlier positions
+    from the last cache (later rows are masked) and the SSM layers'
+    states as they were before its step: a decode step replaces an SSM
+    cache's tensors, and the ones each step starts from are kept on the
+    host."""
     import torch
 
     from repro_torch.models import api
     from repro_torch.models.moe import route
+    from repro_torch.models.ssm import SSMCache
     s, k = prompts.shape[1], cfg.top_k
-    dec, fwd = {}, {}
+    dec, fwd, ssm_before = {}, {}, []
+
+    def keep_ssm(i, caches):
+        ssm_before.append([(c, c.conv.cpu(), c.state.cpu())
+                           for g in caches for c in g.values()
+                           if isinstance(c, SSMCache)])
 
     def on_decode(layer, mod, x):
         dec.setdefault(layer, []).append(route(mod, x[:1, -1], cfg).logits[0])
@@ -3418,7 +3475,8 @@ def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
         try:
             gen, steps, caches = greedy(api, model, cfg, prompts, n_steps,
                                         s + n_steps,
-                                        after_prefill=hooks.__enter__)
+                                        after_prefill=hooks.__enter__,
+                                        before_step=keep_ssm)
         finally:
             hooks.__exit__()
         seq = torch.cat([prompts[:1], gen[:1, :n_steps]], 1)
@@ -3438,6 +3496,9 @@ def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
         judged = []
         for i in sorted({f["step"] for f in flips}):
             def rerun(pins, i=i):
+                for c, conv, state in ssm_before[i]:
+                    c.conv = conv.to(c.conv.device)
+                    c.state = state.to(c.state.device)
                 return pinned_step(model, cfg, gen[:, i:i + 1], s + i,
                                    caches, pins)
             j = judge_flips({n: fwd[n][i] for n in fwd},
@@ -3450,7 +3511,7 @@ def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
                             {x["layer"] for x in j["rounds"]}]
             j["reproduces"] = bool(torch.equal(rerun({})[0], steps[i + 1]))
             judged.append(j)
-        del caches
+        del caches, ssm_before
     agree = float((full[s - 1:].argmax(-1) == gen[0, :n_steps + 1])
                   .float().mean())
     return dict(capacity_factor=cfg.capacity_factor, step_rel=step_rel,
@@ -3461,7 +3522,7 @@ def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
 def routes_by_call(model, cfg, tokens, n_steps: int):
     """Greedy decode of ``tokens`` (prefill + ``n_steps`` steps) with hooks
     on the MoE modules: (generated, every step's logits, each MoE call's
-    (layer, top-k, keep, slot) on the host)."""
+    (layer, top-k, keep, slot, router logits) on the host)."""
     import torch
 
     from repro_torch.models import api
@@ -3470,63 +3531,53 @@ def routes_by_call(model, cfg, tokens, n_steps: int):
 
     def read(layer, mod, x):
         r = route(mod, x.reshape(-1, x.shape[-1]), cfg)
-        calls.append((layer, r.topi.cpu(), r.keep.cpu(), r.slot.cpu()))
+        calls.append((layer, r.topi.cpu(), r.keep.cpu(), r.slot.cpu(),
+                      r.logits.cpu()))
     with torch.no_grad(), moe_inputs(model, read):
         gen, steps, _ = greedy(api, model, cfg, tokens, n_steps,
                                tokens.shape[1] + n_steps)
     return gen, steps, calls
 
 
-def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
-              prompt: int = LM_PROMPT, decode: int = LM_DECODE,
-              check_prompt: int = CHECK_PROMPT,
-              check_decode: int = CHECK_DECODE,
-              f32_layers: int = MOE_F32_LAYERS, cut: str = "") -> dict:
-    """Phase 13: serve ``cfg`` (a MoE LM at full width, its depth cut to
-    ``cfg.n_layers``) in bf16 from a seeded generator.  (a) the main
-    path, prefill and greedy decode, counters zeroed before each and read
-    after; (b) one prefill's routing at the published capacity, read
-    through forward hooks; (c) decode against a fresh forward at the
+def memory_before(name: str) -> dict:
+    """Phases 13 and 16 before their model: free what earlier phases
+    hold, print and return what is still allocated and reserved (more
+    than MOE_START_ALLOCATED allocated fails the phase), and reset the
+    card's peak."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(allocated_before=torch.cuda.memory_allocated(),
+               reserved_before=torch.cuda.memory_reserved())
+    print(f"{name}: before the model, "
+          f"{res['allocated_before'] / 2 ** 30:.3f} GiB allocated, "
+          f"{res['reserved_before'] / 2 ** 30:.3f} GiB reserved "
+          f"(limit {MOE_START_ALLOCATED / 2 ** 30:.0f} GiB allocated)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    return res
+
+
+def serve_moe_lm(model, cfg, prompts, decode: int, device) -> dict:
+    """Phases 13 and 16's bf16 checks of a MoE LM ``model``: (a) the main
+    path, a prefill of ``prompts`` and ``decode`` greedy steps, the clock
+    and the counters zeroed before each and read after; (b) one
+    prefill's routing at ``cfg``'s capacity, read through forward hooks;
+    on the card a warm prefill and the device profiles of one prefill and
+    of 8 decode steps; (c) decode against a fresh forward at the
     check-only capacity factor E / k (capacity = T: no pair can drop in
-    either), in bf16 and, on ``f32_layers`` layers, in float32; (d) the
-    float32 model on ``device`` and on the CPU at the published capacity:
-    logits, greedy tokens and every MoE call's routing.  The verdict is
-    ``moe_failures``."""
-    import copy
+    either); the peak memory."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.models import api
 
     on_card = torch.device(device).type == "cuda"
-    res = dict(arch=cfg.name, n_layers=cfg.n_layers, cut=cut,
-               kernel="flash_attention", d_model=cfg.d_model,
-               capacity_factor=cfg.capacity_factor, batch=batch,
-               prompt=prompt, decode=decode)
-    if on_card:
-        gc.collect()
-        torch.cuda.empty_cache()
-        res["allocated_before"] = torch.cuda.memory_allocated()
-        res["reserved_before"] = torch.cuda.memory_reserved()
-        print(f"{cfg.name}: before the model, "
-              f"{res['allocated_before'] / 2 ** 30:.3f} GiB allocated, "
-              f"{res['reserved_before'] / 2 ** 30:.3f} GiB reserved "
-              f"(limit {MOE_START_ALLOCATED / 2 ** 30:.0f} GiB allocated)",
-              flush=True)
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen_w = torch.Generator(device=device).manual_seed(seed)
-    model = api.init_params(cfg, gen_w, torch.bfloat16, device)
-    _sync(device)
-    res["init_s"] = time.perf_counter() - t0
-    res["params"] = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(seed)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (batch, prompt))).to(device)
+    batch, prompt = prompts.shape
     cap = prompt + decode
+    res = {}
 
     # (a) the main path: prefill, then greedy decode; the clock and the
     # counters are read after each
@@ -3579,6 +3630,49 @@ def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
     res["bf16_check_s"] = time.perf_counter() - t0
     if on_card:
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
+              prompt: int = LM_PROMPT, decode: int = LM_DECODE,
+              check_prompt: int = CHECK_PROMPT,
+              check_decode: int = CHECK_DECODE,
+              f32_layers: int = MOE_F32_LAYERS, cut: str = "") -> dict:
+    """Phase 13: serve ``cfg`` (a MoE LM at full width, its depth cut to
+    ``cfg.n_layers``) in bf16 from a seeded generator.  (a) the main
+    path, prefill and greedy decode, counters zeroed before each and read
+    after; (b) one prefill's routing at the published capacity, read
+    through forward hooks; (c) decode against a fresh forward at the
+    check-only capacity factor E / k (capacity = T: no pair can drop in
+    either), in bf16 and, on ``f32_layers`` layers, in float32; (d) the
+    float32 model on ``device`` and on the CPU at the published capacity:
+    logits, greedy tokens and every MoE call's routing.  The verdict is
+    ``moe_failures``."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+
+    on_card = torch.device(device).type == "cuda"
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, cut=cut,
+               kernel="flash_attention", d_model=cfg.d_model,
+               capacity_factor=cfg.capacity_factor, batch=batch,
+               prompt=prompt, decode=decode)
+    if on_card:
+        res.update(memory_before(cfg.name))
+    t0 = time.perf_counter()
+    gen_w = torch.Generator(device=device).manual_seed(seed)
+    model = api.init_params(cfg, gen_w, torch.bfloat16, device)
+    _sync(device)
+    res["init_s"] = time.perf_counter() - t0
+    res["params"] = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt))).to(device)
+    res.update(serve_moe_lm(model, cfg, prompts, decode, device))
     del model
     gc.collect()
     if on_card:
@@ -3592,8 +3686,8 @@ def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
                           torch.float32, "cpu")
     card = copy.deepcopy(cpu).to(device)
     res["f32_decode"] = decode_vs_forward(
-        card, dataclasses.replace(check, n_layers=f32_layers), prompts,
-        decode)
+        card, dataclasses.replace(small, capacity_factor=small.n_experts
+                                  / small.top_k), prompts, decode)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, check_prompt)))
     g_card, s_card, r_card = routes_by_call(card, small, toks.to(device),
                                             check_decode)
@@ -3617,6 +3711,50 @@ def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
     if on_card:
         torch.cuda.empty_cache()
     return res
+
+
+def decode_rule_failures(what: str, d: dict) -> list:
+    """Phase 13's decode rules (``moe_failures``) on one
+    ``decode_vs_forward`` result ``d``, ``what`` "bf16" or "float32"."""
+    bad = []
+    if not d["finite"]:
+        bad.append(f"{what} decode check: non-finite logits")
+    flipped = {f["step"] for f in d["flips"]}
+    if what == "float32" and d["flips"]:
+        bad.append(f"float32 decode routes differently from the "
+                   f"forward at (step, layer) "
+                   f"{[(f['step'], f['layer']) for f in d['flips']]}")
+    rel = d["step_rel"]
+    tol = ([BF16_FIRST_STEP_RTOL] + [BF16_DECODE_RTOL] * (len(rel) - 1)
+           if what == "bf16" else [F32_CARD_CPU_RTOL] * len(rel))
+    for j in d["judged"] if what == "bf16" else ():
+        i, pinned = j["step"], j["pinned"]
+        for f in j["rounds"]:
+            if not f["near_tie"]:
+                bad.append(
+                    f"bf16 decode: the route flip at step {i}, layer "
+                    f"{f['layer']} is not a near-tie (gap "
+                    f"{f['gap']:.4g} > |Δ router logit| "
+                    f"{f['delta']:.4g})" + (
+                        f" with layers {pinned} pinned to the "
+                        f"forward's experts" if pinned else ""))
+        if (j["rounds"] and all(f["near_tie"] for f in j["rounds"])
+                and not j["pinned_rel"] <= tol[i]):
+            bad.append(f"bf16 decode with step {i}'s near-tie flips "
+                       f"(layers {pinned}) pinned to the forward's "
+                       f"experts disagrees with a fresh forward: rel "
+                       f"err {j['pinned_rel']:.4g} (tolerance "
+                       f"{tol[i]:.4g})")
+        if not j["reproduces"]:
+            bad.append(f"bf16 decode: a re-run of step {i} does not "
+                       f"give the step's logits bit for bit")
+    over = [(i, r) for i, (r, t) in enumerate(zip(rel, tol))
+            if i not in flipped and not r <= t]
+    if over:
+        bad.append(f"{what} decode disagrees with a fresh forward at "
+                   f"steps without a route flip: (step, rel err) "
+                   f"{[(i, round(r, 5)) for i, r in over]}")
+    return bad
 
 
 def moe_failures(res: dict) -> list:
@@ -3655,43 +3793,7 @@ def moe_failures(res: dict) -> list:
                    f"fullest expert {ro['fullest']})")
     for what, d in (("bf16", res["bf16_decode"]),
                     ("float32", res["f32_decode"])):
-        if not d["finite"]:
-            bad.append(f"{what} decode check: non-finite logits")
-        flipped = {f["step"] for f in d["flips"]}
-        if what == "float32" and d["flips"]:
-            bad.append(f"float32 decode routes differently from the "
-                       f"forward at (step, layer) "
-                       f"{[(f['step'], f['layer']) for f in d['flips']]}")
-        rel = d["step_rel"]
-        tol = ([BF16_FIRST_STEP_RTOL] + [BF16_DECODE_RTOL] * (len(rel) - 1)
-               if what == "bf16" else [F32_CARD_CPU_RTOL] * len(rel))
-        for j in d["judged"] if what == "bf16" else ():
-            i, pinned = j["step"], j["pinned"]
-            for f in j["rounds"]:
-                if not f["near_tie"]:
-                    bad.append(
-                        f"bf16 decode: the route flip at step {i}, layer "
-                        f"{f['layer']} is not a near-tie (gap "
-                        f"{f['gap']:.4g} > |Δ router logit| "
-                        f"{f['delta']:.4g})" + (
-                            f" with layers {pinned} pinned to the "
-                            f"forward's experts" if pinned else ""))
-            if (j["rounds"] and all(f["near_tie"] for f in j["rounds"])
-                    and not j["pinned_rel"] <= tol[i]):
-                bad.append(f"bf16 decode with step {i}'s near-tie flips "
-                           f"(layers {pinned}) pinned to the forward's "
-                           f"experts disagrees with a fresh forward: rel "
-                           f"err {j['pinned_rel']:.4g} (tolerance "
-                           f"{tol[i]:.4g})")
-            if not j["reproduces"]:
-                bad.append(f"bf16 decode: a re-run of step {i} does not "
-                           f"give the step's logits bit for bit")
-        over = [(i, r) for i, (r, t) in enumerate(zip(rel, tol))
-                if i not in flipped and not r <= t]
-        if over:
-            bad.append(f"{what} decode disagrees with a fresh forward at "
-                       f"steps without a route flip: (step, rel err) "
-                       f"{[(i, round(r, 5)) for i, r in over]}")
+        bad += decode_rule_failures(what, d)
     c = res["card_cpu"]
     if not c["rel"] <= F32_CARD_CPU_RTOL:
         bad.append(f"float32 card and CPU logits differ by {c['rel']:.3g} "
@@ -3704,28 +3806,23 @@ def moe_failures(res: dict) -> list:
     return [f"{res['arch']}: {b}" for b in bad]
 
 
-def moe_lines(res: dict, smi: str) -> list:
-    """Phase 13's printed lines, the card's name and power limit beside
-    its times."""
-    ro, b, f, c = (res["routing"], res["bf16_decode"], res["f32_decode"],
-                   res["card_cpu"])
+def routing_line(res: dict) -> str:
+    ro = res["routing"]
+    return (f"{res['arch']}: routing of one prefill at capacity_factor "
+            f"{res['capacity_factor']}: dropped {ro['dropped_share']:.4f} "
+            f"of {ro['pairs']} pairs ({ro['dropped']}; "
+            f"{ro['layers_dropping']} of {len(ro['per_layer'])} layers "
+            f"drop), fullest expert {ro['fullest']} pairs for capacity "
+            f"{ro['cap']}")
+
+
+def bf16_decode_line(res: dict) -> str:
+    """``decode_vs_forward``'s bf16 result, each route flip and how its
+    step was judged."""
+    b = res["bf16_decode"]
     flipped = {x["step"] for x in b["flips"]}
     calm = [r for i, r in enumerate(b["step_rel"]) if i not in flipped]
-    lines = [
-        f"{res['arch']} [moe] on {smi}: {res['n_layers']} layers (cut: "
-        f"{res['cut']}), d {res['d_model']}, {res['params'] / 1e9:.2f} B "
-        f"params; prefill {res['batch']}x{res['prompt']} in "
-        f"{res['prefill_s']:.4f} s ({res['prefill_tokens_per_s']:.0f} "
-        f"tokens/s; cold {res['prefill_cold_s']:.4f} s), decode "
-        f"{res['decode_ms_per_step']:.3f} ms/step, peak "
-        f"{res['peak_gib']:.2f} GiB, init {res['init_s']:.1f} s; launches "
-        f"per prefill {res['prefill_launches']}, decode "
-        f"{res['decode_launches']}",
-        f"{res['arch']}: routing of one prefill at capacity_factor "
-        f"{res['capacity_factor']}: dropped {ro['dropped_share']:.4f} of "
-        f"{ro['pairs']} pairs ({ro['dropped']}; {ro['layers_dropping']} of "
-        f"{len(ro['per_layer'])} layers drop), fullest expert "
-        f"{ro['fullest']} pairs for capacity {ro['cap']}",
+    return (
         f"{res['arch']}: bf16 decode vs fresh forward at the check-only "
         f"capacity_factor {b['capacity_factor']} (capacity = T, nothing "
         f"drops): rel err first step {b['step_rel'][0]:.4g} (tolerance "
@@ -3749,17 +3846,11 @@ def moe_lines(res: dict, smi: str) -> list:
                   + ("n/a" if j["pinned_rel"] is None
                      else f"{j['pinned_rel']:.4g}")
                   + f", unpinned re-run bit-equal {j['reproduces']}"
-                  for j in b["judged"]),
-        f"{res['arch']}: float32, {c['layers']} layers at full width: decode "
-        f"vs fresh forward at capacity_factor {f['capacity_factor']}: max "
-        f"rel err {max(f['step_rel']):.3g} (tolerance "
-        f"{F32_CARD_CPU_RTOL:.3g}), route flips {len(f['flips'])}; card vs "
-        f"CPU at capacity_factor {c['capacity_factor']}, prompt "
-        f"{c['prompt']} + {c['decode']} steps: rel err {c['rel']:.3g} "
-        f"(tolerance {F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: "
-        f"{c['same_tokens']}, {c['calls']} MoE calls route alike: "
-        f"{not c['route_differs']} ({c['dropped']} pairs dropped on the "
-        f"card) ({res['f32_check_s']:.1f} s)"]
+                  for j in b["judged"]))
+
+
+def profile_lines(res: dict) -> list:
+    lines = []
     for what in ("prefill", "decode8"):
         pr = res.get(f"profile_{what}")
         if pr:
@@ -3770,6 +3861,382 @@ def moe_lines(res: dict, smi: str) -> list:
                 f"busy {pr['busy']:.3f}; top " + "; ".join(
                     f"{k} {ms:.2f} ms x{n}" for k, ms, n in pr["top_ms"]))
     return lines
+
+
+def moe_lines(res: dict, smi: str) -> list:
+    """Phase 13's printed lines, the card's name and power limit beside
+    its times."""
+    f, c = res["f32_decode"], res["card_cpu"]
+    return [
+        f"{res['arch']} [moe] on {smi}: {res['n_layers']} layers (cut: "
+        f"{res['cut']}), d {res['d_model']}, {res['params'] / 1e9:.2f} B "
+        f"params; prefill {res['batch']}x{res['prompt']} in "
+        f"{res['prefill_s']:.4f} s ({res['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; cold {res['prefill_cold_s']:.4f} s), decode "
+        f"{res['decode_ms_per_step']:.3f} ms/step, peak "
+        f"{res['peak_gib']:.2f} GiB, init {res['init_s']:.1f} s; launches "
+        f"per prefill {res['prefill_launches']}, decode "
+        f"{res['decode_launches']}",
+        routing_line(res), bf16_decode_line(res),
+        f"{res['arch']}: float32, {c['layers']} layers at full width: decode "
+        f"vs fresh forward at capacity_factor {f['capacity_factor']}: max "
+        f"rel err {max(f['step_rel']):.3g} (tolerance "
+        f"{F32_CARD_CPU_RTOL:.3g}), route flips {len(f['flips'])}; card vs "
+        f"CPU at capacity_factor {c['capacity_factor']}, prompt "
+        f"{c['prompt']} + {c['decode']} steps: rel err {c['rel']:.3g} "
+        f"(tolerance {F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: "
+        f"{c['same_tokens']}, {c['calls']} MoE calls route alike: "
+        f"{not c['route_differs']} ({c['dropped']} pairs dropped on the "
+        f"card) ({res['f32_check_s']:.1f} s)"] + profile_lines(res)
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: jamba-1.5-large, the hybrid family, one published period
+
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# a prefill's activations, the SSM and KV caches and the expert
+# intermediates at 8 × 2048 tokens, above the weights.  Read on an H100
+# 80GB HBM3 at 700 W: with 3 MoE layers' experts (66.1 GiB of weights)
+# and 10 GiB set aside a prefill ran out of memory at 78.4 GiB
+# allocated; with 2 (48.09 GiB) the phase peaked 17.35 GiB above the
+# weights, in (c)'s prefill at capacity_factor 8, where each expert
+# holds all 16,384 tokens
+HYBRID_TRANSIENT_BYTES = 18 * 2 ** 30
+# fewer MoE layers with experts of their own fails the phase
+HYBRID_MIN_DISTINCT = 2
+# (d)'s float32 card-vs-CPU check: the published period, 16 experts
+# top-2, the SSM shapes, vocabulary and capacity, at a width whose
+# float32 weights (~3.3 GB) the CPU runs within the phase's time; the
+# published period is ~180 GB in float32
+HYBRID_CHECK_WIDTH = dict(d_model=1024, n_heads=8, n_kv_heads=1,
+                          head_dim=128, d_ff=3072)
+
+
+def hybrid_config():
+    """jamba-1.5-large at published width, one period of layers (the
+    reference runs whole periods only)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(HYBRID_ARCH)
+    return dataclasses.replace(cfg, n_layers=cfg.attn_period)
+
+
+def hybrid_check_config(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, **HYBRID_CHECK_WIDTH)
+
+
+def n_moe_layers(cfg) -> int:
+    from repro_torch.models.blocks import layer_kinds, n_groups
+    return n_groups(cfg) * sum(f == "moe" for _, f in layer_kinds(cfg))
+
+
+def hybrid_weight_bytes(cfg, distinct: int) -> int:
+    """Bytes of ``cfg``'s weights as phase 16 stores them: bf16, the SSM's
+    ``A_log`` / ``D`` / ``dt_bias`` and the routers float32, and expert
+    weights for ``distinct`` MoE layers only (the others share them)."""
+    from repro_torch.models.blocks import layer_kinds, n_groups
+    d, e, f, hd = cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.hd()
+    d_in, n, nh = cfg.d_inner(), cfg.ssm_state, cfg.ssm_nheads()
+    mixer = {"attn": 2 * (2 * d * hd * (cfg.n_heads + cfg.n_kv_heads)),
+             "ssm": 2 * (d * (2 * d_in + 2 * n + nh)
+                         + cfg.ssm_conv * (d_in + 2 * n) + d_in
+                         + d_in * d) + 4 * 3 * nh}
+    ffn = {"mlp": 2 * 3 * d * f, "moe": 4 * d * e}
+    period = sum(2 * d + mixer[m] + ffn[k] + 2 * d
+                 for m, k in layer_kinds(cfg))
+    embed = 2 * cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return (n_groups(cfg) * period + embed + 2 * d
+            + distinct * 2 * 3 * e * d * f)
+
+
+def hybrid_distinct_moe(cfg, free_bytes: int, override: int = 0) -> tuple:
+    """Phase 16's count of MoE layers with expert weights of their own, and
+    the reason, as printed: ``override`` (``--hybrid-distinct``) if given,
+    else every MoE layer of the period, one fewer while the weights and
+    HYBRID_TRANSIENT_BYTES exceed ``free_bytes``.  The MoE layers past
+    the count serve the last distinct layer's experts."""
+    total = n_moe_layers(cfg)
+    if override:
+        return override, (f"{override} of {total} MoE layers with experts "
+                          f"of their own (--hybrid-distinct)")
+    n = total
+    while n > 1 and (hybrid_weight_bytes(cfg, n) + HYBRID_TRANSIENT_BYTES
+                     > free_bytes):
+        n -= 1
+    why = (f"{n} of {total} MoE layers with experts of their own: the "
+           f"weights are {hybrid_weight_bytes(cfg, total) / 1e9:.1f} GB "
+           f"with all {total}, {hybrid_weight_bytes(cfg, n) / 1e9:.1f} GB "
+           f"with {n}, with {HYBRID_TRANSIENT_BYTES / 2 ** 30:.0f} GiB for "
+           f"activations, of {free_bytes / 2 ** 30:.1f} GiB free")
+    if n < total:
+        why += (f"; MoE layers {n + 1}..{total} route over MoE layer {n}'s "
+                f"{cfg.n_experts} experts")
+    return n, why
+
+
+def shared_experts_init(distinct: int):
+    """An ``init_moe`` for ``models.blocks``: the first ``distinct`` MoE
+    layers it builds draw their experts one at a time (a float32 draw of
+    a whole [E, d, f] tensor would need ~26 GB beside the weights at
+    jamba's width); every later one draws its own router and takes the
+    last distinct layer's ``w_up`` / ``w_gate`` / ``w_down`` Parameters
+    themselves, so nothing larger than what is kept is allocated."""
+    import torch
+
+    from repro_torch.models.layers import _normal, params_module
+    from repro_torch.models.moe import MoE
+    made = []
+
+    def init_moe(gen, cfg, dtype, device):
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        mod = params_module(MoE(), wg=_normal(gen, (d, e), d ** -0.5,
+                                              torch.float32, device))
+        names = (("w_up", (d, f), d ** -0.5), ("w_down", (f, d), f ** -0.5))
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            names += (("w_gate", (d, f), d ** -0.5),)
+        for name, shape, scale in names:
+            if len(made) < distinct:
+                w = torch.empty((e, *shape), dtype=dtype, device=device)
+                for i in range(e):
+                    w[i] = _normal(gen, shape, scale, dtype, device)
+                mod.register_parameter(name, torch.nn.Parameter(w))
+            else:
+                setattr(mod, name, getattr(made[distinct - 1], name))
+        made.append(mod)
+        return mod
+    return init_moe
+
+
+def hybrid_model(cfg, seed: int, distinct: int, dtype, device):
+    """``cfg``'s LM from a seeded generator on ``device``, its MoE layers
+    past the first ``distinct`` sharing that layer's experts
+    (``shared_experts_init``, in place of ``models.blocks.init_moe`` for
+    the build)."""
+    import torch
+
+    from repro_torch.models import api, blocks
+    real = blocks.init_moe
+    blocks.init_moe = shared_experts_init(distinct)
+    try:
+        return api.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(seed), dtype, device)
+    finally:
+        blocks.init_moe = real
+
+
+def expert_sharing(model) -> dict:
+    """Parameters as served (each MoE layer counting its experts) and as
+    stored, and each MoE layer whose experts are another's."""
+    from repro_torch.models.moe import MoE
+    owner, shares = {}, {}
+    for name, m in model.named_modules():
+        if isinstance(m, MoE):
+            first = owner.setdefault(id(m.w_up), name)
+            if first != name:
+                shares[name] = first
+    return dict(served=sum(p.numel() for _, p in model.named_parameters(
+                    remove_duplicate=False)),
+                stored=sum(p.numel() for p in model.parameters()),
+                stored_bytes=sum(p.numel() * p.element_size()
+                                 for p in model.parameters()),
+                shares=shares)
+
+
+def hybrid_launches_want(cfg) -> dict:
+    """Each kernel's launches in one prefill: B5 once an attention layer,
+    B6 once an SSM layer."""
+    from repro_torch.models.blocks import layer_kinds, n_groups
+    kinds = [m for m, _ in layer_kinds(cfg)] * n_groups(cfg)
+    return {"flash_attention": kinds.count("attn"),
+            "ssd_scan": kinds.count("ssm")}
+
+
+def route_differences(card_calls, cpu_calls, k: int) -> dict:
+    """``routes_by_call``'s calls on the card against the CPU's: every
+    token whose top-k differs, judged by ``route_flip`` (the CPU in the
+    forward's place; the same experts in another order: the gap between
+    the first pair of the CPU's top-k that swaps), and the calls whose
+    keep mask or slots differ with no token routed differently."""
+    import torch
+    flips, unexplained = [], []
+    if len(card_calls) != len(cpu_calls):
+        unexplained.append(("calls", len(card_calls), len(cpu_calls)))
+    for i, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+        rows = (a[1] != b[1]).any(-1).nonzero().flatten().tolist()
+        for t in rows:
+            f = route_flip(a[4][t], b[4][t], k)
+            if f is None:
+                fs = torch.sort(b[4][t], descending=True, stable=True)
+                j = int((a[1][t] != b[1][t]).nonzero()[0])
+                gap = float(fs.values[j] - fs.values[j + 1])
+                delta = float((a[4][t] - b[4][t]).abs().max())
+                f = dict(gap=gap, delta=delta, near_tie=gap <= delta)
+            flips.append(dict(call=i, layer=a[0], token=t, **f))
+        if not rows and not (torch.equal(a[2], b[2])
+                             and torch.equal(a[3], b[3])):
+            unexplained.append((i, a[0]))
+    return dict(flips=flips, unexplained=unexplained)
+
+
+def phase_hybrid(cfg, seed: int, distinct: int, device="cuda",
+                 batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+                 decode: int = LM_DECODE, check_cfg=None,
+                 check_prompt: int = CHECK_PROMPT,
+                 check_decode: int = CHECK_DECODE, cut: str = "") -> dict:
+    """Phase 16: serve ``cfg`` (a hybrid LM at full width, one period) in
+    bf16 from a seeded generator, ``distinct`` of its MoE layers with
+    experts of their own (``hybrid_model``).  (a) the main path, prefill
+    and greedy decode, counters zeroed before each and read after; (b)
+    one prefill's routing at the published capacity; (c) bf16 decode
+    against a fresh forward at the check-only capacity factor E / k;
+    (d) ``check_cfg`` (default ``hybrid_check_config``) in float32 on
+    ``device`` and on the CPU at the published capacity: logits, greedy
+    tokens and every MoE call's routing.  The verdict is
+    ``hybrid_failures``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+
+    on_card = torch.device(device).type == "cuda"
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               n_experts=cfg.n_experts, moe_layers=n_moe_layers(cfg),
+               distinct=distinct, cut=cut,
+               capacity_factor=cfg.capacity_factor, batch=batch,
+               prompt=prompt, decode=decode,
+               want=hybrid_launches_want(cfg))
+    if on_card:
+        res.update(memory_before(cfg.name))
+    t0 = time.perf_counter()
+    model = hybrid_model(cfg, seed, distinct, torch.bfloat16, device)
+    _sync(device)
+    res["init_s"] = time.perf_counter() - t0
+    res.update(expert_sharing(model))
+    if on_card:
+        res["weights_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt))).to(device)
+    res.update(serve_moe_lm(model, cfg, prompts, decode, device))
+    del model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) float32 on the card against the CPU, built on the CPU and
+    # copied, so both devices start from the same bits
+    small = check_cfg or hybrid_check_config(cfg)
+    t0 = time.perf_counter()
+    cpu = api.init_params(small, torch.Generator().manual_seed(seed),
+                          torch.float32, "cpu")
+    card = copy.deepcopy(cpu).to(device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, check_prompt)))
+    g_card, s_card, r_card = routes_by_call(card, small, toks.to(device),
+                                            check_decode)
+    g_cpu, s_cpu, r_cpu = routes_by_call(cpu, small, toks, check_decode)
+    res["card_cpu"] = dict(
+        width={k: getattr(small, k) for k in HYBRID_CHECK_WIDTH},
+        layers=small.n_layers, capacity_factor=small.capacity_factor,
+        gb=sum(p.numel() * p.element_size() for p in cpu.parameters()) / 1e9,
+        rel=max(_rel_err(a.cpu(), b) for a, b in zip(s_card, s_cpu)),
+        same_tokens=bool(torch.equal(g_card.cpu(), g_cpu)),
+        calls=len(r_card), prompt=check_prompt, decode=check_decode,
+        dropped=sum(int((~c[2]).sum()) for c in r_card),
+        **route_differences(r_card, r_cpu, small.top_k))
+    res["f32_check_s"] = time.perf_counter() - t0
+    del card, cpu
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_failures(res: dict) -> list:
+    """Phase 16's verdict on ``phase_hybrid``'s result: every failed
+    check, named; empty when the phase passed.  Fewer than
+    HYBRID_MIN_DISTINCT MoE layers with experts of their own; a prefill
+    launching other than ``hybrid_launches_want`` says, or any kernel in
+    decode; the bf16 decode rules of phase 13 (``decode_rule_failures``);
+    float32 card and CPU logits beyond F32_CARD_CPU_RTOL, other greedy
+    tokens, or a token routed differently that is not a near-tie (or a
+    keep mask or slots that differ with every token routed alike)."""
+    bad = []
+    if res.get("allocated_before", 0) > MOE_START_ALLOCATED:
+        bad.append(f"{res['allocated_before'] / 2 ** 30:.2f} GiB still "
+                   f"allocated when the phase began (limit "
+                   f"{MOE_START_ALLOCATED / 2 ** 30:.0f} GiB)")
+    if res["distinct"] < HYBRID_MIN_DISTINCT:
+        bad.append(f"{res['distinct']} of {res['moe_layers']} MoE layers "
+                   f"with experts of their own, fewer than "
+                   f"{HYBRID_MIN_DISTINCT}")
+    pre = res["prefill_launches"]
+    for k, n in res["want"].items():
+        if pre.get(k, 0) != n:
+            bad.append(f"a prefill launched {k} {pre.get(k, 0)} times, "
+                       f"want {n}")
+    others = {m: c for m, c in pre.items() if m not in res["want"] and c}
+    if others:
+        bad.append(f"a prefill launched {others}")
+    if any(res["decode_launches"].values()):
+        bad.append(f"decode launched {res['decode_launches']}")
+    if not res["finite"]:
+        bad.append("non-finite logits")
+    bad += decode_rule_failures("bf16", res["bf16_decode"])
+    c = res["card_cpu"]
+    if not c["rel"] <= F32_CARD_CPU_RTOL:
+        bad.append(f"float32 card and CPU logits differ by {c['rel']:.3g} "
+                   f"(tolerance {F32_CARD_CPU_RTOL:.3g})")
+    if not c["same_tokens"]:
+        bad.append("float32 card and CPU greedy tokens differ")
+    far = [(f["call"], f["layer"], f["token"]) for f in c["flips"]
+           if not f["near_tie"]]
+    if far:
+        bad.append(f"float32 card and CPU route tokens differently with no "
+                   f"near-tie: (call, layer, token) {far[:8]}")
+    if c["unexplained"]:
+        bad.append(f"float32 card and CPU keep or slot pairs differently "
+                   f"with every token routed alike: {c['unexplained'][:8]}")
+    return [f"{res['arch']}: {b}" for b in bad]
+
+
+def hybrid_lines(res: dict, smi: str) -> list:
+    """Phase 16's printed lines, the card's name and power limit beside
+    its times."""
+    c = res["card_cpu"]
+    shares = ", ".join(f"{k} uses {v}'s" for k, v in res["shares"].items())
+    return [
+        f"{res['arch']} [hybrid] on {smi}: {res['n_layers']} layers (one "
+        f"period), d {res['d_model']}, {res['n_experts']} experts in each "
+        f"of {res['moe_layers']} MoE layers; {res['served'] / 1e9:.2f} B "
+        f"params served, {res['stored'] / 1e9:.2f} B stored "
+        f"({res['stored_bytes'] / 1e9:.1f} GB; experts shared: "
+        f"{shares or 'none'}); {res['cut']}",
+        f"{res['arch']}: prefill {res['batch']}x{res['prompt']} in "
+        f"{res['prefill_s']:.4f} s ({res['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; cold {res['prefill_cold_s']:.4f} s), decode "
+        f"{res['decode_ms_per_step']:.3f} ms/step, peak "
+        f"{res['peak_gib']:.2f} GiB (weights {res['weights_gib']:.2f} GiB), "
+        f"init {res['init_s']:.1f} s; launches per prefill "
+        f"{res['prefill_launches']} (want {res['want']}), decode "
+        f"{res['decode_launches']}",
+        routing_line(res), bf16_decode_line(res),
+        f"{res['arch']}: float32 check at {c['width']}, {c['layers']} "
+        f"layers ({c['gb']:.2f} GB a side), card vs CPU at capacity_factor "
+        f"{c['capacity_factor']}, prompt {c['prompt']} + {c['decode']} "
+        f"steps: rel err {c['rel']:.3g} (tolerance "
+        f"{F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: "
+        f"{c['same_tokens']}, {c['calls']} MoE calls, tokens routed "
+        f"differently {len(c['flips'])}"
+        + "".join(f" (call {f['call']} layer {f['layer']} token "
+                  f"{f['token']}: gap {f['gap']:.4g}, |Δ| {f['delta']:.4g}, "
+                  f"near-tie {f['near_tie']})" for f in c["flips"][:8])
+        + f", {c['dropped']} pairs dropped on the card "
+        f"({res['f32_check_s']:.1f} s)"] + profile_lines(res)
 
 
 # ---------------------------------------------------------------------------
@@ -4728,6 +5195,9 @@ def parse_args(argv=None):
     ap.add_argument("--lm-layers", type=int, default=0,
                     help="cut the LMs' depth, served and trained (0: the "
                          "published depth; mixtral's as the card holds)")
+    ap.add_argument("--hybrid-distinct", type=int, default=0,
+                    help="phase 16's MoE layers with experts of their own "
+                         "(0: as many as the card holds)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--first-call", action="store_true",
                     help="build with ptxas's report, run small kernel "
@@ -4940,6 +5410,21 @@ def main(argv=None) -> int:
     moe_bad = moe_failures(moe)
     for b in moe_bad:
         log(f"chip_smoke: phase 13: {b}")
+    # phase 16 — jamba-1.5-large, one published period at full width, as
+    # many MoE layers with experts of their own as the card holds
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hybrid_cfg = hybrid_config()
+    distinct, cut = hybrid_distinct_moe(
+        hybrid_cfg, torch.cuda.mem_get_info()[0], args.hybrid_distinct)
+    hybrid = phase_hybrid(hybrid_cfg, args.seed, distinct, cut=cut)
+    phases[f"{HYBRID_ARCH}_s"] = time.perf_counter() - t0
+    for line in hybrid_lines(hybrid, smi.splitlines()[0]):
+        print(line, flush=True)
+    hybrid_bad = hybrid_failures(hybrid)
+    for b in hybrid_bad:
+        log(f"chip_smoke: phase 16: {b}")
     # phase 11 — training: both LMs, delta checkpoints and recovery, the
     # float32 card against the CPU
     gc.collect()
@@ -4985,7 +5470,7 @@ def main(argv=None) -> int:
     for name, r in serving["runs"].items():
         runs[f"serve {name}"] = r["launches"]
     for arch, r in (list(lms.items()) + list(families.items())
-                    + [(MOE_ARCH, moe)]):
+                    + [(MOE_ARCH, moe), (HYBRID_ARCH, hybrid)]):
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
     for arch in lms:
@@ -5017,16 +5502,18 @@ def main(argv=None) -> int:
                   dense=dense, edge=edge, durable=durable, crash=crash,
                   replication=replication, sharded=sharded,
                   serving=serving, lms=lms, families=families, moe=moe,
+                  hybrid=hybrid,
                   training=training, family_train=family_train, mesh=mesh,
                   args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels, "phases": phases}))
-    if moe_bad or family_bad or train_bad:
+    if moe_bad or family_bad or train_bad or hybrid_bad:
         return fail("; ".join([f"phase 13: {b}" for b in moe_bad]
                               + [f"phase 14: {b}" for b in family_bad]
-                              + [f"phase 15: {b}" for b in train_bad]))
+                              + [f"phase 15: {b}" for b in train_bad]
+                              + [f"phase 16: {b}" for b in hybrid_bad]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,8 +12,8 @@ One ``ModelConfig`` instance per assigned architecture lives in
   encdec  — Whisper-style encoder-decoder (stub audio frontend)
   vlm     — decoder with prepended patch embeddings (stub ViT frontend)
 
-The port's models run ``dense``, ``moe`` and ``ssm``; the other
-families raise ``NotImplementedError`` (``repro_torch.not_ported``).
+The port's models run every family: ``models/lm.py`` the decoder-only
+ones, ``models/encdec.py`` the encoder-decoder.
 """
 from __future__ import annotations
 

@@ -10,15 +10,24 @@ activations go in as ``.transpose(1, 2)`` views without copies or
 padding.  The bfloat16 instance copies rows in 16-byte pieces, so it
 needs 16-byte aligned operands with strides of whole 8-element pieces;
 a layout it cannot take raises here (nothing is copied to make it
-fit)."""
+fit).
+
+The kernel is built for the head dims in ``HEAD_DIMS``.  Any other head
+dim up to the largest (kimi-k2's 112) runs at the next one: q, k and v
+get zero columns (``pad_head_dim``) and the output's extra columns are
+sliced off.  The caller's ``scale`` is explicit, the zero columns add
+nothing to q·kᵀ, and the kept columns of P·V are those of the unpadded
+product; the backward, through the plain version on the saved unpadded
+q, k and v, is the unpadded function's."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (64, 128, 256)     # the head dims flash_attention.cu takes
+HEAD_DIMS = (64, 128, 256)     # the instances flash_attention.cu has
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,6 +65,17 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def pad_head_dim(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """``ts`` [..., D] with zero columns up to the least of HEAD_DIMS that
+    holds D (unchanged when D is one of them); raises above the largest."""
+    d = ts[0].shape[-1]
+    to = next((h for h in HEAD_DIMS if h >= d), None)
+    if to is None:
+        raise ValueError(f"head_dim {d} > {HEAD_DIMS[-1]}, the largest "
+                         "the kernel takes")
+    return [F.pad(t, (0, to - d)) if to != d else t for t in ts]
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -78,8 +98,6 @@ def flash_attention_fwd(q, k, v, causal: bool, window: int | None,
         _check(name, t, q.dtype)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -89,15 +107,16 @@ def flash_attention_fwd(q, k, v, causal: bool, window: int | None,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     build.check_same_device(q=q, k=k, v=v)
+    q, k, v = pad_head_dim(q, k, v)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             build.check_aligned(name, t, 8)
     out = torch.empty_like(q)           # keeps q's (transposed) strides
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     n_keys = skv if kv_len is None else max(0, min(int(kv_len), skv))
     build.ext().flash_attention(q, k, v, out, bool(causal), int(window or 0),
                                 n_keys, float(scale),
                                 build.stream_handle(q.device))
     build.LAUNCHES["flash_attention"] += 1
-    return out
+    return out[..., :d]

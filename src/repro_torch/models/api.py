@@ -1,4 +1,4 @@
-"""Unified model API over the families the port runs (dense, moe, ssm,
+"""Unified model API over every model family (dense, moe, ssm, hybrid,
 vlm, encdec) — counterpart of ``repro/models/api.py``:
 
   init_params(cfg, generator, dtype, device)    → params (an ``LM`` or
@@ -12,9 +12,8 @@ vlm, encdec) — counterpart of ``repro/models/api.py``:
 Batches are dicts holding ``tokens`` (and ``labels``, optionally
 ``mask``, for the loss), plus ``frames`` [B, enc_seq, d] for encdec
 (``models/encdec.py``) and ``patches`` [B, n_patches, d] for vlm
-(``models/lm.py``; decode positions then count the patches).  The
-hybrid family raises ``NotImplementedError``.  There is no ``impl``
-argument: the device decides how attention runs
+(``models/lm.py``; decode positions then count the patches).  There is
+no ``impl`` argument: the device decides how attention runs
 (``models/attention.py``).  On a mesh only the dense family's
 ``loss_fn`` / ``forward`` run; everything else raises, naming its
 ROADMAP step (``check_lm_mesh``).  ``input_specs`` comes with the
@@ -39,7 +38,6 @@ def check_lm_mesh(cfg: ModelConfig, what: str = "training") -> None:
     ``cfg``'s family (or ``what``) does not run on one yet."""
     if current_mesh() is None:
         return
-    lm.check_family(cfg)
     if cfg.family not in MESH_FAMILIES or what != "training":
         not_ported(f"{what} of the {cfg.family!r} family ({cfg.name}) on a "
                    "mesh", "A17")

@@ -1,10 +1,12 @@
 """Layer blocks: (mixer, ffn) pairs composed per the config's pattern —
 counterpart of ``repro/models/blocks.py``.
 
-A *group* is the config's repeating pattern of layers (dense, moe and
-ssm: 1 layer).  The JAX package scans over stacked group params; here
-the LM holds a ``ModuleList`` of groups and loops over it, and each
-group is a module holding its layers ``l0``, ``l1``, ….  A layer's FFN
+A *group* is the config's repeating pattern of layers (dense and ssm:
+1 layer; moe: ``moe_every``; hybrid: one period of ``attn_period``
+layers mixing attention and SSM mixers, MLPs and MoEs).  The JAX
+package scans over stacked group params; here the LM holds a
+``ModuleList`` of groups and loops over it, and each group is a module
+holding its layers ``l0``, ``l1``, ….  A layer's FFN
 is an MLP (``mlp``) or a mixture of experts (``moe``,
 ``models/moe.py``), called as a module so that forward hooks see its
 input.

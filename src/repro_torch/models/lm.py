@@ -1,6 +1,6 @@
-"""Decoder-only LM (dense / MoE / SSM / VLM) with KV/SSM caches and the
-three step entry points (forward, prefill, decode) and the training
-loss — counterpart of ``repro/models/lm.py``.
+"""Decoder-only LM (dense / MoE / SSM / hybrid / VLM) with KV/SSM caches
+and the three step entry points (forward, prefill, decode) and the
+training loss — counterpart of ``repro/models/lm.py``.
 
 The model is an ``nn.Module`` tree: ``LM`` holds ``embed``, a
 ``ModuleList`` of groups, ``final_norm`` and, for the VLM family,
@@ -14,9 +14,12 @@ VLM: the vision frontend is a stub, as in the JAX package.
 by ``patch_proj`` and put before the tokens; positions run over P + S,
 ``forward`` drops the prefix before the unembed, and a caller decodes
 at absolute position P + len + i with a ``cache_cap`` that holds the
-patches too.  The encoder-decoder family is ``models/encdec.py``.  The
-hybrid family is not ported yet and raises, naming its ROADMAP step
-(``UNPORTED_FAMILIES``).
+patches too.  The encoder-decoder family is ``models/encdec.py``.
+
+Hybrid (jamba): a group is one period of ``attn_period`` layers, each
+an attention or an SSM mixer followed by an MLP or, every
+``moe_every``-th layer, a mixture of experts (``models/blocks.py``).
+Off a mesh its MoE layers run as every other MoE family's does.
 
 On a mesh (``sharding.mesh_context`` of a ``DeviceMesh``, parameters and
 batch placed as DTensors, ``runtime.elastic.reshard_state`` /
@@ -36,25 +39,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import _normal, apply_norm, embed, \
     init_embed, init_norm, unembed
 from repro_torch.sharding import current_mesh, on_local_shards, shard, spec
-
-# encdec is served by models/encdec.py, through models/api.py
-PORTED_FAMILIES = ("dense", "moe", "ssm", "vlm", "encdec")
-# the ROADMAP step that ports each other family: hybrid needs expert
-# parallelism (one jamba group at published widths exceeds one card)
-UNPORTED_FAMILIES = {"hybrid": "A17"}
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        not_ported(f"the {cfg.family!r} model family ({cfg.name})",
-                   UNPORTED_FAMILIES[cfg.family])
-
 
 class LM(nn.Module):
     """Parameters of one decoder-only LM (names as the JAX param tree:
@@ -80,7 +70,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda") -> LM:
     """Random weights drawn from ``generator``: ``dtype`` for the weights,
     float32 for the SSM's ``A_log``, ``D`` and ``dt_bias``."""
-    check_family(cfg)
     dev = resolve_device(device)
     emb = init_embed(generator, cfg, dtype, dev)
     groups = [B.init_group(generator, cfg, dtype, dev)
@@ -213,7 +202,6 @@ def prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
                        dtype=torch.bfloat16, device="cuda") -> list[dict]:
     """Empty caches, one dict per group."""
-    check_family(cfg)
     dev = resolve_device(device)
     return [B.init_group_cache(cfg, batch, cache_len, dtype, dev)
             for _ in range(B.n_groups(cfg))]

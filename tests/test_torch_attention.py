@@ -117,6 +117,33 @@ def test_kernel_launch_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_fwd(meta, meta, meta, True, None, 1.0, None)
     assert FA.HEAD_DIMS == (64, 128, 256)
+    with pytest.raises(ValueError, match="head_dim 320 > 256"):
+        FA.pad_head_dim(torch.zeros((1, 2, 8, 320)))
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 5)])
+def test_head_dim_112_runs_padded_to_128(causal, window):
+    """kimi-k2's head dim, 112, which the kernel has no instance of: q, k
+    and v padded with zero columns to 128 (``pad_head_dim``, as the
+    launch pads them), the plain version run on them at the unpadded
+    scale and the output sliced back give the plain version's result on
+    the unpadded inputs; the padded columns of the output are zero."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 24, 112))
+                         .astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 24, 112))
+                             .astype(np.float32)) for _ in range(2))
+    scale = 112 ** -0.5
+    qp, kp, vp = FA.pad_head_dim(q, k, v)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == 128
+    assert torch.equal(qp[..., :112], q) and not qp[..., 112:].any()
+    out = attention_ref(qp, kp, vp, causal=causal, window=window,
+                        scale=scale)
+    want = attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    assert not out[..., 112:].any()
+    assert float((out[..., :112] - want).abs().max()) < 1e-6
+    assert FA.pad_head_dim(q[..., :64])[0].shape[-1] == 64
 
 
 @pytest.mark.parametrize("d", [64, 128])

@@ -5,10 +5,14 @@ child and its arguments), phase 9's replica child, its verdict and
 a rehearsal, phase 13's depth, routing readout, verdict, printed
 lines and a rehearsal on the reduced mixtral, and phase 14's (whisper
 and internvl2: ``phase_family``, ``family_failures``, ``family_lines``,
-the generalised ``greedy`` / ``phase_lm`` of phases 5 and 6), and
+the generalised ``greedy`` / ``phase_lm`` of phases 5 and 6),
 phase 15's (the training launch counts and mixtral's training depth
 fixed in advance, phase 11's trainer on the three families, the step-1
-route flips, the mesh phase in one gloo process, the verdicts).
+route flips, the mesh phase in one gloo process, the verdicts), and
+phase 16's (jamba-1.5-large's MoE layers with experts of their own
+reckoned from the free memory, the shared experts, the launch counts,
+routing readout and verdicts rehearsed on the reduced jamba, and
+kimi-k2's head dim 112 in phase 2's attention case).
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -1217,6 +1221,33 @@ def test_decode_vs_forward_rejudges_each_flipped_step():
         assert set(j["follows"]) == served - set(judged)
 
 
+def test_decode_vs_forward_reruns_hybrid_steps_from_their_ssm_states():
+    """The same forced flips on the reduced jamba, whose SSM layers carry
+    a recurrent state that each decode step replaces: a re-run of step i
+    starts from the states step i started from (kept on the host), so
+    the unpinned re-run of every flipped step gives its logits bit for
+    bit, not those of a step taken from the last step's state."""
+    import numpy as np
+
+    from repro_torch.models import api
+    from repro_torch.models.moe import MoE
+    cfg = _jamba(capacity_factor=2.0)
+    model = api.init_params(cfg, torch.Generator().manual_seed(9),
+                            torch.float32, "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (2, 16)))
+    first = [m for m in model.modules() if isinstance(m, MoE)][0]
+    hook = first.register_forward_pre_hook(
+        lambda mod, args: ((-args[0],) + args[1:]
+                           if args[0].shape[0] == 1 else None))
+    try:
+        d = chip_smoke.decode_vs_forward(model, cfg, prompts, 3)
+    finally:
+        hook.remove()
+    assert [j["step"] for j in d["judged"]] == [0, 1, 2]
+    assert all(j["reproduces"] for j in d["judged"])
+
+
 def test_pinned_step_routes_sequence_zero_as_told():
     """``pinned_step`` on the reduced mixtral in float32 on the CPU: with
     no pin, or sequence 0 pinned to the experts it chooses, the step
@@ -1444,3 +1475,189 @@ def test_attention_case_full_non_causal_builds_no_mask():
                                      torch.float32, False, None, None)
     assert float((case["library"]() - case["plain"]()).abs().max()) < 1e-5
     assert case["ops"] == 4 * 32 * 6 * 10 * 4
+
+
+# ---------------------------------------------------------------------------
+# Phase 16's host side: jamba-1.5-large's distinct MoE layers, the shared
+# experts, its verdict and a CPU rehearsal on the reduced config; phase
+# 2's kimi-k2 attention case
+# ---------------------------------------------------------------------------
+
+
+def _jamba(**over):
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    return reduced(get_config(chip_smoke.HYBRID_ARCH), **over)
+
+
+def test_hybrid_distinct_moe_reckons_two_on_an_h100():
+    """One published period is 90.3 GB of weights with its four MoE
+    layers' experts; each MoE layer that shares another's saves 19.3 GB.
+    With 18 GiB for activations, 78.5 GiB free and 70 GiB hold 2 and 50
+    GiB 1 (which the phase then fails); the override wins."""
+    cfg = chip_smoke.hybrid_config()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.d_ff) == (
+        8, 8192, 16, 24576)
+    assert [round(chip_smoke.hybrid_weight_bytes(cfg, n) / 1e9, 2)
+            for n in (1, 2, 3, 4)] == [32.31, 51.64, 70.96, 90.29]
+    n, why = chip_smoke.hybrid_distinct_moe(cfg, int(78.5 * 2 ** 30))
+    assert n == 2 and why.startswith("2 of 4 MoE layers with experts of "
+                                     "their own: the weights are 90.3 GB")
+    assert "MoE layers 3..4 route over MoE layer 2's 16 experts" in why
+    assert chip_smoke.hybrid_distinct_moe(cfg, 85 * 2 ** 30)[0] == 3
+    assert chip_smoke.hybrid_distinct_moe(cfg, 70 * 2 ** 30)[0] == 2
+    assert chip_smoke.hybrid_distinct_moe(cfg, 50 * 2 ** 30)[0] == 1
+    assert chip_smoke.hybrid_distinct_moe(cfg, 50 * 2 ** 30, 2) == (
+        2, "2 of 4 MoE layers with experts of their own (--hybrid-distinct)")
+    check = chip_smoke.hybrid_check_config(cfg)
+    assert round(2 * chip_smoke.hybrid_weight_bytes(check, 4) / 1e9, 1) \
+        == 3.3
+
+
+@pytest.mark.parametrize("distinct", [1, 2, 3, 4])
+def test_shared_experts_keep_routers_and_weigh_as_reckoned(distinct):
+    """The MoE layers past the first ``distinct`` hold the last distinct
+    layer's expert Parameters themselves (one storage), each its own
+    router; the bf16 model stores the bytes ``hybrid_weight_bytes``
+    reckons, and serves as many parameters as an unshared one."""
+    from repro_torch.models.moe import MoE
+    cfg = _jamba()
+    model = chip_smoke.hybrid_model(cfg, 7, distinct, torch.bfloat16, "cpu")
+    mods = [m for m in model.modules() if isinstance(m, MoE)]
+    assert len(mods) == chip_smoke.n_moe_layers(cfg) == 4
+    last = mods[distinct - 1]
+    for i, m in enumerate(mods):
+        for name in ("w_up", "w_gate", "w_down"):
+            same = getattr(m, name) is getattr(last, name)
+            assert same == (i >= distinct - 1), (i, name)
+        for other in mods[:i]:
+            assert m.wg is not other.wg
+            assert not torch.equal(m.wg, other.wg)
+            if i < distinct:
+                assert m.w_up.data_ptr() != other.w_up.data_ptr()
+    sh = chip_smoke.expert_sharing(model)
+    assert sh["stored_bytes"] == chip_smoke.hybrid_weight_bytes(cfg,
+                                                                distinct)
+    full = chip_smoke.expert_sharing(chip_smoke.hybrid_model(
+        cfg, 7, 4, torch.bfloat16, "cpu"))
+    assert sh["served"] == full["served"] == full["stored"]
+    names = [n for n, m in model.named_modules() if isinstance(m, MoE)]
+    assert sh["shares"] == {n: names[distinct - 1]
+                            for n in names[distinct:]}
+
+
+def test_phase_hybrid_on_the_cpu():
+    """Phase 16 rehearsed on the reduced jamba at its published capacity
+    factor, 2 of its 4 MoE layers with experts of their own: the decode
+    equals the fresh forward at the check-only capacity (E / k), the
+    float32 'card' (the CPU here) routes as the CPU; only the launch
+    checks fail, since no kernel runs on the CPU."""
+    cfg = _jamba(capacity_factor=1.25)
+    res = chip_smoke.phase_hybrid(cfg, 7, 2, device="cpu", batch=2,
+                                  prompt=64, decode=4, check_cfg=cfg,
+                                  check_prompt=32, check_decode=4)
+    assert chip_smoke.hybrid_failures(res) == [
+        "jamba-1.5-large-398b: a prefill launched flash_attention 0 times, "
+        "want 1",
+        "jamba-1.5-large-398b: a prefill launched ssd_scan 0 times, want 7"]
+    assert res["want"] == {"flash_attention": 1, "ssd_scan": 7}
+    assert res["shares"] == {"groups.0.l5.moe": "groups.0.l3.moe",
+                             "groups.0.l7.moe": "groups.0.l3.moe"}
+    assert len(res["routing"]["per_layer"]) == 4
+    assert res["routing"]["dropped"] > 0
+    assert res["bf16_decode"]["capacity_factor"] == cfg.n_experts / 2
+    assert len(res["bf16_decode"]["step_rel"]) == 4
+    c = res["card_cpu"]
+    assert c["calls"] == 4 * (1 + 4) and c["rel"] == 0.0
+    assert c["flips"] == [] and c["unexplained"] == []
+
+
+def _hybrid_passing():
+    """Phase 16's results as a passing run leaves them."""
+    want = {"flash_attention": 1, "ssd_scan": 7}
+    return dict(
+        arch="jamba-1.5-large-398b", distinct=3, moe_layers=4, want=want,
+        allocated_before=2 ** 20, prefill_launches=dict(want,
+                                                        delta_apply=0),
+        decode_launches={"flash_attention": 0, "ssd_scan": 0}, finite=True,
+        bf16_decode=dict(step_rel=[0.01] * 32, flips=[], judged=[],
+                         finite=True),
+        card_cpu=dict(rel=1e-6, same_tokens=True, flips=[], unexplained=[]))
+
+
+@pytest.mark.parametrize("change,message", [
+    (lambda r: r.update(distinct=1),
+     "1 of 4 MoE layers with experts of their own, fewer than 2"),
+    (lambda r: r.update(allocated_before=3 * 2 ** 30),
+     "3.00 GiB still allocated when the phase began"),
+    (lambda r: r["prefill_launches"].update(ssd_scan=6),
+     "a prefill launched ssd_scan 6 times, want 7"),
+    (lambda r: r["prefill_launches"].update(delta_apply=1),
+     "a prefill launched {'delta_apply': 1}"),
+    (lambda r: r["decode_launches"].update(ssd_scan=1),
+     "decode launched"),
+    (lambda r: r["bf16_decode"]["step_rel"].__setitem__(0, 0.07),
+     "bf16 decode disagrees with a fresh forward at steps without a "
+     "route flip: (step, rel err) [(0, 0.07)]"),
+    (lambda r: r["card_cpu"].update(rel=2e-4),
+     "float32 card and CPU logits differ by 0.0002"),
+    (lambda r: r["card_cpu"].update(same_tokens=False),
+     "float32 card and CPU greedy tokens differ"),
+    (lambda r: r["card_cpu"]["flips"].append(dict(
+        call=3, layer=1, token=0, gap=0.5, delta=0.01, near_tie=False)),
+     "route tokens differently with no near-tie: (call, layer, token) "
+     "[(3, 1, 0)]"),
+    (lambda r: r["card_cpu"]["unexplained"].append((2, 0)),
+     "keep or slot pairs differently with every token routed alike"),
+])
+def test_hybrid_verdict_names_each_failed_check(change, message):
+    assert chip_smoke.hybrid_failures(_hybrid_passing()) == []
+    res = _hybrid_passing()
+    res["card_cpu"]["flips"].append(dict(call=1, layer=0, token=0, gap=1e-6,
+                                         delta=2e-6, near_tie=True))
+    assert chip_smoke.hybrid_failures(res) == []
+    change(res)
+    bad = chip_smoke.hybrid_failures(res)
+    assert len(bad) == 1 and bad[0].startswith("jamba-1.5-large-398b: "), bad
+    assert message in bad[0], bad
+
+
+def test_route_differences_judge_each_token_and_swaps():
+    """A token with other experts is judged by ``route_flip``; the same
+    experts in another order by the gap between the pair that swaps; a
+    keep mask that differs with every token routed alike is named."""
+    t = torch.tensor
+    logits = t([[3.0, 2.0, 1.99, 0.0], [1.0, 0.5, 0.0, -1.0],
+                [2.0, 1.999, 0.0, -1.0]])
+    cpu = [(0, t([[0, 1], [0, 1], [0, 1]]), t([True] * 6),
+            t(range(6)), logits)]
+    card_logits = logits + t([[0.0, 0.0, 0.02, 0.0], [0.0] * 4,
+                              [0.0, 0.002, 0.0, 0.0]])
+    card = [(0, t([[0, 2], [0, 1], [1, 0]]), t([True] * 6),
+             t(range(6)), card_logits)]
+    d = chip_smoke.route_differences(card, cpu, 2)
+    assert [(f["token"], f["near_tie"]) for f in d["flips"]] == [
+        (0, True), (2, True)]
+    assert d["flips"][1]["gap"] == pytest.approx(0.001, abs=1e-6)
+    assert d["unexplained"] == []
+    same = [(0, cpu[0][1], t([True] * 5 + [False]), cpu[0][3], logits)]
+    assert chip_smoke.route_differences(same, cpu, 2)["unexplained"] == [
+        (0, 0)]
+
+
+def test_attention_case_at_kimi_k2_head_dim():
+    """Phase 2's kimi-k2 case (head dim 112, which the launch pads to 128)
+    builds on the CPU, its bound counts the unpadded work, and the
+    kernel's CPU path and the library equal the plain version."""
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dtype)
+    case = chip_smoke.attention_case(randn, 1, 8, 2, 16, 16, 112,
+                                     torch.float32, True, None, None)
+    assert case["ops"] == 4 * 112 * (16 * 17 // 2) * 8
+    assert case["bytes"] == 4 * (2 * 8 * 16 * 112 + 2 * 2 * 16 * 112)
+    assert "D=112" in case["shape"]
+    plain = case["plain"]()
+    assert torch.equal(case["kernel"](), plain)
+    assert float((case["library"]() - plain).abs().max()) < 1e-5

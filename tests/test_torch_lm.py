@@ -23,7 +23,7 @@ from repro.config import reduced as j_reduced  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro_torch.config import reduced  # noqa: E402
-from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import lm_from_numpy  # noqa: E402
 from repro_torch.models import api, moe  # noqa: E402
 
@@ -32,9 +32,6 @@ N_PRE = S - N_DEC
 TOL = 1e-4
 PORTED = ["smollm-360m", "olmo-1b", "gemma-2b", "glm4-9b", "mamba2-130m",
           "mixtral-8x7b", "kimi-k2-1t-a32b", "internvl2-1b"]
-# the ROADMAP step named by each family that still raises (the
-# encoder-decoder, whisper-small, is tests/test_torch_encdec.py's)
-QUEUE = {"hybrid": "A17"}
 
 
 def _setup(arch, impl="xla", **over):
@@ -170,19 +167,6 @@ def test_swa_ring_buffer_decode():
     assert np.array_equal(caches[0]["l0"].pos_map.numpy(),
                           np.asarray(jc["l0"].pos_map[0]))
     assert max(errs) < 2e-3, errs
-
-
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)
-                                         - {"whisper-small"}))
-def test_unported_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    assert cfg.family in QUEUE
-    step = rf"not ported yet \(ROADMAP step {QUEUE[cfg.family]}\)"
-    with pytest.raises(NotImplementedError, match=step):
-        api.init_params(cfg, torch.Generator().manual_seed(0),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match=step):
-        api.init_decode_caches(cfg, 1, 8, device="cpu")
 
 
 @pytest.mark.parametrize("arch,over", [

@@ -238,7 +238,6 @@ from repro_torch.convert import (lm_from_numpy,  # noqa: E402
                                  train_state_from_numpy)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.models.lm import PORTED_FAMILIES  # noqa: E402
 from repro_torch.optim import compress  # noqa: E402
 from repro_torch.optim.adamw import STACKED, stack_key  # noqa: E402
 from repro_torch.runtime import init_train_state  # noqa: E402
@@ -292,9 +291,9 @@ def _ref_shapes(arch):
 @pytest.mark.parametrize("arch", sorted(J_ARCHS))
 def test_param_specs_match_reference(arch, mesh, ruleset):
     """Every parameter's spec: ``param_spec_for`` on the reference's own
-    (stacked) paths and shapes, and, for the families the port builds,
-    ``param_specs`` of the port's model on its names — the reference's
-    spec without the leading stacked ``None``."""
+    (stacked) paths and shapes, and ``param_specs`` of the port's model
+    on its names — the reference's spec without the leading stacked
+    ``None``."""
     jcfg, shapes = _ref_shapes(arch)
     jmesh, pmesh = _abstract(RULE_MESHES[mesh])
     over = RULESETS.get(ruleset, {})
@@ -305,8 +304,6 @@ def test_param_specs_match_reference(arch, mesh, ruleset):
             for path, leaf in leaves:
                 p = _ref_path(path)
                 assert sharding.param_spec_for(p, leaf.shape) == want[p], p
-        if jcfg.family not in PORTED_FAMILIES:
-            return
         model = api.init_params(reduced(get_config(arch)),
                                 torch.Generator().manual_seed(0),
                                 torch.float32, "cpu")
