@@ -9,7 +9,7 @@ width and depth, an encoder-decoder (whisper-small) and a VLM
 its published width, as deep as the card holds, and a hybrid LM
 (jamba-1.5-large) at its published width over one period, and train
 the two decoder LMs, with delta checkpoints and a recovery, the
-encoder-decoder, VLM and MoE LMs, and the dense LM on a
+encoder-decoder, VLM and MoE LMs, and the dense, MoE and SSM LMs on a
 ``DeviceMesh``.
 
     python3 chip_smoke.py                 # full size, one card
@@ -265,7 +265,15 @@ Phases, in order (any failure exits non-zero):
    through ``train(mesh=)``, B5 64 times a step, its step against phase
    11's; 2 float32 layers mesh vs plain within 1e-4; ``compressed_psum``
    over the data dimension bit-equal to its numpy form; a delta-store
-   save and ``reshard_from_checkpoint`` bit-equal.  Verdicts
+   save and ``reshard_from_checkpoint`` bit-equal; then mixtral-8x7b
+   (published width and 8 experts, expert parallel, as deep as
+   ``moe_train_depth`` reckons, printed) and mamba2-130m (published
+   size) through ``train(mesh=)`` in bf16, 4 steps (B5 2 × layers,
+   B6 2 × 24 a step), and float32 mesh vs plain on the card, mixtral 1
+   layer within 2e-4 with the first forward's pairs routed differently
+   printed, mamba2 2 layers within 1e-4, 2 steps each (``MESH_MODELS``,
+   the cuts printed); jamba's reckoning printed (its mesh step needs
+   two cards).  Verdicts
    ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
    the end.
 
@@ -4869,6 +4877,18 @@ FAMILY_CHECK_LAYERS = {"whisper-small": 2, "internvl2-1b": 2,
 # reference's own bound (test_distributed.py:496-499)
 MESH_ARCH, MESH_CHECK_SEQ, MESH_ATOL = "smollm-360m", 256, 1e-4
 MESH_CHILD_TIMEOUT_S = 900
+# (c) also trains mixtral-8x7b (published width and 8 experts, as deep
+# as ``moe_train_depth`` reckons) and mamba2-130m (published size) on
+# the mesh: bf16 through ``train(mesh=)``, then a float32 check, mesh
+# step against plain step on the card, within the reference's own
+# bounds (test_distributed.py:454-458 for the moe family, :496-499 for
+# ssm).  Cut, and printed, to hold the script near its 895 s: 4 bf16
+# steps of TRAIN_STEPS (a warm median of 3), 2 float32 steps of CHECK_TRAIN_STEPS, mixtral's
+# check at 1 layer
+MESH_MODELS = {MOE_ARCH: dict(steps=4, check_layers=1, check_steps=2,
+                              atol=2e-4),
+               "mamba2-130m": dict(steps=4, check_layers=2, check_steps=2,
+                                   atol=MESH_ATOL)}
 
 
 def moe_train_params(cfg) -> int:
@@ -4969,35 +4989,237 @@ def phase_family_training(layers: int, seed: int, smi: str) -> dict:
     return out
 
 
+def model_kernel(cfg) -> str:
+    """The kernel a training step of ``cfg`` launches: the SSD scan for
+    the SSM family, flash attention for the others."""
+    return "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+
+
+class first_routes:
+    """A global forward hook: inside the ``with``, the top-k experts
+    ([T, k], on the host) of each of the first ``n`` MoE calls, routed
+    from the call's input and router as gathered tensors (a DTensor's
+    gather is a collective every process of the mesh takes part in)."""
+
+    def __init__(self, cfg, n: int):
+        self.cfg, self.n, self.topi, self.hook = cfg, n, [], None
+
+    def __enter__(self):
+        from torch.nn.modules.module import register_module_forward_hook
+
+        from repro_torch.models.moe import MoE, route_by
+
+        def full(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+        def read(mod, args, out):
+            if isinstance(mod, MoE) and len(self.topi) < self.n:
+                x = full(args[0]).detach()
+                self.topi.append(route_by(
+                    full(mod.wg).detach(), x.reshape(-1, x.shape[-1]),
+                    self.cfg).topi.cpu())
+        self.hook = register_module_forward_hook(read)
+        return self
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+
+
+def pairs_routed_differently(a: list, b: list) -> int:
+    """The (token, choice) pairs whose expert one side's routes ([T, k]
+    a layer) chose and the other's did not."""
+    return sum(int(x.shape[1]) * int(x.shape[0]) - int(
+        (x[:, :, None] == y[:, None, :]).any(-1).sum())
+        for x, y in zip(a, b))
+
+
+def state_gap(a, b) -> tuple:
+    """Two TrainStates on one device (either may be on a mesh): the
+    largest |Δ| over their parameters, in float64, and whether every
+    leaf (parameters, moments, counters) is bit-equal; read on the
+    device, leaf by leaf, nothing copied to the host."""
+    import torch
+
+    from repro_torch.checkpoint import io
+
+    def full(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+    other = dict(io.leaves(b))
+    gap, same = 0.0, True
+    for name, x in io.leaves(a):
+        y = other.pop(name, None)
+        if not isinstance(x, torch.Tensor):
+            same = same and x == y
+            continue
+        x, y = full(x), full(y)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            same = False
+            continue
+        if name.startswith("params/"):
+            gap = max(gap, float((x.double() - y.double()).abs().max()))
+        same = same and torch.equal(x.contiguous().view(torch.uint8),
+                                    y.contiguous().view(torch.uint8))
+    return gap, same and not other
+
+
+def train_from(state, cfg, tcfg, scfg, dev, mesh=None) -> tuple:
+    """``tcfg.total_steps`` steps of ``make_train_step`` from ``state``
+    over ``SyntheticLM``'s batches, as ``launch.train.train`` runs them
+    (on ``mesh``: the state resharded, each batch placed, the step in
+    its context).  Returns (the state, the losses)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.dryrun import batch_sharding
+    from repro_torch.runtime import make_train_step, reshard_state
+    from repro_torch.runtime.elastic import place_tree
+    from repro_torch.sharding import mesh_context
+
+    step = make_train_step(cfg, tcfg, scfg)
+    data = SyntheticLM(cfg, tcfg.global_batch, tcfg.seq_len, seed=tcfg.seed,
+                       device=dev)
+    if mesh is not None:
+        state = reshard_state(state, mesh)
+    losses = []
+    for i in range(tcfg.total_steps):
+        batch = data.batch_at(i)
+        if mesh is None:
+            state, m = step(state, batch)
+        else:
+            with mesh_context(mesh):
+                state, m = step(state, place_tree(
+                    batch, batch_sharding(batch, mesh)))
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def mesh_model_run(full, mesh, dev, *, batch: int, seq: int, steps: int,
+                   check_layers: int, check_seq: int, check_steps: int,
+                   atol: float) -> tuple:
+    """``full`` trained on ``mesh``: (1) in bf16 through
+    ``launch.train.train(mesh=)``, counters zeroed around it; (2)
+    ``check_layers`` float32 layers trained from one initial state on
+    the mesh (its launches counted) and plainly on the same device
+    (``train_from``), for a MoE model with the routes of each run's
+    first forward (``first_routes``).  Returns (the results, the float32
+    mesh run's state)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import init_train_state
+
+    tcfg, scfg = train_configs(full, batch, seq, steps, "bfloat16")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    _, hist, _ = train(full, tcfg, scfg, device=dev, log_every=1, mesh=mesh)
+    _sync(dev)
+    res = dict(arch=full.name, family=full.family, kernel=model_kernel(full),
+               n_layers=full.n_layers, batch=batch, seq=seq, steps=steps,
+               train_s=time.perf_counter() - t0,
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if cuda else None),
+               launches=dict(build.LAUNCHES),
+               per_step=launches_per_step(full, scfg),
+               loss=hist.rows["loss"], grad_norm=hist.rows["grad_norm"],
+               step_s=[ms / 1e3 for ms in hist.rows["step_ms"]])
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full, n_layers=check_layers)
+    tcfg, scfg = train_configs(cfg, batch, check_seq, check_steps,
+                               "float32")
+    n_moe = n_moe_layers(cfg) if cfg.n_experts else 0
+    start = [init_train_state(cfg, tcfg, device=dev)]
+    with first_routes(cfg, n_moe) as plain_routes:
+        plain, loss_plain = train_from(copy.deepcopy(start[0]), cfg, tcfg,
+                                       scfg, dev)
+    build.reset_launches()
+    # popped, so that no reference here keeps the initial state alive
+    # once the run has resharded it: mixtral's float32 layer is 20.5 GB
+    # a state, and the card holds three only without the step's own
+    with first_routes(cfg, n_moe) as mesh_routes:
+        meshed, loss_mesh = train_from(start.pop(), cfg, tcfg, scfg, dev,
+                                       mesh)
+    _sync(dev)
+    launches = dict(build.LAUNCHES)
+    gap, bit_equal = state_gap(meshed, plain)
+    del plain
+    res["check"] = dict(
+        layers=check_layers, seq=check_seq, steps=check_steps, atol=atol,
+        launches=launches, per_step=launches_per_step(cfg, scfg),
+        loss_mesh=loss_mesh, loss_plain=loss_plain,
+        loss_diff=max(abs(x - y) for x, y in zip(loss_mesh, loss_plain)),
+        param_diff=gap, bit_equal=bit_equal,
+        routes_differing=(pairs_routed_differently(mesh_routes.topi,
+                                                   plain_routes.topi)
+                          if n_moe else None),
+        moe_calls=len(mesh_routes.topi), seconds=time.perf_counter() - t0)
+    return res, meshed
+
+
+def mesh_model_config(arch: str, layers: int, device_type: str) -> tuple:
+    """Phase 15 (c)'s config of ``arch`` and its cut, as printed: mixtral
+    at published width, as deep as ``moe_train_depth`` reckons from the
+    card's free memory; any other at published size (or ``layers``)."""
+    import torch
+    if arch != MOE_ARCH:
+        cfg = lm_config(arch, layers)
+        return cfg, f"{cfg.n_layers} layers"
+    free = (torch.cuda.mem_get_info()[0] if device_type == "cuda"
+            else 64 * 2 ** 30)
+    n, cut = moe_train_depth(lm_config(arch, 0), free, layers)
+    return lm_config(arch, n), cut
+
+
+def hybrid_mesh_reckoning() -> str:
+    """Why phase 15 (c) runs no jamba mesh step on one card: one MoE
+    layer's training state against the card's memory."""
+    import torch
+    cfg = hybrid_config()
+    n = cfg.n_experts * 3 * cfg.d_model * cfg.d_ff
+    need = n * MOE_TRAIN_BYTES_PER_PARAM
+    total = torch.cuda.get_device_properties(0).total_memory
+    return (f"train {HYBRID_ARCH} on a mesh: not run; one MoE layer is "
+            f"{cfg.n_experts} x 3 x {cfg.d_model} x {cfg.d_ff} = {n:,} "
+            f"params, at {MOE_TRAIN_BYTES_PER_PARAM} B a param "
+            f"{need / 1e9:.1f} GB of training state, more than the card's "
+            f"{total / 1e9:.1f} GB: it waits for a second card")
+
+
 def mesh_checks(rank: int, world: int, init: str, seed: int,
                 device_type: str = "cuda", layers: int = 0,
                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
                 steps: int = TRAIN_STEPS, check_layers: int = 2,
                 check_seq: int = MESH_CHECK_SEQ,
                 check_steps: int = CHECK_TRAIN_STEPS,
-                root: str | None = None, cfg=None) -> dict:
+                root: str | None = None, cfg=None,
+                models: dict | None = None) -> dict:
     """Phase 15 (c) on one process of a (data ``world``, model 1) mesh
     (``launch.mesh.make_test_mesh``; NCCL on the card, one process a
     card): (1) smollm-360m (depth ``layers`` or the published one) in
     bf16 through ``launch.train.train(mesh=)``, counters zeroed around
     it; (2) ``check_layers`` float32 layers trained on the mesh and
-    plainly on the same device; (3) ``compressed_psum`` over the data
-    dimension of the mesh run's gradients; (4) the mesh state saved
-    through a delta store (``root``, this process's own) and
-    ``reshard_from_checkpoint`` onto the mesh.  ``cfg`` replaces
-    smollm-360m (a CPU rehearsal).  The verdict is ``mesh_failures``."""
+    plainly on the same device (``mesh_model_run``); (3)
+    ``compressed_psum`` over the data dimension of the mesh run's
+    gradients; (4) the mesh state saved through a delta store (``root``,
+    this process's own) and ``reshard_from_checkpoint`` onto the mesh;
+    (5) each of ``models`` (arch → config, None for
+    ``mesh_model_config``'s) as (1) and (2), with ``MESH_MODELS``'s
+    steps, check layers and bound.  ``cfg`` replaces smollm-360m (a CPU
+    rehearsal).  The verdict is ``mesh_failures``."""
     import dataclasses
 
-    import numpy as np
     import torch
     import torch.distributed as dist
 
     from repro_torch.checkpoint import DeltaCheckpointStore, io
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import build
     from repro_torch.launch.dryrun import batch_sharding
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.train import train
     from repro_torch.optim import compressed_psum
     from repro_torch.runtime import (init_train_state, make_grad_fn,
                                      reshard_from_checkpoint)
@@ -5015,36 +5237,14 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
         res = dict(world=world, mesh=dict(zip(mesh.mesh_dim_names,
                                               mesh.shape)))
         full = cfg or lm_config(MESH_ARCH, layers)
-        tcfg, scfg = train_configs(full, batch, seq, steps, "bfloat16")
-        build.reset_launches()
-        t0 = time.perf_counter()
-        _, hist, _ = train(full, tcfg, scfg, device=dev, log_every=1,
-                           mesh=mesh)
-        _sync(dev)
-        res.update(arch=full.name, n_layers=full.n_layers, batch=batch,
-                   seq=seq, steps=steps, train_s=time.perf_counter() - t0,
-                   launches=dict(build.LAUNCHES),
-                   per_step=launches_per_step(full, scfg),
-                   loss=hist.rows["loss"], grad_norm=hist.rows["grad_norm"],
-                   step_s=[ms / 1e3 for ms in hist.rows["step_ms"]])
-
+        run, meshed = mesh_model_run(
+            full, mesh, dev, batch=batch, seq=seq, steps=steps,
+            check_layers=check_layers, check_seq=check_seq,
+            check_steps=check_steps, atol=MESH_ATOL)
+        res.update(run)
         cfg = dataclasses.replace(full, n_layers=check_layers)
         tcfg, scfg = train_configs(cfg, batch, check_seq, check_steps,
                                    "float32")
-        meshed, mh, _ = train(cfg, tcfg, scfg, device=dev, log_every=1,
-                              mesh=mesh)
-        plain, ph, _ = train(cfg, tcfg, scfg, device=dev, log_every=1)
-        a, b = io.raw_arrays(meshed), io.raw_arrays(plain)
-        res["check"] = dict(
-            layers=check_layers, seq=check_seq, steps=check_steps,
-            loss_mesh=mh.rows["loss"], loss_plain=ph.rows["loss"],
-            loss_diff=max(abs(x - y) for x, y in
-                          zip(mh.rows["loss"], ph.rows["loss"])),
-            param_diff=max(float(np.abs(a[k].astype(np.float64)
-                                        - b[k].astype(np.float64)).max())
-                           for k in a if k.startswith("params/")),
-            bit_equal=not differing_arrays(a, b))
-        del plain, a, b
 
         batch0 = SyntheticLM(cfg, batch, check_seq, seed=tcfg.seed,
                              device=dev).batch_at(0)
@@ -5071,6 +5271,28 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             io.raw_arrays(restored), saved)
         res["restore_on_mesh"] = all(
             p.device_mesh == mesh for p in restored.params.parameters())
+        del meshed, saved, restored, store
+
+        res["models"] = {}
+        for arch, given in (models or {}).items():
+            gc.collect()
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            if given is None:
+                given, cut = mesh_model_config(arch, layers, device_type)
+            else:
+                cut = f"{given.n_layers} layers (given)"
+            knobs = MESH_MODELS[arch]
+            if rank == 0:
+                print(f"train {arch} on a mesh: depth {cut}; {knobs['steps']}"
+                      f" bf16 steps of {TRAIN_STEPS}, float32 check "
+                      f"{knobs['check_layers']} layer(s) x "
+                      f"{knobs['check_steps']} steps of "
+                      f"{CHECK_TRAIN_STEPS}", flush=True)
+            r, _ = mesh_model_run(given, mesh, dev, batch=batch, seq=seq,
+                                  check_seq=check_seq, **knobs)
+            r["cut"] = cut
+            res["models"][arch] = r
         return res
     finally:
         dist.destroy_process_group()
@@ -5123,6 +5345,35 @@ def mesh_failures(res: dict, plain_step_s: float | None = None) -> list:
         bad.append(f"reshard_from_checkpoint differs in "
                    f"{res['restore_differing'][:5]} (on the mesh: "
                    f"{res['restore_on_mesh']})")
+    for arch, r in res.get("models", {}).items():
+        bad += [f"{arch}: {b}" for b in mesh_model_failures(r)]
+    return bad
+
+
+def mesh_model_failures(r: dict) -> list:
+    """The verdict on one of phase 15 (c)'s ``models``: its kernel
+    launched once a call a step (forward and remat's recompute) in the
+    bf16 run and in the float32 mesh run, no other kernel, finite
+    losses, and the float32 mesh and plain steps within the bound."""
+    bad = []
+    k = r["kernel"]
+    c = r["check"]
+    for what, launches, want in (
+            ("bf16", r["launches"], r["per_step"] * r["steps"]),
+            ("float32", c["launches"], c["per_step"] * c["steps"])):
+        if launches.get(k, 0) != want:
+            bad.append(f"the {what} mesh run launched {k} "
+                       f"{launches.get(k, 0)} times, want {want}")
+        others = {n: v for n, v in launches.items() if n != k and v}
+        if others:
+            bad.append(f"the {what} mesh run launched {others}")
+    if not all(math.isfinite(x) for x in r["loss"] + r["grad_norm"]):
+        bad.append(f"non-finite loss {r['loss']} or grad norm "
+                   f"{r['grad_norm']}")
+    if not (c["loss_diff"] <= c["atol"] and c["param_diff"] <= c["atol"]):
+        bad.append(f"float32 mesh and plain steps differ: loss "
+                   f"{c['loss_diff']:.3g}, parameters {c['param_diff']:.3g} "
+                   f"(bound {c['atol']})")
     return bad
 
 
@@ -5146,13 +5397,43 @@ def mesh_line(res: dict, plain_step_s: float, smi: str) -> str:
             f"bit-equal: {not res['restore_differing']}  [{smi}]")
 
 
+def mesh_model_line(r: dict, plain: tuple | None, smi: str) -> str:
+    """One of phase 15 (c)'s ``models``, as printed; ``plain`` (what,
+    step seconds) names a plain run of the same model, width and depth
+    to set the mesh step beside."""
+    c = r["check"]
+    ws = warm_median(r["step_s"])
+    k = r["kernel"]
+    peak = r.get("peak_gib")
+    return (f"train {r['arch']} on a mesh: {r['n_layers']} layers, bf16, "
+            f"{r['batch']}x{r['seq']} tokens"
+            + ("" if peak is None else f", peak {peak:.2f} GiB")
+            + "; step s "
+            + ", ".join(f"{x:.4f}" for x in r["step_s"])
+            + f" (warm median {ws:.4f}"
+            + ("" if plain is None else
+               f"; {plain[0]} {plain[1]:.4f}, x{ws / plain[1]:.3f}")
+            + f"); {k} {r['launches'].get(k, 0)} (want {r['per_step']} a "
+            f"step); loss " + ", ".join(f"{x:.4f}" for x in r["loss"])
+            + f"; float32 {c['layers']} layer(s) x {c['steps']} steps, mesh "
+            f"vs plain: loss {c['loss_diff']:.3g}, parameters "
+            f"{c['param_diff']:.3g} (bound {c['atol']}), bit-equal "
+            f"{c['bit_equal']}, {k} {c['launches'].get(k, 0)} (want "
+            f"{c['per_step'] * c['steps']})"
+            + ("" if c["routes_differing"] is None else
+               f"; first forward's pairs routed differently "
+               f"{c['routes_differing']} over {c['moe_calls']} MoE calls")
+            + f"  [{smi}]")
+
+
 def mesh_child(rank: int, world: int, init: str, seed: int,
                layers: int) -> int:
     """A process of phase 15 (c)'s mesh beyond the first (``--mesh-child``:
     one a card, started by rank 0)."""
     root = tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{rank}_")
     try:
-        mesh_checks(rank, world, init, seed, layers=layers, root=root)
+        mesh_checks(rank, world, init, seed, layers=layers, root=root,
+                    models=dict.fromkeys(MESH_MODELS))
         return 0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5172,7 +5453,8 @@ def phase_mesh(seed: int, layers: int) -> dict:
          str(layers)]) for r in range(1, world)]
     try:
         res = mesh_checks(0, world, init, seed, layers=layers,
-                          root=os.path.join(work, "ckpt"))
+                          root=os.path.join(work, "ckpt"),
+                          models=dict.fromkeys(MESH_MODELS))
         res["children"] = [p.wait(timeout=MESH_CHILD_TIMEOUT_S)
                            for p in children]
         return res
@@ -5447,6 +5729,14 @@ def main(argv=None) -> int:
     phases["mesh_s"] = time.perf_counter() - t0
     print(mesh_line(mesh, warm_median(training["smollm-360m"]["step_s"]),
                     smi.splitlines()[0]), flush=True)
+    moe_a = family_train["train"][MOE_ARCH]
+    for arch, r in mesh["models"].items():
+        plain = (("phase 15 (a)'s plain step",
+                  warm_median(moe_a["step_s"]))
+                 if arch == MOE_ARCH and moe_a["n_layers"] == r["n_layers"]
+                 else None)
+        print(mesh_model_line(r, plain, smi.splitlines()[0]), flush=True)
+    print(hybrid_mesh_reckoning(), flush=True)
     train_bad = family_train["failures"] + mesh_failures(mesh) + [
         f"mesh process {r} exited {c}"
         for r, c in enumerate(mesh["children"], 1) if c]
@@ -5485,6 +5775,9 @@ def main(argv=None) -> int:
     for arch, r in family_train["card_cpu"].items():
         runs[f"{arch} train float32 (card vs CPU)"] = r["launches"]
     runs[f"{MESH_ARCH} train on a mesh"] = mesh["launches"]
+    for arch, r in mesh["models"].items():
+        runs[f"{arch} train on a mesh"] = r["launches"]
+        runs[f"{arch} train float32 on a mesh"] = r["check"]["launches"]
     for k in kernels:
         k["launches_by_run"] = {run: n.get(k["name"], 0)
                                for run, n in runs.items()}

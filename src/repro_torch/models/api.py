@@ -14,10 +14,11 @@ Batches are dicts holding ``tokens`` (and ``labels``, optionally
 (``models/encdec.py``) and ``patches`` [B, n_patches, d] for vlm
 (``models/lm.py``; decode positions then count the patches).  There is
 no ``impl`` argument: the device decides how attention runs
-(``models/attention.py``).  On a mesh only the dense family's
-``loss_fn`` / ``forward`` run; everything else raises, naming its
-ROADMAP step (``check_lm_mesh``).  ``input_specs`` comes with the
-dry-run (ROADMAP A18).
+(``models/attention.py``).  On a mesh the dense, moe, ssm and hybrid
+families' ``loss_fn`` / ``forward`` run; the encdec and vlm families,
+and prefill and decode of every family, raise, naming their ROADMAP
+step (``check_lm_mesh``).  ``input_specs`` comes with the dry-run
+(ROADMAP A18).
 """
 from __future__ import annotations
 
@@ -28,9 +29,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import encdec, lm
 from repro_torch.sharding import current_mesh
 
-# the families whose training step runs on a mesh; the others (and
-# prefill and decode, ``cache_sharding``) come with expert parallelism
-MESH_FAMILIES = ("dense",)
+# the families whose training step runs on a mesh; encdec and vlm (and
+# prefill and decode, ``cache_sharding``) come with ROADMAP A17's item 3
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_lm_mesh(cfg: ModelConfig, what: str = "training") -> None:

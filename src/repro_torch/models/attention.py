@@ -40,7 +40,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import _normal, mm, params_module, rope
 from repro_torch.sharding import (axes_of, current_mesh, on_local_shards,
-                                  shard, spec)
+                                  shard, shard_index, spec)
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -134,16 +134,6 @@ def _flash(q, k, v, causal: bool, window: int | None, scale: float):
     return _flash_local(q, k, v, causal, window, scale)
 
 
-def _shard_index(mesh, axes: tuple) -> int:
-    """This process's index along mesh axes ``axes`` taken together
-    (the first the slowest), as DTensor splits a dimension over them."""
-    i = 0
-    for a in axes:
-        i = i * mesh.size(mesh.mesh_dim_names.index(a)) + \
-            mesh.get_local_rank(a)
-    return i
-
-
 def kv_heads_for(q0: int, n_q: int, group: int) -> torch.Tensor:
     """The kv head of each of q heads ``q0 .. q0 + n_q - 1`` (GQA: q
     head h reads kv head ``h // group``)."""
@@ -164,7 +154,7 @@ def _flash_on_mesh(q, k, v, causal, window, scale):
 
     def local(ql, kl, vl):
         if split_q_only:    # this process's q heads read their kv heads
-            idx = kv_heads_for(_shard_index(mesh, heads) * ql.shape[2],
+            idx = kv_heads_for(shard_index(mesh, heads) * ql.shape[2],
                                ql.shape[2], hq // hkv).to(kl.device)
             kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
         return _flash_local(ql, kl, vl, causal, window, scale)

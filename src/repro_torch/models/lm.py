@@ -19,16 +19,18 @@ patches too.  The encoder-decoder family is ``models/encdec.py``.
 Hybrid (jamba): a group is one period of ``attn_period`` layers, each
 an attention or an SSM mixer followed by an MLP or, every
 ``moe_every``-th layer, a mixture of experts (``models/blocks.py``).
-Off a mesh its MoE layers run as every other MoE family's does.
+Its MoE layers run as every other MoE family's do, on a mesh too.
 
 On a mesh (``sharding.mesh_context`` of a ``DeviceMesh``, parameters and
 batch placed as DTensors, ``runtime.elastic.reshard_state`` /
-``launch.dryrun.batch_sharding``) the dense family's ``forward`` and
-``loss_fn`` run as DTensor programs: activations are annotated at the
-reference's ``shard`` sites and attention runs the kernel on each
-process's shards (``models/attention.py``).  ``models/api.py`` refuses
-the other families, and prefill and decode, on a mesh
-(``api.check_lm_mesh``).
+``launch.dryrun.batch_sharding``) the dense, moe, ssm and hybrid
+families' ``forward`` and ``loss_fn`` run as DTensor programs:
+activations are annotated at the reference's ``shard`` sites, attention
+runs the kernel on each process's shards (``models/attention.py``), the
+MoE runs expert parallel (``models/moe.py::apply_moe_sharded``) and the
+SSM block each process's batch rows (``models/ssm.py``).
+``models/api.py`` refuses the encdec and vlm families, and prefill and
+decode, on a mesh (``api.check_lm_mesh``).
 """
 from __future__ import annotations
 

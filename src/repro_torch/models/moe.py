@@ -1,6 +1,6 @@
 """Mixture-of-experts FFN with sparse (gather / scatter) dispatch —
-counterpart of the single-device path of ``repro/models/moe.py``
-(``_apply_moe_dense``).
+counterpart of ``repro/models/moe.py`` (``_apply_moe_dense`` off a mesh,
+``apply_moe_sharded`` / ``_local_moe`` on one).
 
 Top-k routing with a fixed per-expert capacity: the (token, choice)
 pairs are sorted by expert, each gets a slot ``(expert, position within
@@ -17,7 +17,7 @@ route alike and agree bit for bit where their products do:
   ``searchsorted``; a dropped pair's slot is the one overflow row
   ``E·cap``, which is kept and sliced off (never an out-of-range index);
 * the experts run one at a time in the input dtype (bounding the
-  ``[cap, d_ff]`` intermediates), at the capacity of the whole batch;
+  ``[cap, d_ff]`` intermediates);
 * the combine sums each token's k weighted contributions in ascending
   expert order, one add at a time in the input dtype, starting from
   zero — the order the reference's scatter-add takes them in on the
@@ -27,23 +27,30 @@ route alike and agree bit for bit where their products do:
 Every step is allowed under ``torch.use_deterministic_algorithms(True)``
 and differentiable through autograd (the indices carry no gradient).
 
-The reference's ``apply_moe_sharded`` / ``_local_moe`` (expert
-parallelism under ``shard_map``), which it takes whenever a mesh is in
-scope, are not ported yet: ``apply_moe`` raises on a mesh (ROADMAP
-A17).
+On a mesh ``apply_moe`` takes ``apply_moe_sharded``, as the reference
+does whenever a mesh is in scope: expert parallelism under ``local_map``.
+Each process routes its own batch rows over every expert at the
+capacity of those rows, runs only the experts it holds
+(``moe_partial``, the reference's ``_local_moe`` without its ``psum``),
+and the parts are summed over the expert (and expert-ff) axes.  The
+reference's ``REPRO_MOE_DENSE`` switch to the single-device path on a
+mesh is not ported (DTensor has no sharded scatter for it to fall back
+on).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
-from repro_torch import not_ported
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import _normal, at_least_f32, ffn, \
     params_module
-from repro_torch.sharding import current_mesh
+from repro_torch.sharding import (_mesh_axis_sizes, axes_of, current_mesh,
+                                  grad_summed_over, on_local_shards,
+                                  resolve, shard_index, sum_over)
 
 
 class MoE(nn.Module):
@@ -91,7 +98,12 @@ class Route(NamedTuple):
 
 def route(p: nn.Module, xt: torch.Tensor, cfg: ModelConfig) -> Route:
     """Route the tokens ``xt`` ``[T, d]`` to their top-k experts."""
-    logits = at_least_f32(xt) @ p.wg
+    return route_by(p.wg, xt, cfg)
+
+
+def route_by(wg: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig) -> Route:
+    """``route`` with the router weight ``wg`` ``[d, E]`` given."""
+    logits = at_least_f32(xt) @ wg
     topi = torch.sort(logits, dim=-1, descending=True,
                       stable=True).indices[:, :cfg.top_k]
     return route_to(logits, topi, cfg)
@@ -121,9 +133,9 @@ def route_to(logits: torch.Tensor, topi: torch.Tensor,
 
 def apply_moe(p: nn.Module, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, d] → [B, S, d]."""
+    """x: [B, S, d] → [B, S, d]; on a mesh ``apply_moe_sharded``."""
     if current_mesh() is not None:
-        not_ported("apply_moe_sharded (expert parallelism)", "A17")
+        return apply_moe_sharded(p, x, cfg)
     return apply_routed(p, x, route(p, x.reshape(-1, x.shape[-1]), cfg),
                         cfg)
 
@@ -132,22 +144,91 @@ def apply_routed(p: nn.Module, x: torch.Tensor, r: Route,
                  cfg: ModelConfig) -> torch.Tensor:
     """The experts and the combine for ``x`` [B, S, d] routed by ``r``."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, r.topi.shape[1]
-    xt = x.reshape(b * s, d)
-    cap = r.cap
-    # dispatch: a scatter into [E·cap + 1, d]; only dropped pairs share
-    # an index (the overflow row, sliced off), and they carry zeros
-    buf = x.new_zeros((e * cap + 1, d))
-    buf[r.slot] = xt[r.order // k] * r.keep[:, None].to(x.dtype)
-    he = buf[:e * cap].view(e, cap, d)
+    return experts(x.reshape(b * s, d), r, p.w_up, getattr(p, "w_gate", None),
+                   p.w_down, cfg.mlp_kind).view(b, s, d)
+
+
+def experts(xt: torch.Tensor, r: Route, w_up, w_gate, w_down,
+            kind: str) -> torch.Tensor:
+    """Dispatch, expert FFNs and combine of the tokens ``xt`` [T, d]
+    routed by ``r``, over the experts whose weights are given (their
+    first dimension; ``r``'s slots index ``[experts · cap + 1]``)."""
+    n_e, d = w_up.shape[0], xt.shape[1]
+    k, cap = r.topi.shape[1], r.cap
+    # dispatch: a scatter into [n_e·cap + 1, d]; only pairs not kept
+    # share an index (the overflow row, sliced off), and they carry zeros
+    buf = xt.new_zeros((n_e * cap + 1, d))
+    buf[r.slot] = xt[r.order // k] * r.keep[:, None].to(xt.dtype)
+    he = buf[:n_e * cap].view(n_e, cap, d)
 
     # the experts, one at a time; a zero row stands for the overflow row
-    w_gate = getattr(p, "w_gate", None)
     flat = torch.cat(
-        [ffn(he[i], p.w_up[i], p.w_down[i], cfg.mlp_kind,
-             None if w_gate is None else w_gate[i]) for i in range(e)]
-        + [x.new_zeros((1, d))])
-    return combine(flat, r).view(b, s, d)
+        [ffn(he[i], w_up[i], w_down[i], kind,
+             None if w_gate is None else w_gate[i]) for i in range(n_e)]
+        + [xt.new_zeros((1, d))])
+    return combine(flat, r)
+
+
+def local_route(r: Route, e0: int, e_loc: int) -> Route:
+    """``r`` restricted to the experts ``e0 .. e0 + e_loc − 1`` (one
+    process's): a kept pair of theirs takes the slot ``(e − e0)·cap +
+    pos`` of the local buffer; every other pair is not kept and takes
+    the overflow row ``e_loc·cap``."""
+    e_sorted = r.topi.reshape(-1)[r.order]
+    mine = r.keep & (e_sorted >= e0) & (e_sorted < e0 + e_loc)
+    slot = torch.where(mine, r.slot - e0 * r.cap,
+                       torch.full_like(r.slot, e_loc * r.cap))
+    return r._replace(keep=mine, slot=slot)
+
+
+def moe_partial(x_loc: torch.Tensor, wg, w_up, w_gate, w_down,
+                cfg: ModelConfig, e0: int, e_loc: int) -> torch.Tensor:
+    """One process's part of the MoE output of its tokens ``x_loc``
+    [T_loc, d] (the reference's ``_local_moe`` without its ``psum``; no
+    collective): the tokens routed over every expert at the capacity of
+    the ``T_loc`` local tokens, only the experts ``e0 .. e0 + e_loc − 1``
+    run (``w_up`` / ``w_gate`` / ``w_down`` hold theirs).  The parts
+    of the processes holding the other experts sum to the output."""
+    r = local_route(route_by(wg, x_loc, cfg), e0, e_loc)
+    return experts(x_loc, r, w_up, w_gate, w_down, cfg.mlp_kind)
+
+
+def apply_moe_sharded(p: nn.Module, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Expert parallelism on the mesh in scope (the reference's
+    ``apply_moe_sharded``): the tokens split by batch (``dp``), the
+    expert weights by expert (``ep``) and expert-ff (``ff``) axes and
+    never gathered there, ``moe_partial`` on each process's shards, and
+    the parts summed over ``red = ep + ff``.  The output is replicated
+    over ``red``, so the gradients of the tokens and the router, which
+    every process there reads for its own experts' part, are summed
+    over ``red`` too (``grad_summed_over``); ``on_local_shards`` sums
+    over the batch split."""
+    mesh = current_mesh()
+    sizes = _mesh_axis_sizes()
+    b, s, d = x.shape
+    dp = axes_of(resolve("batch", b * s))
+    ep = tuple(a for a in axes_of(resolve("expert", cfg.n_experts))
+               if a not in dp)
+    e_loc = cfg.n_experts // math.prod(sizes[a] for a in ep)
+    ff = tuple(a for a in axes_of(resolve("moe_ff", cfg.d_ff))
+               if a not in dp and a not in ep)
+    groups = [mesh.get_group(a) for a in ep + ff]
+    e0 = shard_index(mesh, ep) * e_loc
+    rows, ep_, ff_ = dp or None, ep or None, ff or None
+    w_gate = getattr(p, "w_gate", None)
+
+    def local(xl, wg, w_up, w_down, w_gate=None):
+        xl, wg = grad_summed_over(xl, groups), grad_summed_over(wg, groups)
+        return sum_over(moe_partial(xl, wg, w_up, w_gate, w_down, cfg, e0,
+                                    e_loc), groups)
+
+    args = (x.reshape(b * s, d), p.wg, p.w_up, p.w_down)
+    sps = ((rows, None), (None, None), (ep_, None, ff_), (ep_, ff_, None))
+    if w_gate is not None:
+        args, sps = args + (w_gate,), sps + ((ep_, None, ff_),)
+    out = on_local_shards(local, (rows, None), sps, *args)
+    return out.reshape(b, s, d)
 
 
 def combine(flat: torch.Tensor, r: Route) -> torch.Tensor:

@@ -11,18 +11,28 @@ card the hand-written kernel, on the CPU ``ssd_chunked``.  Decode is the
 O(1) recurrence on a carried (conv_state, ssm_state) cache, plain
 PyTorch.  ``ssd_sequential`` (per-step) is the oracle for
 ``ssd_chunked``; both are plain and live beside the kernel.
+
+On a mesh the block runs under ``local_map`` on each process's batch
+rows with every head whole (``_ssm_on_mesh``).  The reference leaves it
+to GSPMD, with ``in_proj`` and ``conv`` split on the model axis; those
+splits cut through z / xBC / dt and through the xs and B / C channels,
+so a model shard holds no whole head.  The caches (prefill and decode)
+do not run on a mesh yet (ROADMAP A17).
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import not_ported
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_sequential
 from repro_torch.models.layers import _normal, at_least_f32, params_module
+from repro_torch.sharding import current_mesh, on_local_shards, spec
 
 __all__ = ["SSMCache", "apply_ssm", "decode_ssm", "init_ssm",
            "init_ssm_cache", "ssd_chunked", "ssd_sequential"]
@@ -97,9 +107,42 @@ def _gated_norm(y, z, scale, dtype):
             ).to(dtype) * scale
 
 
+# the block's parameters, in the order ``_ssm_on_mesh`` passes them
+_PARAMS = ("in_proj", "conv", "A_log", "D", "dt_bias", "norm_scale",
+           "out_proj")
+
+
 def apply_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
               cache: SSMCache | None = None, return_cache: bool = False):
     """Full-sequence Mamba2 block. x: [B, S, d] → [B, S, d]."""
+    if current_mesh() is None:
+        return _apply_ssm(p, x, cfg, cache, return_cache)
+    if cache is not None or return_cache:
+        not_ported("the SSM's caches on a mesh (prefill and decode)", "A17")
+    return _ssm_on_mesh(p, x, cfg), None
+
+
+def _ssm_on_mesh(p: nn.Module, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """``apply_ssm`` under ``local_map``: x and the output split by
+    batch as the reference's ``shard(out, "batch", None, None)``
+    resolves, the block's parameters replicated (their gradients summed
+    over the batch split by ``on_local_shards``), the scan on each
+    process's rows."""
+    rows = spec("batch", None, None, dims=x.shape)
+    ws = [getattr(p, n) for n in _PARAMS]
+
+    def local(xl, *wl):
+        return _apply_ssm(types.SimpleNamespace(**dict(zip(_PARAMS, wl))),
+                          xl, cfg, None, False)[0]
+
+    return on_local_shards(local, rows,
+                           (rows, *((None,) * w.dim() for w in ws)), x, *ws)
+
+
+def _apply_ssm(p, x: torch.Tensor, cfg: ModelConfig,
+               cache: SSMCache | None, return_cache: bool):
+    """``apply_ssm`` on tensors of one device."""
     b, s, _ = x.shape
     d_in = cfg.d_inner()
     nh, pd, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state

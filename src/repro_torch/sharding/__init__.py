@@ -211,6 +211,47 @@ class _SumGrad(torch.autograd.Function):
         return g, None
 
 
+class _SumForward(torch.autograd.Function):
+    """The sum of ``x`` over ``groups``; the backward passes the gradient
+    through unchanged (the sum is replicated over the groups, and each
+    process differentiates its own part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+        x = x.contiguous().clone()
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """``x`` (a local tensor) summed over the process groups ``groups``
+    in the forward; its gradient passed through unchanged."""
+    return _SumForward.apply(x, groups) if groups else x
+
+
+def grad_summed_over(x: torch.Tensor, groups: list) -> torch.Tensor:
+    """``x`` (a local tensor) unchanged; its gradient summed over the
+    process groups ``groups``: an input replicated over them that each
+    process reads for its own part of a ``sum_over``."""
+    return _SumGrad.apply(x, groups) if groups and x.requires_grad else x
+
+
+def shard_index(mesh, axes: tuple) -> int:
+    """This process's index along mesh axes ``axes`` taken together
+    (the first the slowest), as DTensor splits a dimension over them."""
+    i = 0
+    for a in axes:
+        i = i * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return i
+
+
 def _partial_grad_dims(out_sp: tuple, in_sp: tuple, mesh) -> list:
     """The mesh dimensions (of more than one process) that split the
     output and not this input: there each process's gradient of the
@@ -236,8 +277,7 @@ def on_local_shards(fn, out_sp: tuple, in_sps: tuple, *args):
               for sp in in_sps]
 
     def summed(*local):
-        return fn(*(_SumGrad.apply(t, g) if g and t.requires_grad else t
-                    for t, g in zip(local, groups)))
+        return fn(*(grad_summed_over(t, g) for t, g in zip(local, groups)))
 
     return local_map(summed, out_placements=(placements(out_sp, mesh),),
                      in_placements=tuple(placements(sp, mesh)
@@ -325,5 +365,6 @@ __all__ = ["AbstractMesh", "GraphMesh", "LOGICAL_RULES", "NamedSharding",
            "logical_rules", "mesh_context", "mesh_dims", "mesh_size",
            "named_shardings", "on_local_shards", "param_spec_for",
            "param_specs", "place", "placements", "replicate",
-           "replicated_like", "resolve", "shard", "shard_rows",
-           "shard_slots", "single_device", "spec"]
+           "replicated_like", "resolve", "shard", "shard_index",
+           "shard_rows", "shard_slots", "single_device", "spec",
+           "sum_over", "grad_summed_over"]

@@ -741,6 +741,75 @@ def test_phase_15_mesh_on_the_cpu(tmp_path):
     assert "700.00 W" in line and "reshard_from_checkpoint" in line
 
 
+def test_phase_15_mesh_models_on_the_cpu(tmp_path):
+    """Phase 15 (c)'s mixtral-8x7b and mamba2-130m mesh runs rehearsed on
+    the CPU at reduced size (one gloo process): the float32 mesh and
+    plain steps within each model's bound, the first forward of both
+    routing alike (at world 1 the local tokens are the whole batch);
+    only the launch checks fail."""
+    from repro_torch.config import reduced
+    models = {a: reduced(chip_smoke.lm_config(a, 0))
+              for a in chip_smoke.MESH_MODELS}
+    res = chip_smoke.mesh_checks(
+        0, 1, f"file://{tmp_path}/rendezvous", 7, device_type="cpu",
+        batch=2, seq=32, steps=2, check_seq=32, check_steps=2,
+        root=str(tmp_path / "ckpt"),
+        cfg=reduced(chip_smoke.lm_config("smollm-360m", 0)), models=models)
+    assert set(res["models"]) == {"mixtral-8x7b", "mamba2-130m"}
+    want = []
+    for arch, r in res["models"].items():
+        c, knobs = r["check"], chip_smoke.MESH_MODELS[arch]
+        assert (r["steps"], c["layers"], c["steps"], c["atol"]) == (
+            knobs["steps"], knobs["check_layers"], knobs["check_steps"],
+            knobs["atol"])
+        assert c["loss_diff"] <= c["atol"] and c["param_diff"] <= c["atol"]
+        assert all(math.isfinite(x) for x in r["loss"])
+        k = r["kernel"]
+        want += [f"{arch}: the bf16 mesh run launched {k} 0 times, want "
+                 f"{r['per_step'] * r['steps']}",
+                 f"{arch}: the float32 mesh run launched {k} 0 times, want "
+                 f"{c['per_step'] * c['steps']}"]
+    moe, ssm = res["models"]["mixtral-8x7b"], res["models"]["mamba2-130m"]
+    assert (moe["kernel"], ssm["kernel"]) == ("flash_attention", "ssd_scan")
+    assert moe["check"]["routes_differing"] == 0
+    assert moe["check"]["moe_calls"] == 1
+    assert ssm["check"]["routes_differing"] is None
+    bad = chip_smoke.mesh_failures(res)
+    assert bad[1:] == want, bad
+    line = chip_smoke.mesh_model_line(moe, ("plain", 1.0),
+                                      "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "routed differently 0 over 1 MoE calls" in line
+    assert "700.00 W" in line
+
+
+def test_mesh_model_verdict_names_each_failed_check():
+    ok = dict(kernel="ssd_scan", per_step=48, steps=3,
+              launches={"ssd_scan": 144}, loss=[6.0, 5.9, 5.8],
+              grad_norm=[1.0, 1.0, 1.0],
+              check=dict(per_step=4, steps=2, launches={"ssd_scan": 8},
+                         loss_diff=1e-6, param_diff=1e-6, atol=1e-4))
+    assert chip_smoke.mesh_model_failures(ok) == []
+    for change, message in (
+            (dict(launches={"ssd_scan": 143}), "bf16 mesh run launched"),
+            (dict(launches={"ssd_scan": 144, "flash_attention": 1}),
+             "'flash_attention'"),
+            (dict(check=dict(ok["check"], launches={})),
+             "float32 mesh run launched ssd_scan 0"),
+            (dict(loss=[float("nan")]), "non-finite"),
+            (dict(check=dict(ok["check"], param_diff=2e-4)),
+             "parameters 0.0002")):
+        bad = chip_smoke.mesh_model_failures(dict(ok, **change))
+        assert any(message in b for b in bad), (change, bad)
+
+
+def test_pairs_routed_differently_counts_pairs_not_order():
+    a = [torch.tensor([[0, 1], [2, 3]]), torch.tensor([[1, 0]])]
+    assert chip_smoke.pairs_routed_differently(
+        a, [torch.tensor([[1, 0], [2, 3]]), torch.tensor([[1, 0]])]) == 0
+    assert chip_smoke.pairs_routed_differently(
+        a, [torch.tensor([[0, 2], [3, 1]]), torch.tensor([[2, 3]])]) == 4
+
+
 def _mesh_passing():
     return dict(per_step=64, steps=6, launches={"flash_attention": 384},
                 loss=[10.0, 9.0], grad_norm=[1.0, 1.0],

@@ -15,7 +15,8 @@ with the JAX params carried across by ``repro_torch.convert``:
   within 6.2e-6 × max|g| of it on every leaf, and each compiles a
   program of its own); at two periods a leaf past the rule is held to a
   float64 gradient instead (``F32_GRAD_NOISE``);
-* on a mesh, the family still raises, naming ROADMAP step A17.
+* on a mesh, prefill and decode still raise, naming ROADMAP step A17
+  (training on a mesh is ``tests/test_torch_expert_parallel.py``'s).
 
 The train steps, the optimizer state and the checkpoints of the family
 are ``tests/test_torch_hybrid_train.py``'s.
@@ -212,8 +213,8 @@ def _float64_gradients(model, batch, cfg, remat):
 
 
 def test_hybrid_raises_a17_on_a_mesh():
-    """Off a mesh the family runs; on one, training, prefill and decode
-    raise, naming ROADMAP step A17 (expert parallelism)."""
+    """Off a mesh the family runs; on one, training passes the mesh gate
+    and prefill and decode raise, naming ROADMAP step A17."""
     _, cfg = _configs(8)
     model = api.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.float32, "cpu")
@@ -221,9 +222,8 @@ def test_hybrid_raises_a17_on_a_mesh():
     assert torch.isfinite(api.loss_fn(model, batch, cfg))
     mesh = sharding.AbstractMesh((4, 2), ("data", "model"))
     with sharding.mesh_context(mesh):
-        for call in (lambda: api.loss_fn(model, batch, cfg),
-                     lambda: api.forward(model, batch, cfg),
-                     lambda: api.prefill(model, batch, cfg),
+        api.check_lm_mesh(cfg)
+        for call in (lambda: api.prefill(model, batch, cfg),
                      lambda: api.decode_step(model, batch["tokens"][:, :1],
                                              0, None, cfg)):
             with pytest.raises(NotImplementedError,

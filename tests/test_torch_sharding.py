@@ -25,8 +25,10 @@
   with the quirk C8 (an all-zero leaf on one process sets every
   process's scale to at least 1.0); ``reshard_state`` (4, 2) → (2, 4)
   bit-equal; a delta store save of a mesh state and
-  ``reshard_from_checkpoint`` bit-equal; each family but dense raising
-  ``not_ported`` with "A17" on a mesh.
+  ``reshard_from_checkpoint`` bit-equal; the encdec and vlm families'
+  training, prefill and decode, and the int8 optimizer state raising
+  ``not_ported`` with "A17" on a mesh (the moe, ssm and hybrid families
+  train on a mesh in ``tests/test_torch_expert_parallel.py``).
 """
 import json
 import os
@@ -46,9 +48,7 @@ TINY = dict(n_layers=1, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 BATCH, SEQ, LR = 8, 32, 1e-3
 # compressed_psum: leaf "b" is all zero on this process (C8)
 ZERO_RANK = 3
-NON_DENSE = {"moe": "mixtral-8x7b", "ssm": "mamba2-130m",
-             "encdec": "whisper-small", "vlm": "internvl2-1b",
-             "hybrid": "jamba-1.5-large-398b"}
+NON_DENSE = {"encdec": "whisper-small", "vlm": "internvl2-1b"}
 GROUP_TIMEOUT_S = 240
 
 
@@ -163,6 +163,8 @@ def _worker_checks(rank: int, out: str) -> dict:
     with mesh_context(meshes["4x2"]):
         for what, fn in (
                 ("prefill", lambda: api.prefill(None, batch, cfg)),
+                ("decode", lambda: api.decode_step(
+                    None, batch["tokens"][:, :1], 0, None, cfg)),
                 ("int8", lambda: adamw_update(
                     {}, None, {}, TrainConfig(opt_state_dtype="int8"), 0.1))):
             try:
@@ -590,7 +592,8 @@ def test_reshard_from_checkpoint_is_bit_exact(group):
     assert res["restore_on_mesh"]
 
 
-@pytest.mark.parametrize("what", sorted(NON_DENSE) + ["prefill", "int8"])
+@pytest.mark.parametrize("what", sorted(NON_DENSE)
+                         + ["prefill", "decode", "int8"])
 def test_what_is_not_ported_raises_on_a_mesh(group, what):
     res = _results(group)
     assert res["raises"][what] is not None, what
