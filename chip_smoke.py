@@ -10,7 +10,7 @@ its published width, as deep as the card holds, and a hybrid LM
 (jamba-1.5-large) at its published width over one period, and train
 the two decoder LMs, with delta checkpoints and a recovery, the
 encoder-decoder, VLM and MoE LMs, and the dense, MoE and SSM LMs on a
-``DeviceMesh``.
+``DeviceMesh``, and serve the dense, MoE, SSM and hybrid LMs on it.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -154,7 +154,7 @@ Phases, in order (any failure exits non-zero):
    into a delta store (a temporary root) with one injected failure at
    step 3: the state restored at the failure must equal the state saved
    there, and the final state the uninterrupted run's, bit for bit;
-   printed: storage bytes, save and restore seconds; 12 of mamba2's 24
+   printed: storage bytes, save and restore seconds; 6 of mamba2's 24
    layers (``RECOVERY_LAYERS``).  (d) both models, 2 layers at full
    width, float32, 2 × 256 tokens, 3 steps on the card and on the CPU
    from the same initial state: per-step loss and grad norm within the
@@ -245,20 +245,25 @@ Phases, in order (any failure exits non-zero):
    prefill and 8 decode steps, beside the card's name and power limit;
    the verdict is ``family_failures``, read after phase 11.
 
-15. training every family and the dense LM on a mesh — (a)
+15. training every family and the dense LM on a mesh, serving on it — (a)
    whisper-small (8 × 448 tokens over 8 × 1500 float32 frames from
    ``SyntheticLM``: its encoder and cross-attention run in float32
-   under bf16 params, as JAX promotes), internvl2-1b (8 × 2048 tokens
-   after 256 patches) and mixtral-8x7b (8 × 2048 tokens, capacity factor
-   1.25, published width, as deep as ``moe_train_depth`` reckons from
-   the card's free memory, printed) through ``launch.train.train`` as
+   under bf16 params, as JAX promotes; 6 + 6 of its 12 + 12 layers),
+   internvl2-1b (8 × 2048 tokens after 256 patches; 12 of 24 layers)
+   and mixtral-8x7b (8 × 2048 tokens, capacity factor 1.25, published
+   width, as deep as ``moe_train_depth`` reckons from the card's free
+   memory and at most ``MOE_TRAIN_MAX_LAYERS``, printed; the depth cuts
+   ``FAMILY_TRAIN_LAYERS`` / ``MOE_TRAIN_MAX_LAYERS`` hold the script's
+   time) through ``launch.train.train`` as
    phase 11 (a), bf16 params, 6 steps: flash attention twice a call a
-   step (forward and remat's recompute: whisper 2 × 36, internvl2 2 ×
-   24, mixtral 2 × layers), no plain attention forward, the plain
+   step (forward and remat's recompute: whisper 2 × 18, internvl2 2 ×
+   12, mixtral 2 × layers), no plain attention forward, the plain
    version once a call a step (B5's backward); (b) the three at 2
    layers of published width (whisper 2 + 2; mixtral 1, its ~27 GB of
    float32 state a side, the host's free memory printed first), float32
-   card vs CPU as phase 11 (d), for mixtral also step 1's routes: a
+   card vs CPU as phase 11 (d) (2 steps, mixtral 1:
+   ``FAMILY_CHECK_STEPS``, for the script's time), for mixtral also
+   step 1's routes: a
    token routed differently must be a near-tie (``route_flip``); (c) a
    (data n, model 1) ``DeviceMesh`` over the n visible cards under NCCL,
    one process a card (``--mesh-child``): smollm-360m at published size
@@ -267,13 +272,23 @@ Phases, in order (any failure exits non-zero):
    over the data dimension bit-equal to its numpy form; a delta-store
    save and ``reshard_from_checkpoint`` bit-equal; then mixtral-8x7b
    (published width and 8 experts, expert parallel, as deep as
-   ``moe_train_depth`` reckons, printed) and mamba2-130m (published
+   ``moe_train_cut`` reckons, printed) and mamba2-130m (published
    size) through ``train(mesh=)`` in bf16, 4 steps (B5 2 × layers,
    B6 2 × 24 a step), and float32 mesh vs plain on the card, mixtral 1
    layer within 2e-4 with the first forward's pairs routed differently
    printed, mamba2 2 layers within 1e-4, 2 steps each (``MESH_MODELS``,
    the cuts printed); jamba's reckoning printed (its mesh step needs
-   two cards).  Verdicts
+   two cards); then, at world 1, each of ``MESH_SERVE`` served on the
+   mesh (``models.api.prefill`` / ``decode_step``, the caches at
+   ``launch.dryrun.cache_sharding``'s placements) and plainly from one
+   draw of its weights (``mesh_and_plain``): smollm-360m and mamba2-130m
+   at published size, mixtral-8x7b as deep as ``moe_depth`` reckons,
+   jamba-1.5-large's period with ``hybrid_distinct_moe``'s experts (or
+   its reckoning printed where it does not fit), a prefill of 8 × 2048
+   and 32 greedy steps, counters zeroed around each: every step's
+   logits bit-equal to the plain path's, the same launches (B5 / B6 a
+   layer a prefill, none in decode); printed: prefill s (warm, cold)
+   and decode ms/step beside the plain path's, peak memory.  Verdicts
    ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
    the end.
 
@@ -400,9 +415,9 @@ PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
 # the card and on the CPU
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
 CKPT_EVERY, CKPT_FAIL_AT = 2, 3
-# (c) trains 12 of mamba2's 24 layers: the whole script stays near 850 s
-# with phase 15 (24 layers took ~65 s)
-RECOVERY_LAYERS = 12
+# (c) trains 6 of mamba2's 24 layers: with phase 15 (c)'s serving the
+# whole script read 1120 s at 12 layers (24 layers took ~65 s, 12 ~42 s)
+RECOVERY_LAYERS = 6
 CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
 CHECK_TRAIN_STEPS = 3
 # float32 training on the card against the CPU: per step, |Δ loss| /
@@ -4543,7 +4558,22 @@ def differing_arrays(a: dict, b: dict) -> list:
     return sorted(k for k in set(a) | set(b)
                   if k not in a or k not in b or a[k].dtype != b[k].dtype
                   or a[k].shape != b[k].shape
-                  or a[k].tobytes() != b[k].tobytes())
+                  or not same_bytes(a[k], b[k]))
+
+
+def same_bytes(x, y) -> bool:
+    """Whether two arrays of one dtype and shape hold the same bytes,
+    compared as integers of their item size in place (no copy: a
+    mixtral layer's state is 6.8 GB a side)."""
+    import numpy as np
+    import torch
+
+    def bits(a):
+        a = np.ascontiguousarray(a).reshape(-1)
+        return torch.from_numpy(a.view(f"i{a.itemsize}")
+                                if a.itemsize in (1, 2, 4, 8)
+                                else a.view(np.uint8))
+    return torch.equal(bits(x), bits(y))
 
 
 def recording_store(cls):
@@ -4736,11 +4766,13 @@ def phase_train_card_cpu(cfg, seed: int, device="cuda",
         build.reset_launches()
         step = make_train_step(cfg, tcfg, scfg)
         data = SyntheticLM(cfg, batch, seq, seed=tcfg.seed, device=dev)
-        rows[dev] = {"loss": [], "grad_norm": []}
+        rows[dev] = {"loss": [], "grad_norm": [], "step_s": []}
         for i in range(steps):
+            t0 = time.perf_counter()
             state, m = step(state, data.batch_at(i))
-            for k in rows[dev]:
+            for k in ("loss", "grad_norm"):
                 rows[dev][k].append(float(m[k]))
+            rows[dev]["step_s"].append(time.perf_counter() - t0)
         if dev == device:
             launches = dict(build.LAUNCHES)
         states[dev] = None
@@ -4751,6 +4783,8 @@ def phase_train_card_cpu(cfg, seed: int, device="cuda",
                 steps=steps, launches=launches,
                 init_differing=init_differing, route_flips=flips,
                 loss_card=rows[device]["loss"], loss_cpu=rows["cpu"]["loss"],
+                step_s_card=rows[device]["step_s"],
+                step_s_cpu=rows["cpu"]["step_s"],
                 rel=rel, max_rel=max(max(v) for v in rel.values()))
 
 
@@ -4778,8 +4812,10 @@ def card_cpu_line(r: dict) -> str:
                                            r["rel"]["loss"])
             + ", grad norm " + ", ".join(f"{x:.3g}" for x in
                                          r["rel"]["grad_norm"])
-            + f" (tolerance {F32_TRAIN_CARD_CPU_RTOL:.3g}); initial "
-            f"parameters bit-equal: {not r['init_differing']}"
+            + f" (tolerance {F32_TRAIN_CARD_CPU_RTOL:.3g}); step s card "
+            + ", ".join(f"{x:.2f}" for x in r["step_s_card"]) + " / CPU "
+            + ", ".join(f"{x:.2f}" for x in r["step_s_cpu"])
+            + f"; initial parameters bit-equal: {not r['init_differing']}"
             + ("" if flips is None else
                f"; step-1 route flips {len(flips)} (gap, delta: "
                + ", ".join(f"{f['gap']:.4g} <= {f['delta']:.4g}"
@@ -4857,6 +4893,14 @@ def phase_training(layers: int, seed: int) -> dict:
 # 2048 tokens; bf16 params
 FAMILY_TRAIN = (("whisper-small", WHISPER_TEXT_CTX),
                 ("internvl2-1b", TRAIN_SEQ))
+# depth cuts, made when phase 15 (c) began to serve: the whole script
+# read 1120 and 1293 s on one H100 at 700 W with (a) at published depth
+# and mixtral at 2 layers (the card's host sets the spread), against a
+# 1200 s limit on the whole run.  (a) trains whisper-small 6 + 6 of its 12 + 12 layers
+# and internvl2-1b 12 of 24; (a) and (c) train mixtral at most
+# MOE_TRAIN_MAX_LAYERS deep, whatever ``moe_train_depth`` reckons
+FAMILY_TRAIN_LAYERS = {"whisper-small": 6, "internvl2-1b": 12}
+MOE_TRAIN_MAX_LAYERS = 1
 # (a) mixtral's depth: bf16 param and gradient, float32 moments
 MOE_TRAIN_BYTES_PER_PARAM = 12
 # a step's memory beside the state: the plain attention backward at (8,
@@ -4872,6 +4916,12 @@ MOE_TRAIN_SAVED_BYTES_PER_LAYER = 3 * 10 ** 9
 # at published width
 FAMILY_CHECK_LAYERS = {"whisper-small": 2, "internvl2-1b": 2,
                        MOE_ARCH: 1}
+# (b)'s steps, cut from CHECK_TRAIN_STEPS for the script's time: on an
+# H100's host (8 cores) the CPU side of a step took 5.8-7.8 s (whisper,
+# internvl2) and 52.6-57.9 s (mixtral, its 1.45 B float32 parameters);
+# mixtral's one step still holds its forward, backward and routes to
+# the CPU's, and the other families' second step the update's
+FAMILY_CHECK_STEPS = {"whisper-small": 2, "internvl2-1b": 2, MOE_ARCH: 1}
 # (c): smollm-360m at published size on the mesh; 2 float32 layers, 8 ×
 # 256 tokens, 3 steps, mesh against the plain step within the
 # reference's own bound (test_distributed.py:496-499)
@@ -4929,15 +4979,28 @@ def moe_train_depth(cfg, free_bytes: int, override: int = 0) -> tuple:
                f"{free_bytes / 1e9:.1f} GB)")
 
 
-def family_check_config(arch: str):
-    """Phase 15 (b)'s cut of ``arch``: FAMILY_CHECK_LAYERS layers at
-    published width (an encoder-decoder: as many encoder layers)."""
+def family_check_config(arch: str, n: int | None = None):
+    """``arch`` at published width and ``n`` layers (default phase 15
+    (b)'s cut, FAMILY_CHECK_LAYERS; an encoder-decoder: as many encoder
+    layers)."""
     import dataclasses
-    n = FAMILY_CHECK_LAYERS[arch]
+    n = n or FAMILY_CHECK_LAYERS[arch]
     cfg = lm_config(arch, n)
     if cfg.family == "encdec":
         cfg = dataclasses.replace(cfg, n_enc_layers=n)
     return cfg
+
+
+def moe_train_cut(free_bytes: int, layers: int) -> tuple:
+    """Phases 15 (a) and (c)'s mixtral depth and its reckoning, as
+    printed: ``moe_train_depth``'s, at most MOE_TRAIN_MAX_LAYERS (the
+    script's time) unless ``layers`` (``--lm-layers``) is given."""
+    n, cut = moe_train_depth(lm_config(MOE_ARCH, 0), free_bytes, layers)
+    if not layers and n > MOE_TRAIN_MAX_LAYERS:
+        n, cut = MOE_TRAIN_MAX_LAYERS, (
+            f"{MOE_TRAIN_MAX_LAYERS} of 32 layers, cut for the script's "
+            f"time (the card holds {cut})")
+    return n, cut
 
 
 def host_free_gib() -> float:
@@ -4951,18 +5014,23 @@ def host_free_gib() -> float:
 
 def phase_family_training(layers: int, seed: int, smi: str) -> dict:
     """Phase 15 (a) and (b): whisper-small, internvl2-1b and mixtral-8x7b
-    trained at published width (mixtral as deep as ``moe_train_depth``
-    reckons) and their float32 card-vs-CPU checks; the verdicts are
-    ``train_failures`` and ``card_cpu_failures``, collected."""
+    trained at published width (at FAMILY_TRAIN_LAYERS' depths; mixtral
+    as ``moe_train_cut`` reckons) and their float32 card-vs-CPU checks;
+    the verdicts are ``train_failures`` and ``card_cpu_failures``,
+    collected."""
     import torch
     out, bad = {"train": {}, "card_cpu": {}}, []
     for arch, seq in FAMILY_TRAIN + ((MOE_ARCH, TRAIN_SEQ),):
         gc.collect()
         torch.cuda.empty_cache()
         cfg = lm_config(arch, layers)
+        if arch in FAMILY_TRAIN_LAYERS and not layers:
+            cfg = family_check_config(arch, FAMILY_TRAIN_LAYERS[arch])
+            print(f"train {arch}: depth {cfg.n_layers} of "
+                  f"{lm_config(arch, 0).n_layers} layers, cut for the "
+                  f"script's time", flush=True)
         if arch == MOE_ARCH:
-            n, cut = moe_train_depth(lm_config(arch, 0),
-                                     torch.cuda.mem_get_info()[0], layers)
+            n, cut = moe_train_cut(torch.cuda.mem_get_info()[0], layers)
             print(f"train {arch}: depth {cut}", flush=True)
             cfg = lm_config(arch, n)
             out["moe_depth"] = dict(layers=n, cut=cut)
@@ -4980,7 +5048,9 @@ def phase_family_training(layers: int, seed: int, smi: str) -> dict:
         print(f"train {arch}: float32 card vs CPU, host memory available "
               f"{host_free_gib():.1f} GiB", flush=True)
         t0 = time.perf_counter()
-        r = phase_train_card_cpu(family_check_config(arch), seed)
+        r = phase_train_card_cpu(
+            family_check_config(arch), seed,
+            steps=FAMILY_CHECK_STEPS[arch])
         r["phase_s"] = time.perf_counter() - t0
         print(card_cpu_line(r), flush=True)
         bad += [f"train {arch}: {b}" for b in card_cpu_failures(r)]
@@ -5163,7 +5233,7 @@ def mesh_model_run(full, mesh, dev, *, batch: int, seq: int, steps: int,
 
 def mesh_model_config(arch: str, layers: int, device_type: str) -> tuple:
     """Phase 15 (c)'s config of ``arch`` and its cut, as printed: mixtral
-    at published width, as deep as ``moe_train_depth`` reckons from the
+    at published width, as deep as ``moe_train_cut`` reckons from the
     card's free memory; any other at published size (or ``layers``)."""
     import torch
     if arch != MOE_ARCH:
@@ -5171,7 +5241,7 @@ def mesh_model_config(arch: str, layers: int, device_type: str) -> tuple:
         return cfg, f"{cfg.n_layers} layers"
     free = (torch.cuda.mem_get_info()[0] if device_type == "cuda"
             else 64 * 2 ** 30)
-    n, cut = moe_train_depth(lm_config(arch, 0), free, layers)
+    n, cut = moe_train_cut(free, layers)
     return lm_config(arch, n), cut
 
 
@@ -5190,6 +5260,216 @@ def hybrid_mesh_reckoning() -> str:
             f"{total / 1e9:.1f} GB: it waits for a second card")
 
 
+# (c) also serves on the world-1 mesh: smollm-360m and mamba2-130m at
+# published size, mixtral-8x7b as deep as ``moe_depth`` reckons and
+# jamba-1.5-large's one period with ``hybrid_distinct_moe``'s experts,
+# each a prefill of LM_BATCH x LM_PROMPT and LM_DECODE greedy steps on
+# the mesh and plainly, from one draw of the weights (the earlier phases
+# that serve these models have freed theirs by now: the same seeds and
+# generators draw them again).  At world 1 every local shard is the whole
+# tensor, so the mesh's logits must equal the plain path's bit for bit
+MESH_SERVE = ("smollm-360m", "mamba2-130m", MOE_ARCH, HYBRID_ARCH)
+
+
+def mesh_and_plain(model, mesh) -> tuple:
+    """``model``'s parameters moved onto ``mesh`` by the parameter rules
+    (``sharding.place``) one at a time, each original let go once placed
+    (a copy of a whole ~70 GB model does not fit beside it; shared
+    Parameters stay shared), and a plain model whose parameters are the
+    mesh model's local tensors: at world 1 each is the whole tensor, so
+    the two share their storage.  Returns (the mesh model, the plain
+    one); ``model`` is the mesh model afterwards."""
+    import copy
+
+    import torch
+
+    from repro_torch.sharding import named_shardings, place
+    sh = named_shardings(model, mesh)
+    placed = {}
+    for prefix, mod in model.named_modules():
+        for name, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            if id(p) not in placed:
+                s = sh[f"{prefix}.{name}" if prefix else name]
+                placed[id(p)] = torch.nn.Parameter(
+                    place(p.detach(), s.mesh, s.spec), requires_grad=False)
+            mod._parameters[name] = placed[id(p)]
+            del p
+    plain = copy.deepcopy(model, {
+        id(p): torch.nn.Parameter(p.detach().to_local(), requires_grad=False)
+        for p in placed.values()})
+    return model, plain
+
+
+def serve_timed(model, cfg, prompts, decode: int, dev, mesh=None) -> dict:
+    """A prefill of ``prompts`` (a cold one first, its caches let go) and
+    ``decode`` greedy steps through ``models.api``, on ``mesh`` (the
+    prompts placed by ``batch_sharding``, in its context) or plainly:
+    the counters zeroed before the warm prefill and before the decode
+    and read after each, the clock after a synchronize, every step's
+    logits kept (gathered)."""
+    import contextlib
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import batch_sharding
+    from repro_torch.models import api
+    from repro_torch.runtime.elastic import place_tree
+    from repro_torch.sharding import mesh_context
+
+    batch = {"tokens": prompts}
+    if mesh is not None:
+        batch = place_tree(batch, batch_sharding(batch, mesh))
+    cap = prompts.shape[1] + decode
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    res = {}
+    with mesh_context(mesh) if mesh is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        _, caches = api.prefill(model, batch, cfg, cache_cap=cap)
+        del caches
+        _sync(dev)
+        res["prefill_cold_s"] = time.perf_counter() - t0
+        build.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(model, batch, cfg, cache_cap=cap)
+        out = [full(logits)]
+        _sync(dev)
+        res["prefill_s"] = time.perf_counter() - t0
+        res["prefill_launches"] = dict(build.LAUNCHES)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(decode):
+            logits, caches = api.decode_step(model, out[-1].argmax(-1)[:, None],
+                                             prompts.shape[1] + i, caches, cfg)
+            out.append(full(logits))
+        _sync(dev)
+        res["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / decode
+        res["decode_launches"] = dict(build.LAUNCHES)
+    res["logits"] = out
+    return res
+
+
+def mesh_serve(model, cfg, mesh, dev, *, seed: int, batch: int,
+               prompt: int, decode: int, cut: str) -> dict:
+    """Phase 15 (c)'s serving of ``model`` (``cfg``, bf16 on ``dev``) on
+    the world-1 ``mesh`` against the plain path on the same weights
+    (``mesh_and_plain``) and prompts (seeded as phases 5, 6, 13 and 16
+    seed theirs): ``serve_timed`` plainly, then on the mesh; each
+    step's logits compared bit for bit.  The verdict is
+    ``mesh_serve_failures``."""
+    import numpy as np
+    import torch
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt))).to(dev)
+    model, plain = mesh_and_plain(model, mesh)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+               cut=cut, batch=batch, prompt=prompt, decode=decode,
+               want=hybrid_launches_want(cfg), mesh=dict(zip(
+                   mesh.mesh_dim_names, mesh.shape)))
+    res["plain"] = serve_timed(plain, cfg, prompts, decode, dev)
+    del plain
+    gc.collect()
+    res["mesh_run"] = serve_timed(model, cfg, prompts, decode, dev, mesh)
+    a, b = res["mesh_run"].pop("logits"), res["plain"].pop("logits")
+    res["bit_equal"] = [torch.equal(x.contiguous().view(torch.uint8),
+                                    y.contiguous().view(torch.uint8))
+                        for x, y in zip(a, b)]
+    res["max_abs_diff"] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    res["finite"] = all(bool(torch.isfinite(x).all()) for x in a)
+    res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if cuda else None)
+    return res
+
+
+def mesh_serve_config(arch: str, layers: int, device_type: str) -> tuple:
+    """Phase 15 (c)'s served config of ``arch`` and its cut, as printed
+    (None where the card does not hold it): mixtral at published width,
+    as deep as ``moe_depth`` reckons from the free memory; jamba's one
+    period with ``hybrid_distinct_moe``'s distinct MoE layers (None
+    below HYBRID_MIN_DISTINCT); any other at published size (or
+    ``layers``).  Returns (config, cut, distinct)."""
+    import torch
+    free = (torch.cuda.mem_get_info()[0] if device_type == "cuda"
+            else 128 * 2 ** 30)
+    if arch == MOE_ARCH:
+        n, cut = moe_depth(lm_config(arch, 0), free, layers)
+        return lm_config(arch, n), cut, None
+    if arch == HYBRID_ARCH:
+        cfg = hybrid_config()
+        distinct, cut = hybrid_distinct_moe(cfg, free)
+        return (cfg if distinct >= HYBRID_MIN_DISTINCT else None), cut, \
+            distinct
+    cfg = lm_config(arch, layers)
+    return cfg, f"{cfg.n_layers} layers", None
+
+
+def mesh_serve_model(cfg, seed: int, distinct, dev):
+    """The weights phases 5, 6, 13 and 16 serve ``cfg`` with: bf16 from a
+    generator on ``dev`` seeded ``seed`` (jamba: ``hybrid_model``)."""
+    import torch
+
+    from repro_torch.models import api
+    if distinct is not None:
+        return hybrid_model(cfg, seed, distinct, torch.bfloat16, dev)
+    return api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           torch.bfloat16, dev)
+
+
+def mesh_serve_failures(r: dict) -> list:
+    """The verdict on one of phase 15 (c)'s served models: each prefill's
+    and each decode step's logits bit-equal to the plain path's and
+    finite; the mesh's launches those of the plain path, a prefill's as
+    ``hybrid_launches_want`` says (a kernel a layer), none in decode."""
+    bad = []
+    eq = r["bit_equal"]
+    if not all(eq):
+        bad.append(f"the mesh's logits differ from the plain path's at "
+                   f"{[i for i, e in enumerate(eq) if not e][:8]} of "
+                   f"{len(eq)} calls (0 the prefill; max |diff| "
+                   f"{r['max_abs_diff']:.3g})")
+    if not r["finite"]:
+        bad.append("non-finite logits on the mesh")
+    m, p = r["mesh_run"], r["plain"]
+    for what in ("prefill_launches", "decode_launches"):
+        if {k: v for k, v in m[what].items() if v} != \
+                {k: v for k, v in p[what].items() if v}:
+            bad.append(f"the mesh's {what.split('_')[0]} launched "
+                       f"{m[what]}, the plain path's {p[what]}")
+    got = {k: v for k, v in m["prefill_launches"].items() if v}
+    if got != {k: v for k, v in r["want"].items() if v}:
+        bad.append(f"a mesh prefill launched {got}, want {r['want']}")
+    if any(m["decode_launches"].values()):
+        bad.append(f"the mesh's decode launched {m['decode_launches']}")
+    return bad
+
+
+def mesh_serve_line(r: dict, smi: str) -> str:
+    m, p = r["mesh_run"], r["plain"]
+    launched = {k: v for k, v in m["prefill_launches"].items() if v}
+    return (f"serve {r['arch']} on a mesh {r['mesh']} (world 1): "
+            f"{r['cut']}, bf16, {r['batch']}x{r['prompt']} prompts + "
+            f"{r['decode']} greedy steps; prefill s {m['prefill_s']:.4f} "
+            f"(cold {m['prefill_cold_s']:.4f}; plain {p['prefill_s']:.4f}, "
+            f"x{m['prefill_s'] / p['prefill_s']:.3f}); decode ms/step "
+            f"{m['decode_ms_per_step']:.3f} (plain "
+            f"{p['decode_ms_per_step']:.3f}, x"
+            f"{m['decode_ms_per_step'] / p['decode_ms_per_step']:.3f}); "
+            f"prefill launches {launched} (plain "
+            f"{ {k: v for k, v in p['prefill_launches'].items() if v} }), "
+            f"decode none; logits bit-equal to the plain path's at "
+            f"{sum(r['bit_equal'])} of {len(r['bit_equal'])} calls"
+            + ("" if r["peak_gib"] is None else
+               f"; peak {r['peak_gib']:.2f} GiB") + f"  [{smi}]")
+
+
 def mesh_checks(rank: int, world: int, init: str, seed: int,
                 device_type: str = "cuda", layers: int = 0,
                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
@@ -5197,7 +5477,7 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
                 check_seq: int = MESH_CHECK_SEQ,
                 check_steps: int = CHECK_TRAIN_STEPS,
                 root: str | None = None, cfg=None,
-                models: dict | None = None) -> dict:
+                models: dict | None = None, serve: bool = False) -> dict:
     """Phase 15 (c) on one process of a (data ``world``, model 1) mesh
     (``launch.mesh.make_test_mesh``; NCCL on the card, one process a
     card): (1) smollm-360m (depth ``layers`` or the published one) in
@@ -5209,8 +5489,12 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
     this process's own) and ``reshard_from_checkpoint`` onto the mesh;
     (5) each of ``models`` (arch → config, None for
     ``mesh_model_config``'s) as (1) and (2), with ``MESH_MODELS``'s
-    steps, check layers and bound.  ``cfg`` replaces smollm-360m (a CPU
-    rehearsal).  The verdict is ``mesh_failures``."""
+    steps, check layers and bound; (6) if ``serve``, at world 1, each
+    of ``MESH_SERVE`` at ``mesh_serve_config``'s config served on the
+    mesh and plainly (``mesh_serve``: LM_BATCH x LM_PROMPT prompts,
+    LM_DECODE steps), a model the card does not hold skipped with its
+    reckoning.  ``cfg`` replaces smollm-360m (a CPU rehearsal).  The
+    verdict is ``mesh_failures``."""
     import dataclasses
 
     import torch
@@ -5293,6 +5577,28 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
                                   check_seq=check_seq, **knobs)
             r["cut"] = cut
             res["models"][arch] = r
+
+        res["serve"], res["serve_skipped"] = {}, {}
+        for arch in MESH_SERVE if serve else ():
+            if world != 1:
+                res["serve_skipped"][arch] = (
+                    f"world {world}: the mesh-vs-plain comparison needs "
+                    f"world 1 (wider meshes: the gloo CPU tests)")
+                continue
+            gc.collect()
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            served, cut, distinct = mesh_serve_config(arch, layers,
+                                                      device_type)
+            if rank == 0:
+                print(f"serve {arch} on a mesh: {cut}", flush=True)
+            if served is None:
+                res["serve_skipped"][arch] = cut
+                continue
+            res["serve"][arch] = mesh_serve(
+                mesh_serve_model(served, seed, distinct, dev), served, mesh,
+                dev, seed=seed, batch=LM_BATCH, prompt=LM_PROMPT,
+                decode=LM_DECODE, cut=cut)
         return res
     finally:
         dist.destroy_process_group()
@@ -5347,6 +5653,8 @@ def mesh_failures(res: dict, plain_step_s: float | None = None) -> list:
                    f"{res['restore_on_mesh']})")
     for arch, r in res.get("models", {}).items():
         bad += [f"{arch}: {b}" for b in mesh_model_failures(r)]
+    for arch, r in res.get("serve", {}).items():
+        bad += [f"serving {arch}: {b}" for b in mesh_serve_failures(r)]
     return bad
 
 
@@ -5433,7 +5741,8 @@ def mesh_child(rank: int, world: int, init: str, seed: int,
     root = tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{rank}_")
     try:
         mesh_checks(rank, world, init, seed, layers=layers, root=root,
-                    models=dict.fromkeys(MESH_MODELS))
+                    models=dict.fromkeys(MESH_MODELS),
+                    serve=True)
         return 0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5454,7 +5763,8 @@ def phase_mesh(seed: int, layers: int) -> dict:
     try:
         res = mesh_checks(0, world, init, seed, layers=layers,
                           root=os.path.join(work, "ckpt"),
-                          models=dict.fromkeys(MESH_MODELS))
+                          models=dict.fromkeys(MESH_MODELS),
+                          serve=True)
         res["children"] = [p.wait(timeout=MESH_CHILD_TIMEOUT_S)
                            for p in children]
         return res
@@ -5737,6 +6047,10 @@ def main(argv=None) -> int:
                  else None)
         print(mesh_model_line(r, plain, smi.splitlines()[0]), flush=True)
     print(hybrid_mesh_reckoning(), flush=True)
+    for r in mesh["serve"].values():
+        print(mesh_serve_line(r, smi.splitlines()[0]), flush=True)
+    for arch, why in mesh["serve_skipped"].items():
+        print(f"serve {arch} on a mesh: not run; {why}", flush=True)
     train_bad = family_train["failures"] + mesh_failures(mesh) + [
         f"mesh process {r} exited {c}"
         for r, c in enumerate(mesh["children"], 1) if c]
@@ -5778,6 +6092,11 @@ def main(argv=None) -> int:
     for arch, r in mesh["models"].items():
         runs[f"{arch} train on a mesh"] = r["launches"]
         runs[f"{arch} train float32 on a mesh"] = r["check"]["launches"]
+    for arch, r in mesh["serve"].items():
+        m = r["mesh_run"]
+        runs[f"{arch} served on a mesh"] = {
+            k: m["prefill_launches"].get(k, 0) + m["decode_launches"].get(k, 0)
+            for k in set(m["prefill_launches"]) | set(m["decode_launches"])}
     for k in kernels:
         k["launches_by_run"] = {run: n.get(k["name"], 0)
                                for run, n in runs.items()}

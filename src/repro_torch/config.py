@@ -83,10 +83,12 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
     """Mesh-axis assignment and the training step's recompute policy,
-    every field of the JAX package's.  The port trains on one device:
-    ``fsdp`` / ``fsdp_pod`` / ``seq_shard_decode`` are carried (and
-    ``fsdp_axes`` answers as there) but nothing acts on them until
-    multi-device training is ported.  ``remat`` is acted on
+    every field of the JAX package's.  ``fsdp`` / ``fsdp_pod`` are
+    carried (and ``fsdp_axes`` answers as there) but nothing acts on
+    them until ``fsdp`` on a mesh is ported.  ``seq_shard_decode`` is
+    carried and read by nothing, as in the JAX package: a decode cache
+    splits its KV sequence through the logical rule ``kv_seq``
+    (``sharding.cache_spec``).  ``remat`` is acted on
     (``models/lm.py::forward``).  ``attn_impl`` is accepted and recorded
     only: the port has no attention switch, the device decides
     (``models/attention.py``)."""

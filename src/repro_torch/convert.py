@@ -3,7 +3,9 @@
 ``lm_from_numpy`` builds the port's model (an ``LM``, or an ``EncDec``
 for the encdec family) from a ``repro`` param tree exported as numpy
 (see its docstring); ``train_state_from_numpy`` the port's
-``TrainState`` from a ``repro`` one.  ``arrays_from_reference`` /
+``TrainState`` from a ``repro`` one; ``caches_from_numpy`` /
+``caches_to_numpy`` carry decode caches across, both ways (the JAX
+package stacks them by group, the port keeps a dict a group).  ``arrays_from_reference`` /
 ``arrays_to_reference`` map a checkpoint's named arrays between the
 JAX package's tree-path names (an LM's groups, an encoder-decoder's
 encoder and decoder layers, each stacked on one axis:
@@ -30,6 +32,8 @@ one sealed segment — segmentation never changes an answer.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -39,6 +43,8 @@ from repro_torch.core.graph import DenseGraph, EdgeGraph
 from repro_torch.core.segments import Segment, build_merged_nodes
 from repro_torch.core.store import TemporalGraphStore
 from repro_torch.models import api
+from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.optim.adamw import STACKED
 
 _COLS = ("op", "u", "v", "slot", "t")
@@ -147,6 +153,75 @@ def train_state_from_numpy(state, cfg, device="cuda"):
                        m=moments(_field(opt, "m")),
                        v=moments(_field(opt, "v"))),
         step=int(_field(state, "step")))
+
+
+# ---------------------------------------------------------------------------
+# decode caches: the JAX package's stacked caches <-> the port's per group
+
+def _cache_kind(entry):
+    """(class, fields) of a cache entry (``KVCache``, ``SSMCache``) by
+    its fields, or None for a plain array (an encdec layer's ``xk`` /
+    ``xv``)."""
+    for cls in (KVCache, SSMCache):
+        names = tuple(f.name for f in dataclasses.fields(cls))
+        if all(n in entry if isinstance(entry, dict) else hasattr(entry, n)
+               for n in names):
+            return cls, names
+    return None
+
+
+def caches_from_numpy(caches: dict, device="cuda") -> list[dict]:
+    """The port's decode caches (one dict a group, or a decoder layer,
+    as ``models.api.prefill`` returns them) holding the JAX package's
+    stacked caches exported as numpy (``jax.tree.map(np.asarray,
+    caches)``): a dict of name → ``KVCache`` (k, v, pos_map) or
+    ``SSMCache`` (conv, state), as objects or dicts with those fields,
+    or → an array (an encdec layer's ``xk`` / ``xv``), each stacked on a
+    leading axis of groups.  dtypes are kept (bfloat16 bit for bit)."""
+    dev = resolve_device(device)
+
+    def one(a, g):
+        return _tensor(np.asarray(a)[g]).to(dev)
+
+    first = next(iter(caches.values()))
+    kind = _cache_kind(first)
+    n = np.shape(_field(first, kind[1][0]) if kind else first)[0]
+    out = []
+    for g in range(n):
+        group = {}
+        for name, entry in caches.items():
+            kind = _cache_kind(entry)
+            group[name] = (one(entry, g) if kind is None else kind[0](
+                *(one(_field(entry, f), g) for f in kind[1])))
+        out.append(group)
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor (a DTensor: gathered) as numpy; bfloat16 as float32,
+    which holds every bfloat16 value exactly."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def caches_to_numpy(caches: list[dict]) -> dict:
+    """The inverse of ``caches_from_numpy``: the port's decode caches
+    (DTensors gathered) as the JAX package stacks them, name → {field:
+    array} for a ``KVCache`` / ``SSMCache`` or name → array, each array
+    the groups' tensors stacked on a leading axis (bfloat16 as
+    float32)."""
+    out = {}
+    for name, entry in caches[0].items():
+        kind = _cache_kind(entry)
+        if kind is None:
+            out[name] = np.stack([_host(c[name]) for c in caches])
+        else:
+            out[name] = {f: np.stack([_host(getattr(c[name], f))
+                                      for c in caches]) for f in kind[1]}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,11 @@ Batches are dicts holding ``tokens`` (and ``labels``, optionally
 (``models/lm.py``; decode positions then count the patches).  There is
 no ``impl`` argument: the device decides how attention runs
 (``models/attention.py``).  On a mesh the dense, moe, ssm and hybrid
-families' ``loss_fn`` / ``forward`` run; the encdec and vlm families,
-and prefill and decode of every family, raise, naming their ROADMAP
-step (``check_lm_mesh``).  ``input_specs`` comes with the dry-run
-(ROADMAP A18).
+families' ``loss_fn`` / ``forward`` / ``prefill`` / ``decode_step`` run
+(the caches at ``launch.dryrun.cache_sharding``'s placements); the
+encdec and vlm families raise, naming their ROADMAP step
+(``check_lm_mesh``).  ``input_specs`` comes with the dry-run (ROADMAP
+A18).
 """
 from __future__ import annotations
 
@@ -29,17 +30,18 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import encdec, lm
 from repro_torch.sharding import current_mesh
 
-# the families whose training step runs on a mesh; encdec and vlm (and
-# prefill and decode, ``cache_sharding``) come with ROADMAP A17's item 3
+# the families whose training, prefill and decode run on a mesh; encdec
+# and vlm come with the rest of ROADMAP A17's item 3
 MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_lm_mesh(cfg: ModelConfig, what: str = "training") -> None:
     """Raise, naming the ROADMAP step, where a mesh is in scope and
-    ``cfg``'s family (or ``what``) does not run on one yet."""
+    ``cfg``'s family does not run ``what`` (training, prefill, decode)
+    on one yet."""
     if current_mesh() is None:
         return
-    if cfg.family not in MESH_FAMILIES or what != "training":
+    if cfg.family not in MESH_FAMILIES:
         not_ported(f"{what} of the {cfg.family!r} family ({cfg.name}) on a "
                    "mesh", "A17")
 

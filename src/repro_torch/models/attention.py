@@ -27,7 +27,11 @@ axis), each process takes the kv heads of its own q heads.
 
 Decode writes the new key/value row into the cache tensors in place
 (PyTorch's idiom; the JAX package returns fresh arrays) and returns the
-same cache object.
+same cache object.  On a mesh a prefill's cache and every decode step's
+sit at ``sharding.kv_cache_spec``'s placements (the reference's
+``cache_sharding``): the batch split where it divides, else the KV
+sequence split over ``kv_seq``, whose blocks' softmax parts a decode
+step combines by log-sum-exp over the mesh (``_decode_on_mesh``).
 """
 from __future__ import annotations
 
@@ -39,8 +43,11 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import _normal, mm, params_module, rope
-from repro_torch.sharding import (axes_of, current_mesh, on_local_shards,
-                                  shard, shard_index, spec)
+from repro_torch.sharding import (all_reduce_over, axes_of,
+                                  batch_cache_spec, current_mesh,
+                                  kv_cache_spec, local_range,
+                                  on_local_shards, place, placements, shard,
+                                  shard_index, spec, split_dims)
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -68,9 +75,10 @@ class KVCache:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-               device) -> KVCache:
+               device, heads: int | None = None) -> KVCache:
+    """An empty cache of ``heads`` kv heads (default all of ``cfg``'s)."""
     cap = max_len if cfg.window is None else min(max_len, cfg.window)
-    shape = (batch, cap, cfg.n_kv_heads, cfg.hd())
+    shape = (batch, cap, heads or cfg.n_kv_heads, cfg.hd())
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -198,24 +206,58 @@ def attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig, *,
 
     cache = None
     if make_cache:
-        cache = init_cache(cfg, b, cache_cap or s, k.dtype, x.device)
-        ccap = cache.cap
-        slots = torch.arange(ccap, dtype=torch.int32, device=x.device)
-        if cfg.window is None or s <= ccap:
-            take = min(s, ccap)
-            cache.k[:, :take] = k[:, :take]
-            cache.v[:, :take] = v[:, :take]
-            cache.pos_map = torch.where(slots < take, slots, -1)
-        else:
-            # SWA ring buffer: keep the last `ccap` keys at slot pos % cap
-            last = positions[-1].to(torch.int32)
-            idx = ((slots + (last + 1)) % ccap).long()  # absolute order
-            src = torch.arange(s - ccap, s, device=x.device)
-            cache.k[:, idx] = k[:, src]
-            cache.v[:, idx] = v[:, src]
-            cache.pos_map = torch.zeros_like(cache.pos_map)
-            cache.pos_map[idx] = positions[src].to(torch.int32)
+        cap = cache_cap or s
+        cache = (_fill_cache(k, v, positions, cfg, cap)
+                 if current_mesh() is None
+                 else _cache_on_mesh(k, v, positions, cfg, cap))
     return out, cache
+
+
+def _fill_cache(k, v, positions, cfg: ModelConfig, cap: int) -> KVCache:
+    """The decode cache of a prefill's keys / values [B, S, Hkv, hd] at
+    ``positions`` [S]: the first rows, or (SWA, S past the cache) the
+    last ``cap`` keys at slot pos % cap, on tensors of one device."""
+    b, s = k.shape[:2]
+    cache = init_cache(cfg, b, cap, k.dtype, k.device, heads=k.shape[2])
+    ccap = cache.cap
+    slots = torch.arange(ccap, dtype=torch.int32, device=k.device)
+    if cfg.window is None or s <= ccap:
+        take = min(s, ccap)
+        cache.k[:, :take] = k[:, :take]
+        cache.v[:, :take] = v[:, :take]
+        cache.pos_map = torch.where(slots < take, slots, -1)
+    else:
+        # SWA ring buffer: keep the last `ccap` keys at slot pos % cap
+        last = positions[-1].to(torch.int32)
+        idx = ((slots + (last + 1)) % ccap).long()  # absolute order
+        src = torch.arange(s - ccap, s, device=k.device)
+        cache.k[:, idx] = k[:, src]
+        cache.v[:, idx] = v[:, src]
+        cache.pos_map = torch.zeros_like(cache.pos_map)
+        cache.pos_map[idx] = positions[src].to(torch.int32)
+    return cache
+
+
+def _cache_on_mesh(k, v, positions, cfg: ModelConfig, cap: int) -> KVCache:
+    """``_fill_cache`` on each process's shards of k / v (batch and
+    heads as the prefill placed them, every row of the sequence), then
+    each leaf placed by the reference's cache rules (``sharding``'s
+    ``kv_cache_spec``; ``batch_cache_spec`` for ``pos_map``): where the
+    batch does not divide, the rows split over ``kv_seq`` after the
+    ring's permutation, so its slots land on whichever shard holds
+    them."""
+    mesh = current_mesh()
+    sk = spec("batch", None, "model", None, dims=k.shape)
+
+    def local(kl, vl):
+        c = _fill_cache(kl, vl, positions, cfg, cap)
+        return c.k, c.v, c.pos_map
+
+    ck, cv, pos_map = on_local_shards(local, [sk, sk, (None,)], (sk, sk),
+                                      k, v)
+    return KVCache(place(ck, mesh, kv_cache_spec(tuple(ck.shape))),
+                   place(cv, mesh, kv_cache_spec(tuple(cv.shape))),
+                   place(pos_map, mesh, batch_cache_spec((cap,))))
 
 
 def decode_attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
@@ -231,6 +273,9 @@ def decode_attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
         at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
         q = rope(q, at, cfg.rope_theta)
         k_new = rope(k_new, at, cfg.rope_theta)
+    if current_mesh() is not None:
+        return _out(_decode_on_mesh(q, k_new, v_new, cfg, cache, pos),
+                    p.wo), cache
     slot = pos % cache.cap
     cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
@@ -240,3 +285,96 @@ def decode_attention(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     mask = _mask(qpos, cache.pos_map, True, cfg.window)
     o = _sdpa(q, cache.k, cache.v, mask, hd ** -0.5)
     return _out(o, p.wo), cache
+
+
+def _decode_on_mesh(q, k_new, v_new, cfg: ModelConfig, cache: KVCache,
+                    pos: int):
+    """The decode step's attention on the mesh in scope, the cache at
+    ``sharding.kv_cache_spec``'s placements (read from the cache's own)
+    and written in place (each process its local shard).  Batch split:
+    each process runs its rows' step on its cache shard.  Sequence split (the batch does not divide
+    the ``batch`` axes): each process holds a block of cache rows; the
+    new row is written by the process whose block holds slot pos % cap;
+    each block's float32 max, sum and weighted values under the mask
+    (``block_softmax``) are combined over the ``kv_seq`` axes by
+    log-sum-exp (``merge_blocks``: one max all-reduce, then sums) —
+    the cross-shard reductions GSPMD inserts for the reference.  Under a
+    model split a local q head reads the kv heads of its own group.
+    Returns the attention output [B, 1, Hq, hd], placed as q."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = current_mesh()
+    hq, hkv = q.shape[2], k_new.shape[2]
+    cap = cache.cap
+    sq = spec("batch", None, "model", None, dims=q.shape)
+    # the new row split as the cache's batch and heads are, its one
+    # sequence row whole
+    row = [p if not p.is_shard(1) else Replicate()
+           for p in cache.k.placements]
+    ql = place(q, mesh, sq).to_local()
+    kn = k_new.redistribute(mesh, row).to_local()
+    vn = v_new.redistribute(mesh, row).to_local()
+    kc, vc = cache.k.to_local(), cache.v.to_local()
+    slot = pos % cap
+    seq = split_dims(cache.k, 1)
+    lo, hi = local_range(cache.k, 1)
+    if lo <= slot < hi:
+        kc[:, slot - lo] = kn[:, 0].to(kc.dtype)
+        vc[:, slot - lo] = vn[:, 0].to(vc.dtype)
+    pmap = cache.pos_map
+    plo, phi = local_range(pmap, 0)
+    if plo <= slot < phi:
+        pmap.to_local()[slot - plo] = pos
+    qpos = torch.full((1,), pos, dtype=torch.int32, device=ql.device)
+    mask = _mask(qpos, pmap.full_tensor(), True, cfg.window)[:, lo:hi]
+    heads = axes_of(sq[2])
+    if heads and not split_dims(cache.k, 2):
+        idx = kv_heads_for(shard_index(mesh, heads) * ql.shape[2],
+                           ql.shape[2], hq // hkv).to(kc.device)
+        kc, vc = kc.index_select(2, idx), vc.index_select(2, idx)
+    scale = cfg.hd() ** -0.5
+    if seq:
+        o = _heads_last(merge_blocks(
+            *block_softmax(ql, kc, vc, mask, scale),
+            lambda t, op: all_reduce_over(t, seq, op)), ql)
+    else:
+        o = _sdpa(ql, kc, vc, mask, scale)
+    return DTensor.from_local(o, mesh, placements(sq, mesh),
+                              run_check=False)
+
+
+def block_softmax(q, k, v, mask, scale):
+    """``_sdpa`` over one block of key rows, not normalized: per query
+    row (as [B, Hkv, G, Sq, ·], float32) the max score m, the sum l of
+    exp(score − m) and the weighted values o, under ``mask`` [Sq,
+    Skv_block].  A block with no valid row gives m = −inf, l = 0,
+    o = 0 (never NaN)."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    m = mask[None, None, None]
+    s = torch.where(m, s, float("-inf"))
+    mx = s.amax(-1, keepdim=True)
+    p = torch.where(m, torch.exp(s - torch.where(torch.isfinite(mx), mx,
+                                                 0.0)), 0.0)
+    return mx, p.sum(-1, keepdim=True), torch.einsum("bhgqk,bkhd->bhgqd",
+                                                     p, v.float())
+
+
+def merge_blocks(m, l, o, reduce):
+    """The blocks' parts (``block_softmax``) combined by log-sum-exp:
+    ``reduce(t, op)`` is ``t`` reduced over the blocks by "max" or
+    "sum" (all-reduces over the mesh, or a reduction over a stacked
+    axis).  Rows no block holds a valid key for give 0, as ``_sdpa``'s
+    do."""
+    mx = reduce(m, "max")
+    a = torch.where(torch.isfinite(m), torch.exp(m - mx), 0.0)
+    tot = reduce(l * a, "sum")
+    o = reduce(o * a, "sum")
+    return torch.where(tot > 0, o / tot, 0.0)
+
+
+def _heads_last(o, q):
+    """[B, Hkv, G, Sq, hd] → [B, Sq, Hq, hd] in q's dtype."""
+    b, sq, hq, hd = q.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)

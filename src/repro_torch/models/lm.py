@@ -24,13 +24,16 @@ Its MoE layers run as every other MoE family's do, on a mesh too.
 On a mesh (``sharding.mesh_context`` of a ``DeviceMesh``, parameters and
 batch placed as DTensors, ``runtime.elastic.reshard_state`` /
 ``launch.dryrun.batch_sharding``) the dense, moe, ssm and hybrid
-families' ``forward`` and ``loss_fn`` run as DTensor programs:
-activations are annotated at the reference's ``shard`` sites, attention
-runs the kernel on each process's shards (``models/attention.py``), the
-MoE runs expert parallel (``models/moe.py::apply_moe_sharded``) and the
-SSM block each process's batch rows (``models/ssm.py``).
-``models/api.py`` refuses the encdec and vlm families, and prefill and
-decode, on a mesh (``api.check_lm_mesh``).
+families' ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` run
+as DTensor programs: activations are annotated at the reference's
+``shard`` sites, attention runs the kernel on each process's shards
+(``models/attention.py``), the MoE runs expert parallel
+(``models/moe.py::apply_moe_sharded``) and the SSM block each process's
+batch rows (``models/ssm.py``).  The caches ``prefill`` returns, and
+``decode_step`` takes and returns, sit at ``launch.dryrun.
+cache_sharding``'s placements, so a serve loop never reshuffles them
+between steps; ``pos`` stays a Python int.  ``models/api.py`` refuses
+the encdec and vlm families on a mesh (``api.check_lm_mesh``).
 """
 from __future__ import annotations
 
@@ -216,6 +219,7 @@ def decode_step(params: LM, token: torch.Tensor, pos: int, caches,
     token; caches: as ``prefill`` returns them, updated in place.
     → (logits [B, V], caches)."""
     pos = int(pos)
+    token = shard(token, "batch", None)
     x = shard(_embed(params, token, cfg, pos), "batch", None, None)
     for g, c in zip(params.groups, caches):
         x, _ = B.decode_group(g, x, cfg, c, pos)

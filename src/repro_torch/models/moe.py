@@ -49,7 +49,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import _normal, at_least_f32, ffn, \
     params_module
 from repro_torch.sharding import (_mesh_axis_sizes, axes_of, current_mesh,
-                                  grad_summed_over, on_local_shards,
+                                  grad_summed_over, on_local_shards, place,
                                   resolve, shard_index, sum_over)
 
 
@@ -228,6 +228,10 @@ def apply_moe_sharded(p: nn.Module, x: torch.Tensor,
     if w_gate is not None:
         args, sps = args + (w_gate,), sps + ((ep_, None, ff_),)
     out = on_local_shards(local, (rows, None), sps, *args)
+    if dp and b % math.prod(sizes[a] for a in dp):
+        # the tokens split where the batch does not (a prefill of fewer
+        # prompts than the batch axes): the rows regathered to unflatten
+        out = place(out, mesh, (None, None))
     return out.reshape(b, s, d)
 
 

@@ -13,11 +13,18 @@ PyTorch.  ``ssd_sequential`` (per-step) is the oracle for
 ``ssd_chunked``; both are plain and live beside the kernel.
 
 On a mesh the block runs under ``local_map`` on each process's batch
-rows with every head whole (``_ssm_on_mesh``).  The reference leaves it
+rows with every head whole (``_on_rows``).  The reference leaves it
 to GSPMD, with ``in_proj`` and ``conv`` split on the model axis; those
 splits cut through z / xBC / dt and through the xs and B / C channels,
-so a model shard holds no whole head.  The caches (prefill and decode)
-do not run on a mesh yet (ROADMAP A17).
+so a model shard holds no whole head.  Its caches sit where the
+reference's ``cache_sharding`` puts them: conv and state split by batch
+where it divides, the state's heads over ``model``.  Prefill returns the
+local scan's final state and conv tail there; a decode step regathers
+the state's heads over ``model``, steps each process's rows with whole
+heads and splits the state again.  (The other layout, a step on split
+heads, would sum the gated norm's squares over ``model`` — it reduces
+over all of ``d_inner`` — and split ``in_proj`` / ``conv`` / ``out_proj``
+by head, which the parameters' own placement does not do.)
 """
 from __future__ import annotations
 
@@ -28,11 +35,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch import not_ported
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan, ssd_sequential
 from repro_torch.models.layers import _normal, at_least_f32, params_module
-from repro_torch.sharding import current_mesh, on_local_shards, spec
+from repro_torch.sharding import (batch_cache_spec, current_mesh,
+                                  on_local_shards, place, spec,
+                                  ssm_state_spec)
 
 __all__ = ["SSMCache", "apply_ssm", "decode_ssm", "init_ssm",
            "init_ssm_cache", "ssd_chunked", "ssd_sequential"]
@@ -107,7 +115,7 @@ def _gated_norm(y, z, scale, dtype):
             ).to(dtype) * scale
 
 
-# the block's parameters, in the order ``_ssm_on_mesh`` passes them
+# the block's parameters, in the order ``_on_rows`` passes them
 _PARAMS = ("in_proj", "conv", "A_log", "D", "dt_bias", "norm_scale",
            "out_proj")
 
@@ -117,27 +125,43 @@ def apply_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence Mamba2 block. x: [B, S, d] → [B, S, d]."""
     if current_mesh() is None:
         return _apply_ssm(p, x, cfg, cache, return_cache)
-    if cache is not None or return_cache:
-        not_ported("the SSM's caches on a mesh (prefill and decode)", "A17")
-    return _ssm_on_mesh(p, x, cfg), None
+    return _on_rows(lambda q, xl, c: _apply_ssm(q, xl, cfg, c, return_cache),
+                    p, x, cache, return_cache)
 
 
-def _ssm_on_mesh(p: nn.Module, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """``apply_ssm`` under ``local_map``: x and the output split by
-    batch as the reference's ``shard(out, "batch", None, None)``
-    resolves, the block's parameters replicated (their gradients summed
-    over the batch split by ``on_local_shards``), the scan on each
-    process's rows."""
+def _on_rows(step, p: nn.Module, x: torch.Tensor, cache: SSMCache | None,
+             return_cache: bool):
+    """``step(params, x, cache)`` → (out, cache) (``_apply_ssm`` or
+    ``_decode_ssm``) under ``local_map`` on the mesh in scope: x and the
+    output split by batch as the reference's ``shard(out, "batch",
+    None, None)`` resolves, the block's parameters replicated (their
+    gradients summed over the batch split by ``on_local_shards``), each
+    process's rows with every head whole; a cache read or returned has
+    those rows and every head.  A returned cache is placed by the
+    reference's cache rules (``sharding.batch_cache_spec`` for conv,
+    ``ssm_state_spec`` for the state: its heads split again over
+    ``model``)."""
+    mesh = current_mesh()
     rows = spec("batch", None, None, dims=x.shape)
+    conv_sp, state_sp = (rows[0], None, None), (rows[0], None, None, None)
     ws = [getattr(p, n) for n in _PARAMS]
+    held = () if cache is None else (cache.conv, cache.state)
 
-    def local(xl, *wl):
-        return _apply_ssm(types.SimpleNamespace(**dict(zip(_PARAMS, wl))),
-                          xl, cfg, None, False)[0]
+    def local(xl, *rest):
+        c = SSMCache(*rest[:len(held)]) if held else None
+        out, new = step(types.SimpleNamespace(**dict(zip(
+            _PARAMS, rest[len(held):]))), xl, c)
+        return (out, new.conv, new.state) if return_cache else out
 
-    return on_local_shards(local, rows,
-                           (rows, *((None,) * w.dim() for w in ws)), x, *ws)
+    in_sps = (rows, *((conv_sp, state_sp) if held else ()),
+              *((None,) * w.dim() for w in ws))
+    if not return_cache:
+        return on_local_shards(local, rows, in_sps, x, *held, *ws), None
+    out, conv, state = on_local_shards(local, [rows, conv_sp, state_sp],
+                                       in_sps, x, *held, *ws)
+    return out, SSMCache(
+        place(conv, mesh, batch_cache_spec(tuple(conv.shape))),
+        place(state, mesh, ssm_state_spec(tuple(state.shape))))
 
 
 def _apply_ssm(p, x: torch.Tensor, cfg: ModelConfig,
@@ -181,7 +205,21 @@ def _apply_ssm(p, x: torch.Tensor, cfg: ModelConfig,
 def decode_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                cache: SSMCache):
     """One-token step. x: [B, 1, d]. O(1) in context length.  Returns
-    (out, cache) with the cache's tensors replaced."""
+    (out, cache) with the cache's tensors replaced.  On a mesh each
+    process steps its batch rows with every head whole: the state,
+    placed with its heads split over ``model`` (``ssm_state_spec``), is
+    gathered over ``model`` for the step and split again after it
+    (``_on_rows``; the layout the module docstring gives)."""
+    if current_mesh() is None:
+        return _decode_ssm(p, x, cfg, cache)
+    out, new = _on_rows(lambda q, xl, c: _decode_ssm(q, xl, cfg, c),
+                        p, x, cache, True)
+    cache.conv, cache.state = new.conv, new.state
+    return out, cache
+
+
+def _decode_ssm(p, x: torch.Tensor, cfg: ModelConfig, cache: SSMCache):
+    """``decode_ssm`` on tensors of one device."""
     b = x.shape[0]
     d_in = cfg.d_inner()
     nh, pd, n = cfg.ssm_nheads(), cfg.ssm_headdim, cfg.ssm_state
@@ -204,4 +242,3 @@ def decode_ssm(p: nn.Module, x: torch.Tensor, cfg: ModelConfig,
                     x.dtype)
     cache.conv, cache.state = conv_state, h
     return y @ p.out_proj, cache
-

@@ -20,10 +20,12 @@ from repro_torch.sharding import named_shardings, place
 
 
 def place_tree(tree, sh: dict, prefix: str = ""):
-    """``tree`` (a state, a batch: modules, dataclasses, dicts, tensors)
-    with every tensor placed per ``sh`` ({leaf name: NamedSharding}, as
-    ``sharding.named_shardings`` or ``launch.dryrun.batch_sharding``
-    give it); a module is copied with new parameters."""
+    """``tree`` (a state, a batch, decode caches: modules, dataclasses,
+    dicts, lists, tensors) with every tensor placed per ``sh`` ({leaf
+    name: NamedSharding}, as ``sharding.named_shardings`` or
+    ``launch.dryrun.batch_sharding`` / ``cache_sharding`` give it; a
+    list's items named by index); a module is copied with new
+    parameters."""
     if isinstance(tree, nn.Module):
         memo = {id(p): nn.Parameter(
                     place(p.detach(), s.mesh, s.spec),
@@ -37,6 +39,8 @@ def place_tree(tree, sh: dict, prefix: str = ""):
             for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: place_tree(v, sh, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):     # decode caches, one dict a group
+        return [place_tree(v, sh, f"{prefix}{i}/") for i, v in enumerate(tree)]
     if isinstance(tree, torch.Tensor):
         s = sh[prefix[:-1]]
         return place(tree, s.mesh, s.spec)

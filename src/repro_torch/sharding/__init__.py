@@ -18,6 +18,11 @@ resolving specs without processes.  ``placements`` turns a spec into
 DTensor placements on a mesh: ``Shard(i)`` on every mesh dimension that
 shards tensor dimension i, ``Replicate()`` on the others.
 
+Decode caches take the reference's cache rules by kind
+(``kv_cache_spec``, ``ssm_state_spec``, ``batch_cache_spec``; by leaf
+name, ``cache_spec``), and a decode step's cross-shard reductions run
+as ``all_reduce_over``.
+
 Parameter names are the port's (``groups.3.l0.attn.wq``) with ``.``
 read as ``/``; the port keeps one tensor a group where the reference
 stacks the groups on a leading axis, so a port spec is the reference's
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -262,27 +268,62 @@ def _partial_grad_dims(out_sp: tuple, in_sp: tuple, mesh) -> list:
     return sorted(j for j in out - inp if mesh.size(j) > 1)
 
 
-def on_local_shards(fn, out_sp: tuple, in_sps: tuple, *args):
+def on_local_shards(fn, out_sp: tuple | list, in_sps: tuple, *args):
     """``fn`` on each process's shards of ``args`` (``local_map``): the
-    inputs placed by the specs ``in_sps``, the output by ``out_sp``.
-    An input's gradient is summed over the mesh dimensions that split
-    the output and not that input.  (DTensor's own ``Partial`` gradient
+    inputs placed by the specs ``in_sps``, the output by ``out_sp`` (a
+    list of specs: ``fn`` returns a tuple of as many tensors).  An
+    input's gradient is summed over the mesh dimensions that split the
+    output and not that input.  (DTensor's own ``Partial`` gradient
     placements are not used for this: a partial gradient that meets a
     redistribution's backward is taken as reduced without being
     summed.)"""
     from torch.distributed.tensor.experimental import local_map
     mesh = current_mesh()
+    outs = out_sp if isinstance(out_sp, list) else [out_sp]
+    split = tuple(e for sp in outs for e in sp)
     groups = [[mesh.get_group(j)
-               for j in _partial_grad_dims(out_sp, sp, mesh)]
+               for j in _partial_grad_dims(split, sp, mesh)]
               for sp in in_sps]
 
     def summed(*local):
         return fn(*(grad_summed_over(t, g) for t, g in zip(local, groups)))
 
-    return local_map(summed, out_placements=(placements(out_sp, mesh),),
+    return local_map(summed, out_placements=tuple(placements(sp, mesh)
+                                                  for sp in outs),
                      in_placements=tuple(placements(sp, mesh)
                                          for sp in in_sps),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def split_dims(t, dim: int) -> tuple[str, ...]:
+    """The names of the mesh dimensions over which DTensor ``t`` splits
+    its dimension ``dim``, in mesh order."""
+    return tuple(t.device_mesh.mesh_dim_names[j]
+                 for j, p in enumerate(t.placements) if p.is_shard(dim))
+
+
+def local_range(t, dim: int) -> tuple[int, int]:
+    """[lo, hi) of DTensor ``t``'s dimension ``dim`` that this process
+    holds (an even split: ``resolve`` keeps only axes that divide)."""
+    mesh = t.device_mesh
+    axes = split_dims(t, dim)
+    n = t.shape[dim] // math.prod(
+        mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+    lo = shard_index(mesh, axes) * n
+    return lo, lo + n
+
+
+def all_reduce_over(x: torch.Tensor, axes: tuple, op: str) -> torch.Tensor:
+    """``x`` (a local tensor) reduced by ``op`` ("sum" or "max") over the
+    processes of the mesh axes ``axes`` (one all-reduce a mesh
+    dimension; both reductions compose over dimensions)."""
+    import torch.distributed as dist
+    mesh = current_mesh()
+    x = x.contiguous().clone()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for a in axes:
+        dist.all_reduce(x, op=red, group=mesh.get_group(a))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +383,62 @@ def param_specs(tree) -> dict:
             for name, leaf in leaves(tree)}
 
 
+# ---------------------------------------------------------------------------
+# Decode cache specs
+# ---------------------------------------------------------------------------
+
+# The reference's ``launch/dryrun.py::cache_sharding`` rules, on its
+# stacked shapes ``(groups,) + shape`` with the group entry dropped.  It
+# sets the second stacked entry of every leaf of rank >= 2 by the batch
+# rule, so a ``pos_map`` [cap] splits its cap over the ``batch`` axes
+# where cap divides (ROADMAP C10, reproduced)
+
+
+def batch_cache_spec(shape: tuple[int, ...]) -> tuple:
+    """A decode cache leaf's first dimension over the ``batch`` axes
+    where it divides: an SSM ``conv`` [B, W, C], a ``pos_map`` [cap]
+    (C10) and the encdec's unstacked ``xk`` / ``xv``."""
+    if not shape:
+        return ()
+    return (resolve("batch", shape[0]),) + (None,) * (len(shape) - 1)
+
+
+def kv_cache_spec(shape: tuple[int, ...]) -> tuple:
+    """A k / v cache [B, cap, H, D]: the batch over the ``batch`` axes
+    where it divides, else the sequence over ``kv_seq``; the heads over
+    ``model``."""
+    dims = list(batch_cache_spec(shape))
+    if dims[0] is None:
+        dims[1] = resolve("kv_seq", shape[1])
+    if len(shape) == 4:
+        dims[2] = resolve("model", shape[2])
+    return tuple(dims)
+
+
+def ssm_state_spec(shape: tuple[int, ...]) -> tuple:
+    """An SSM ``state`` [B, nh, P, N]: the batch over the ``batch`` axes
+    where it divides, the heads over ``model``."""
+    dims = list(batch_cache_spec(shape))
+    if len(shape) == 4:
+        dims[1] = resolve("model", shape[1])
+    return tuple(dims)
+
+
+def cache_spec(name: str, shape: tuple[int, ...]) -> tuple:
+    """The spec of a decode cache leaf named ``name`` within its group
+    (``l0/k``, ``l1/state``, ``self/pos_map``, ``xk``) of shape
+    ``shape``, by the reference's suffix test: ``/k``, ``/v``, ``/xk``,
+    ``/xv`` take ``kv_cache_spec``, ``/state`` ``ssm_state_spec``, any
+    other ``batch_cache_spec`` (the reference's stacked encdec ``xk`` /
+    ``xv`` paths have no ``/`` before them, so they take only the batch
+    rule)."""
+    if name.endswith(("/k", "/v", "/xk", "/xv")):
+        return kv_cache_spec(shape)
+    if name.endswith("/state"):
+        return ssm_state_spec(shape)
+    return batch_cache_spec(shape)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh (the reference's ``NamedSharding``)."""
@@ -361,10 +458,12 @@ def named_shardings(tree, mesh) -> dict:
 
 __all__ = ["AbstractMesh", "GraphMesh", "LOGICAL_RULES", "NamedSharding",
            "PARAM_RULES", "Replicated", "axes_of", "batch_pad", "check_mesh",
-           "current_mesh", "divides", "graph_mesh",
-           "logical_rules", "mesh_context", "mesh_dims", "mesh_size",
-           "named_shardings", "on_local_shards", "param_spec_for",
-           "param_specs", "place", "placements", "replicate",
-           "replicated_like", "resolve", "shard", "shard_index",
-           "shard_rows", "shard_slots", "single_device", "spec",
-           "sum_over", "grad_summed_over"]
+           "all_reduce_over", "batch_cache_spec", "cache_spec",
+           "current_mesh", "divides", "graph_mesh", "kv_cache_spec",
+           "local_range", "logical_rules", "mesh_context", "mesh_dims",
+           "mesh_size", "named_shardings", "on_local_shards",
+           "param_spec_for", "param_specs", "place", "placements",
+           "replicate", "replicated_like", "resolve", "shard",
+           "shard_index", "shard_rows", "shard_slots", "single_device",
+           "spec", "split_dims", "ssm_state_spec", "sum_over",
+           "grad_summed_over"]

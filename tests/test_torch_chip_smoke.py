@@ -8,7 +8,8 @@ and internvl2: ``phase_family``, ``family_failures``, ``family_lines``,
 the generalised ``greedy`` / ``phase_lm`` of phases 5 and 6),
 phase 15's (the training launch counts and mixtral's training depth
 fixed in advance, phase 11's trainer on the three families, the step-1
-route flips, the mesh phase in one gloo process, the verdicts), and
+route flips, the mesh phase in one gloo process, its serving of the
+four families bit-equal to the plain path at world 1, the verdicts), and
 phase 16's (jamba-1.5-large's MoE layers with experts of their own
 reckoned from the free memory, the shared experts, the launch counts,
 routing readout and verdicts rehearsed on the reduced jamba, and
@@ -681,6 +682,8 @@ def test_phase_train_card_cpu_routes_on_the_cpu():
     assert chip_smoke.card_cpu_failures(res) == []
     line = chip_smoke.card_cpu_line(res)
     assert "2x32, 2 steps" in line and "step-1 route flips 0" in line
+    assert len(res["step_s_card"]) == len(res["step_s_cpu"]) == 2
+    assert "; step s card " in line
 
 
 def test_step1_route_flips_are_judged_as_near_ties():
@@ -910,6 +913,26 @@ def test_differing_arrays_reads_bytes_dtype_and_names():
     assert chip_smoke.differing_arrays(
         a, dict(a, y=np.ones(2, np.int64))) == ["y"]
     assert chip_smoke.differing_arrays(a, {"x": a["x"]}) == ["y"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "uint16", "bool",
+                                   "int8", "complex128"])
+def test_same_bytes_compares_every_bit(dtype):
+    """``same_bytes`` by item size: equal bits (NaN with NaN, a 0-d
+    array, a strided view) agree, one flipped bit does not."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, 64 * np.dtype(dtype).itemsize,
+                     dtype=np.uint8).view(dtype).reshape(8, -1)
+    if x.dtype.kind in "fc":
+        x[0, 0] = np.nan
+    y = x.copy()
+    assert chip_smoke.same_bytes(x, y)
+    assert chip_smoke.same_bytes(x[:, ::2], y[:, ::2])
+    assert chip_smoke.same_bytes(x[0, 1], y[0, 1])
+    z = y.view(np.uint8).copy()
+    z[-1] ^= 1
+    assert not chip_smoke.same_bytes(x, z.view(dtype).reshape(x.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -1730,3 +1753,141 @@ def test_attention_case_at_kimi_k2_head_dim():
     plain = case["plain"]()
     assert torch.equal(case["kernel"](), plain)
     assert float((case["library"]() - plain).abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Phase 15 (c): serving on the world-1 mesh
+
+
+@pytest.fixture
+def world_1_mesh(tmp_path):
+    """A (data 1, model 1) mesh over one gloo process, as phase 15 (c)'s
+    mesh on one card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        yield make_test_mesh(1, 1, device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", chip_smoke.MESH_SERVE)
+def test_phase_15_mesh_serving_on_the_cpu(world_1_mesh, arch):
+    """Phase 15 (c)'s serving rehearsed on the CPU at reduced size (one
+    gloo process): the mesh's prefill and every decode step's logits
+    bit-equal to the plain path's on the same weights (at world 1 each
+    local shard is the whole tensor), no kernel launched on either
+    (the CPU runs the plain versions), so only the launch rule fails."""
+    cfg = _reduced(arch)
+    dev = torch.device("cpu")
+    r = chip_smoke.mesh_serve(chip_smoke.mesh_serve_model(cfg, 7, None, dev),
+                              cfg, world_1_mesh, dev, seed=7, batch=2,
+                              prompt=16, decode=3, cut="reduced")
+    assert r["bit_equal"] == [True] * 4 and r["max_abs_diff"] == 0.0
+    assert r["finite"] and r["mesh"] == {"data": 1, "model": 1}
+    assert chip_smoke.mesh_serve_failures(r) == [
+        f"a mesh prefill launched {{}}, want {r['want']}"]
+    line = chip_smoke.mesh_serve_line(r, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "bit-equal to the plain path's at 4 of 4 calls" in line
+    assert "700.00 W" in line
+
+
+def test_mesh_and_plain_share_storage_and_shared_experts(world_1_mesh):
+    """``mesh_and_plain`` on jamba's period with its MoE layers past the
+    first sharing its experts: every parameter a DTensor at its rule's
+    placement, the plain model's tensors the mesh model's local ones
+    (one storage), and the shared experts still one Parameter."""
+    from repro_torch.sharding import named_shardings
+    cfg = _reduced(chip_smoke.HYBRID_ARCH)
+    model = chip_smoke.hybrid_model(cfg, 7, 1, torch.float32, "cpu")
+    want = {n: s.placements
+            for n, s in named_shardings(model, world_1_mesh).items()}
+    stored = sum(p.numel() for p in model.parameters())
+    meshed, plain = chip_smoke.mesh_and_plain(model, world_1_mesh)
+    assert meshed is model
+    got = dict(meshed.named_parameters())
+    assert {n: tuple(p.placements) for n, p in got.items()} == want
+    assert sum(p.numel() for p in meshed.parameters()) == stored
+    for (n, p), (m, q) in zip(meshed.named_parameters(),
+                              plain.named_parameters()):
+        assert n == m and not hasattr(q, "placements")
+        assert q.data_ptr() == p.to_local().data_ptr()
+    shares = chip_smoke.expert_sharing(plain)["shares"]
+    assert shares and shares == chip_smoke.expert_sharing(meshed)["shares"]
+
+
+def test_mesh_serve_config_reckons_each_model():
+    """On an H100's free memory mixtral is cut as phase 13 cuts it and
+    jamba keeps phase 16's experts; on too little, jamba is skipped
+    with its reckoning."""
+    cfg, cut, distinct = chip_smoke.mesh_serve_config(
+        "smollm-360m", 0, "cpu")
+    assert (cfg.n_layers, cut, distinct) == (32, "32 layers", None)
+    cfg, cut, distinct = chip_smoke.mesh_serve_config(
+        chip_smoke.MOE_ARCH, 0, "cpu")
+    assert cfg.n_layers == chip_smoke.MOE_LAYERS and distinct is None
+    assert cut.startswith(f"{chip_smoke.MOE_LAYERS} of 32 layers")
+    cfg, cut, distinct = chip_smoke.mesh_serve_config(
+        chip_smoke.HYBRID_ARCH, 0, "cpu")
+    assert cfg.n_layers == 8 and distinct >= chip_smoke.HYBRID_MIN_DISTINCT
+    assert "MoE layers with experts of their own" in cut
+
+
+def _serve_passing():
+    run = dict(prefill_launches={"flash_attention": 2, "ssd_scan": 0},
+               decode_launches={"flash_attention": 0, "ssd_scan": 0},
+               prefill_s=1.0, prefill_cold_s=1.5, decode_ms_per_step=10.0)
+    return dict(bit_equal=[True] * 3, max_abs_diff=0.0, finite=True,
+                want={"flash_attention": 2, "ssd_scan": 0},
+                mesh_run=dict(run), plain=dict(run))
+
+
+@pytest.mark.parametrize("change,message", [
+    (dict(bit_equal=[True, False, True], max_abs_diff=0.5),
+     "differ from the plain path's at [1] of 3"),
+    (dict(finite=False), "non-finite"),
+    (dict(plain=dict(_serve_passing()["plain"],
+                     prefill_launches={"flash_attention": 1})),
+     "the plain path's {'flash_attention': 1}"),
+    (dict(want={"flash_attention": 3}), "want {'flash_attention': 3}"),
+    (dict(mesh_run=dict(_serve_passing()["mesh_run"],
+                        decode_launches={"flash_attention": 1})),
+     "decode launched")])
+def test_mesh_serve_verdict_names_each_failed_check(change, message):
+    assert chip_smoke.mesh_serve_failures(_serve_passing()) == []
+    bad = chip_smoke.mesh_serve_failures(dict(_serve_passing(), **change))
+    assert any(message in b for b in bad), bad
+    assert all(b.startswith("serving x: ") for b in chip_smoke.mesh_failures(
+        dict(_mesh_passing(), serve={"x": dict(_serve_passing(),
+                                                **change)})))
+
+
+def test_phase_15_training_depth_cuts():
+    """Phase 15 (a)'s depth cuts: whisper-small's two stacks and
+    internvl2-1b at FAMILY_TRAIN_LAYERS, published width kept; mixtral
+    at most MOE_TRAIN_MAX_LAYERS on an H100's free memory (where
+    ``moe_train_depth`` reckons 2), ``--lm-layers`` still overriding;
+    (b)'s checks at 2 steps, mixtral's at 1."""
+    for arch, n in chip_smoke.FAMILY_TRAIN_LAYERS.items():
+        cfg = chip_smoke.family_check_config(arch, n)
+        full = chip_smoke.lm_config(arch, 0)
+        assert cfg.n_layers == n < full.n_layers
+        assert cfg.d_model == full.d_model and cfg.vocab == full.vocab
+        if cfg.family == "encdec":
+            assert cfg.n_enc_layers == n
+    assert chip_smoke.FAMILY_CHECK_STEPS == {
+        "whisper-small": 2, "internvl2-1b": 2, chip_smoke.MOE_ARCH: 1}
+    assert set(chip_smoke.FAMILY_CHECK_STEPS) == set(
+        chip_smoke.FAMILY_CHECK_LAYERS)
+    free = int(79.1 * 2 ** 30)
+    assert chip_smoke.moe_train_depth(chip_smoke.lm_config(
+        chip_smoke.MOE_ARCH, 0), free)[0] == 2
+    n, cut = chip_smoke.moe_train_cut(free, 0)
+    assert n == chip_smoke.MOE_TRAIN_MAX_LAYERS == 1
+    assert "cut for the script's time" in cut and "2 of 32 layers" in cut
+    assert chip_smoke.moe_train_cut(free, 3)[0] == 3
+    cfg, cut = chip_smoke.mesh_model_config(chip_smoke.MOE_ARCH, 0, "cpu")
+    assert cfg.n_layers == chip_smoke.MOE_TRAIN_MAX_LAYERS

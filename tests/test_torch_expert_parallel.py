@@ -81,6 +81,7 @@ def _worker_checks(rank: int, out: str) -> dict:
                                      reshard_state, steps)
     from repro_torch.runtime.elastic import place_tree
     from repro_torch.sharding import mesh_context
+    from torch_mesh_serve import serve_cases
 
     grads: dict = {}
     make_grad_fn = steps.make_grad_fn
@@ -97,7 +98,8 @@ def _worker_checks(rank: int, out: str) -> dict:
 
     meshes = {name: make_test_mesh(*shape, device_type="cpu")
               for name, shape in MESHES.items()}
-    res: dict = {"steps": {}, "seconds": {}}
+    res: dict = {"steps": {}, "seconds": {}, "serve": {},
+                 "serve_seconds": {}}
     for arch in GROUP_ARCHS:
         t0 = time.perf_counter()
         cfg = reduced(get_config(arch))
@@ -122,6 +124,13 @@ def _worker_checks(rank: int, out: str) -> dict:
                          step=after.step, opt_step=int(after.opt.step))
             res["steps"][f"{arch}_{name}_{mb}"] = float(m["loss"])
         res["seconds"][arch] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = io.load_into(init_train_state(
+            cfg, TrainConfig(**_train_kwargs(1)), device="cpu"),
+            os.path.join(out, f"{arch}_init.npz")).params
+        res["serve"][arch] = serve_cases(params, batch["tokens"], cfg,
+                                         meshes, out, arch, rank)
+        res["serve_seconds"][arch] = time.perf_counter() - t0
     return res
 
 
@@ -179,6 +188,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (_tensor, lm_from_numpy,  # noqa: E402
                                  train_state_from_numpy)
 from repro_torch.models import api, moe  # noqa: E402
+from torch_mesh_serve import CASES as SERVE_CASES  # noqa: E402
+from torch_mesh_serve import (case_name, check_served,  # noqa: E402
+                              jax_serve, port_serve)
 
 # test_torch_moe.py's cases and tolerances
 CASES = {"mixtral": ("mixtral-8x7b", {}),
@@ -321,19 +333,17 @@ def test_local_moe_matches_the_reference_under_vmap(case, factor, ep, dp):
 
 @pytest.mark.parametrize("arch", sorted(J_ARCHS))
 def test_the_mesh_gate(arch):
-    """Training passes ``check_lm_mesh`` for the dense, moe, ssm and
-    hybrid families; encdec and vlm training, and prefill and decode of
-    every family, raise "A17"."""
+    """Training, prefill and decode pass ``check_lm_mesh`` for the dense,
+    moe, ssm and hybrid families; the encdec and vlm families' raise
+    "A17"."""
     cfg = reduced(get_config(arch))
     mesh = sharding.AbstractMesh((4, 2), ("data", "model"))
     api.check_lm_mesh(cfg)
     with sharding.mesh_context(mesh):
-        whats = ["prefill", "decode"]
-        if cfg.family in MESH_FAMILIES:
-            api.check_lm_mesh(cfg)
-        else:
-            whats.append("training")
-        for what in whats:
+        for what in ("training", "prefill", "decode"):
+            if cfg.family in MESH_FAMILIES:
+                api.check_lm_mesh(cfg, what)
+                continue
             with pytest.raises(NotImplementedError,
                                match=r"not ported yet \(ROADMAP step A17\)"):
                 api.check_lm_mesh(cfg, what)
@@ -363,6 +373,11 @@ def _jax_references(jcfg, cfg, jstate, jbatch) -> dict:
                 jstate, jbatch)
         ref[mb] = (float(m1["loss"]), train_state_from_numpy(
             jax.tree.map(np.asarray, s1), cfg, device="cpu"))
+    ref["serve"] = jax_serve(jstate.params, jbatch["tokens"], jcfg)
+    ref["port_serve"] = port_serve(
+        train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                               device="cpu").params,
+        torch.from_numpy(np.asarray(jbatch["tokens"])), cfg)
     jg = jax.grad(lambda p: japi.loss_fn(p, jbatch, jcfg))(jstate.params)
     ref["grads"] = {n: g.detach().numpy() for n, g in lm_from_numpy(
         jax.tree.map(np.asarray, jg), cfg, device="cpu").named_parameters()}
@@ -414,6 +429,23 @@ def _results(group):
         group["errors"] or group["logs"][0][-4000:])
     assert group["rcs"] == [0] * WORLD, group["rcs"]
     return group["results"]
+
+
+@pytest.mark.parametrize("case", [case_name(m, b) for m, b in SERVE_CASES])
+@pytest.mark.parametrize("arch", list(GROUP_ARCHS))
+def test_prefill_and_decode_on_a_mesh_match_jax(group, arch, case):
+    """Prefill and 4 greedy decode steps on the mesh against the
+    single-device JAX ``api.prefill`` / ``api.decode_step`` and against
+    the single-device port (``torch_mesh_serve.check_served``).
+    Nothing drops at the reduced capacity factor 8 (each process's local
+    tokens, hazard (s), fit), so the single-device oracles hold the MoE
+    too."""
+    res = _results(group)
+    b = int(case.rsplit("_b", 1)[1])
+    got = np.load(os.path.join(group["out"], f"serve_{arch}_{case}.npz"))
+    check_served(got, group["ref"][arch]["serve"][b],
+                 group["ref"][arch]["port_serve"][b],
+                 res["serve"][arch][case], b)
 
 
 @pytest.mark.parametrize("step", [f"{m}_{mb}" for m, mb in STEPS])

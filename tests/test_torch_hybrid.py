@@ -15,8 +15,8 @@ with the JAX params carried across by ``repro_torch.convert``:
   within 6.2e-6 × max|g| of it on every leaf, and each compiles a
   program of its own); at two periods a leaf past the rule is held to a
   float64 gradient instead (``F32_GRAD_NOISE``);
-* on a mesh, prefill and decode still raise, naming ROADMAP step A17
-  (training on a mesh is ``tests/test_torch_expert_parallel.py``'s).
+* on a mesh, training, prefill and decode pass the mesh gate (they run
+  on a mesh in ``tests/test_torch_expert_parallel.py``).
 
 The train steps, the optimizer state and the checkpoints of the family
 are ``tests/test_torch_hybrid_train.py``'s.
@@ -212,9 +212,10 @@ def _float64_gradients(model, batch, cfg, remat):
     return dict(zip(names, torch.autograd.grad(loss, ps)))
 
 
-def test_hybrid_raises_a17_on_a_mesh():
-    """Off a mesh the family runs; on one, training passes the mesh gate
-    and prefill and decode raise, naming ROADMAP step A17."""
+def test_hybrid_training_prefill_and_decode_pass_the_mesh_gate():
+    """Off a mesh the family runs; on one, training, prefill and decode
+    pass the mesh gate (they run on 8 processes in
+    ``tests/test_torch_expert_parallel.py``)."""
     _, cfg = _configs(8)
     model = api.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.float32, "cpu")
@@ -222,10 +223,5 @@ def test_hybrid_raises_a17_on_a_mesh():
     assert torch.isfinite(api.loss_fn(model, batch, cfg))
     mesh = sharding.AbstractMesh((4, 2), ("data", "model"))
     with sharding.mesh_context(mesh):
-        api.check_lm_mesh(cfg)
-        for call in (lambda: api.prefill(model, batch, cfg),
-                     lambda: api.decode_step(model, batch["tokens"][:, :1],
-                                             0, None, cfg)):
-            with pytest.raises(NotImplementedError,
-                               match=r"not ported yet \(ROADMAP step A17\)"):
-                call()
+        for what in ("training", "prefill", "decode"):
+            api.check_lm_mesh(cfg, what)

@@ -1,6 +1,7 @@
 """The port's LM sharding (``repro_torch.sharding``'s rules,
-``launch/mesh.py``, ``launch/dryrun.py``'s two placement helpers,
-``optim/compress.py``, ``runtime/elastic.py``) against the reference:
+``launch/mesh.py``, ``launch/dryrun.py``'s three placement helpers,
+``optim/compress.py``, ``runtime/elastic.py``) and the dense LM served
+on a mesh against the reference:
 
 * the rules in-process: every parameter of every family's ``reduced()``
   model on (4, 2), (2, 4), (8, 1) and (pod 2, data 2, model 2) — the
@@ -9,7 +10,10 @@
   reference's without the stacked leading ``None``; the same with
   ``logical_rules`` overrides; ``batch_sharding`` / ``state_sharding``
   against the reference's on a ``Mesh`` naming the one CPU device 8
-  times;
+  times; ``cache_sharding`` against the reference's for every family's
+  caches there (C10 reproduced); the decode step's sequence-split
+  combine against the single-device step, the cache cut into blocks in
+  Python; the cache converter's round trip;
 * ``int8_compress`` / ``compress_with_feedback`` bit-equal to
   ``repro.optim.compress``, and error feedback's long-run bias
   (``test_optim.py::test_error_feedback_unbiased``);
@@ -25,10 +29,14 @@
   with the quirk C8 (an all-zero leaf on one process sets every
   process's scale to at least 1.0); ``reshard_state`` (4, 2) → (2, 4)
   bit-equal; a delta store save of a mesh state and
-  ``reshard_from_checkpoint`` bit-equal; the encdec and vlm families'
+  ``reshard_from_checkpoint`` bit-equal; the reduced smollm's prefill
+  and 4 greedy decode steps on (4, 2), (2, 4) and (8, 1) at batch 8 and
+  on (4, 2) and (8, 1) at batch 2 (the KV sequence split) against the
+  single-device JAX ``api.prefill`` / ``api.decode_step``
+  (``tests/torch_mesh_serve.py``); the encdec and vlm families'
   training, prefill and decode, and the int8 optimizer state raising
   ``not_ported`` with "A17" on a mesh (the moe, ssm and hybrid families
-  train on a mesh in ``tests/test_torch_expert_parallel.py``).
+  train and serve on a mesh in ``tests/test_torch_expert_parallel.py``).
 """
 import json
 import os
@@ -83,6 +91,7 @@ def _worker_checks(rank: int, out: str) -> dict:
                                      reshard_state)
     from repro_torch.runtime.elastic import place_tree
     from repro_torch.sharding import mesh_context
+    from torch_mesh_serve import serve_cases
 
     cfg = reduced(get_config("smollm-360m"), **TINY)
     arrays = np.load(os.path.join(out, "batch.npz"))
@@ -151,27 +160,28 @@ def _worker_checks(rank: int, out: str) -> dict:
         leaf.device_mesh == meshes["2x4"]
         for _, leaf in io.leaves(restored.params))
 
-    res["raises"] = {}
-    for family, arch in NON_DENSE.items():
-        c = reduced(get_config(arch))
-        with mesh_context(meshes["4x2"]):
-            try:
-                api.loss_fn(None, batch, c)
-                res["raises"][family] = None
-            except NotImplementedError as exc:
-                res["raises"][family] = str(exc)
+    res["serve"] = serve_cases(initial(1)[1].params, batch["tokens"], cfg,
+                               meshes, out, "dense", rank)
+
+    def raised(fn):
+        try:
+            fn()
+            return None
+        except NotImplementedError as exc:
+            return str(exc)
+
+    res["raises"] = {"prefill": {}, "decode": {}}
     with mesh_context(meshes["4x2"]):
-        for what, fn in (
-                ("prefill", lambda: api.prefill(None, batch, cfg)),
-                ("decode", lambda: api.decode_step(
-                    None, batch["tokens"][:, :1], 0, None, cfg)),
-                ("int8", lambda: adamw_update(
-                    {}, None, {}, TrainConfig(opt_state_dtype="int8"), 0.1))):
-            try:
-                fn()
-                res["raises"][what] = None
-            except NotImplementedError as exc:
-                res["raises"][what] = str(exc)
+        for family, arch in NON_DENSE.items():
+            c = reduced(get_config(arch))
+            res["raises"][family] = raised(lambda: api.loss_fn(None, batch, c))
+            res["raises"]["prefill"][family] = raised(
+                lambda: api.prefill(None, batch, c))
+            res["raises"]["decode"][family] = raised(
+                lambda: api.decode_step(None, batch["tokens"][:, :1], 0,
+                                        None, c))
+        res["raises"]["int8"] = raised(lambda: adamw_update(
+            {}, None, {}, TrainConfig(opt_state_dtype="int8"), 0.1))
     return res
 
 
@@ -243,6 +253,8 @@ from repro_torch.models import api  # noqa: E402
 from repro_torch.optim import compress  # noqa: E402
 from repro_torch.optim.adamw import STACKED, stack_key  # noqa: E402
 from repro_torch.runtime import init_train_state  # noqa: E402
+from torch_mesh_serve import (CASES, case_name, check_served,  # noqa: E402
+                              jax_serve, port_serve)
 
 RULE_MESHES = {"4x2": ((4, 2), ("data", "model")),
                "2x4": ((2, 4), ("data", "model")),
@@ -405,8 +417,161 @@ def test_dryrun_itself_waits_for_its_step():
         dryrun.run_cell()
     with pytest.raises(NotImplementedError, match="A18"):
         dryrun.main([])
-    with pytest.raises(NotImplementedError, match="A17"):
-        dryrun.cache_sharding({}, None)
+
+
+# (batch, cache length) of the caches whose placement is checked: the
+# batch split, and the KV sequence split where the batch does not divide
+CACHE_SHAPES = ((8, 40), (2, 24), (6, 40))
+
+
+@pytest.mark.parametrize("mesh", sorted(RULE_MESHES))
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
+def test_cache_sharding_matches_reference(arch, mesh):
+    """``launch.dryrun.cache_sharding`` of the port's per-group caches
+    against the reference's function on its stacked caches (on a
+    ``Mesh`` naming the one CPU device 8 times), leaf for leaf with the
+    group entry dropped: every family's caches (encdec's self / xk /
+    xv), C10's ``pos_map`` spec included."""
+    jmesh, pmesh = _repeated_mesh(RULE_MESHES[mesh])
+    jcfg = j_reduced(j_get_config(arch))
+    cfg = reduced(get_config(arch))
+    for b, n in CACHE_SHAPES:
+        jc = jax.eval_shape(lambda: japi.init_decode_caches(jcfg, b, n))
+        want = {_ref_path(p): tuple(sh.spec) for p, sh in
+                jax.tree_util.tree_flatten_with_path(
+                    jdryrun.cache_sharding(jc, jmesh))[0]}
+        caches = api.init_decode_caches(cfg, b, n, torch.float32, "cpu")
+        got = dryrun.cache_sharding(caches, pmesh)
+        n_groups = len(caches)
+        assert len(got) == n_groups * len(want)
+        for name, sh in got.items():
+            g, rel = name.split("/", 1)
+            assert int(g) < n_groups
+            assert sh.mesh is pmesh
+            assert sh.spec == want[rel][1:], (name, b, n, sh.spec)
+
+
+def test_cache_sharding_reproduces_the_reference_quirks():
+    """C10: a ``pos_map`` [cap] splits its cap over the batch axes (the
+    reference sets the second stacked entry of every leaf); an encdec
+    layer's xk / xv take the batch rule only (their stacked paths have
+    no "/" before them); the SSM state's heads go over ``model``."""
+    mesh = sharding.AbstractMesh((4, 2), ("data", "model"))
+    sh = dryrun.cache_sharding(api.init_decode_caches(
+        reduced(get_config("smollm-360m")), 2, 40, torch.float32, "cpu"),
+        mesh)
+    assert sh["0/l0/pos_map"].spec == ("data",)
+    assert sh["0/l0/k"].spec == (None, "data", "model", None)
+    sh = dryrun.cache_sharding(api.init_decode_caches(
+        reduced(get_config("whisper-small")), 2, 40, torch.float32, "cpu"),
+        mesh)
+    assert sh["0/xk"].spec == (None, None, None, None)
+    assert sh["0/self/k"].spec == (None, "data", "model", None)
+    sh = dryrun.cache_sharding(api.init_decode_caches(
+        reduced(get_config("mamba2-130m")), 8, 40, torch.float32, "cpu"),
+        mesh)
+    assert sh["1/l0/state"].spec == ("data", "model", None, None)
+    assert sh["1/l0/conv"].spec == ("data", None, None)
+
+
+@pytest.mark.parametrize("blocks", [2, 4, 8])
+@pytest.mark.parametrize("window", [None, 5])
+def test_sequence_split_combine_matches_one_device(blocks, window):
+    """The decode step's sequence-split attention: the cache cut into
+    ``blocks`` blocks of rows in Python, each block's part
+    (``block_softmax``) merged by log-sum-exp (``merge_blocks``, the
+    all-reduces here a reduction over the stacked blocks) — against the
+    single-device ``_sdpa`` over the whole cache.  The cache holds 9
+    rows of 24 (a ring slot, then empty rows), so the last blocks hold
+    no valid row; an empty cache gives 0, as ``_sdpa`` does."""
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(blocks)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 16)).astype(
+        np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 24, 2, 16)).astype(
+        np.float32)) for _ in range(2))
+    pos = 9
+    pmap = torch.full((24,), -1, dtype=torch.int32)
+    pmap[:pos + 1] = torch.arange(pos + 1, dtype=torch.int32)
+    pmap[0] = 24         # a later position, masked as the future
+    qpos = torch.tensor([pos], dtype=torch.int32)
+    stacked = {"max": lambda t: t.amax(0, keepdim=True),
+               "sum": lambda t: t.sum(0, keepdim=True)}
+    for pm in (pmap, torch.full((24,), -1, dtype=torch.int32)):
+        mask = A._mask(qpos, pm, True, window)
+        want = A._sdpa(q, k, v, mask, 16 ** -0.5)
+        rows = 24 // blocks
+        parts = [A.block_softmax(q, k[:, i:i + rows], v[:, i:i + rows],
+                                 mask[:, i:i + rows], 16 ** -0.5)
+                 for i in range(0, 24, rows)]
+        assert any(not bool(m.isfinite().any()) for m, _, _ in parts)
+        merged = A.merge_blocks(*(torch.stack(t) for t in zip(*parts)),
+                                lambda t, op: stacked[op](t))
+        got = A._heads_last(merged[0], q)
+        assert not bool(got.isnan().any())
+        assert float((got - want).abs().max()) <= 1e-6
+    assert float(got.abs().max()) == 0.0
+
+
+def _random_caches(jcfg, b, n, seed):
+    """The reference's stacked caches for ``jcfg`` (its default
+    bfloat16, float32 SSM states, int32 ``pos_map``s) filled from a
+    seed, as numpy."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda: japi.init_decode_caches(jcfg, b, n))
+
+    def fill(leaf):
+        if leaf.dtype == jnp.int32:
+            return rng.integers(-1, n, leaf.shape).astype(np.int32)
+        return np.asarray(jnp.asarray(rng.standard_normal(leaf.shape),
+                                      leaf.dtype))
+    return jax.tree.map(fill, shapes)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-small",
+                                  "mixtral-8x7b"])
+def test_cache_conversion_round_trip(arch):
+    """``convert.caches_from_numpy`` / ``caches_to_numpy``: the
+    reference's stacked caches (KVCache, SSMCache, encdec xk / xv; bf16
+    carried bit for bit, given back as float32) to the port's per-group
+    dicts and back, and the port's caches there and back."""
+    from repro_torch.convert import caches_from_numpy, caches_to_numpy
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMCache
+    jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    ref = _random_caches(jcfg, 2, 24, 5)
+    port = caches_from_numpy(ref, device="cpu")
+    like = api.init_decode_caches(cfg, 2, 24, torch.float32, "cpu")
+    assert len(port) == len(like)
+    for got, want in zip(port, like):
+        assert set(got) == set(want)
+        for name, entry in want.items():
+            assert type(got[name]) is type(entry)
+            if isinstance(entry, (KVCache, SSMCache)):
+                fields = [f for f in ("k", "v", "pos_map", "conv", "state")
+                          if hasattr(entry, f)]
+                for f in fields:
+                    assert getattr(got[name], f).shape == \
+                        getattr(entry, f).shape
+    back = caches_to_numpy(port)
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(flat_back) == len(flat_ref)
+    for path, a in flat_ref:
+        key = tuple(jax.tree_util.DictKey(_ref_path([p]))
+                    for p in path)
+        b = flat_back[key]
+        assert b.dtype == (np.float32 if a.dtype.name == "bfloat16"
+                           else a.dtype), path
+        assert np.array_equal(b, a.astype(b.dtype)), path
+    again = caches_from_numpy(back, device="cpu")
+    assert caches_to_numpy(again).keys() == back.keys()
+    for x, y in zip(jax.tree.leaves(caches_to_numpy(again)),
+                    jax.tree.leaves(back)):
+        assert x.tobytes() == y.tobytes()
+    assert isinstance(again[0], dict) and all(
+        isinstance(t, torch.Tensor) for c in again for e in c.values()
+        for t in ([e] if isinstance(e, torch.Tensor) else vars(e).values()))
 
 
 # ---------------------------------------------------------------------------
@@ -481,9 +646,9 @@ def group(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("gloo"))
     jcfg, jbatch, jstate = _jax_setup()
     cfg = reduced(get_config("smollm-360m"), **TINY)
-    io.save_pytree(train_state_from_numpy(jax.tree.map(np.asarray, jstate),
-                                          cfg, device="cpu"),
-                   os.path.join(out, "init.npz"))
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                   device="cpu")
+    io.save_pytree(state, os.path.join(out, "init.npz"))
     np.savez(os.path.join(out, "batch.npz"),
              **{k: np.asarray(jbatch[k]) for k in ("tokens", "labels")})
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -500,6 +665,9 @@ def group(tmp_path_factory):
                 jcfg, tcfg, JShardingConfig()))(jstate, jbatch)
             ref[mb] = (float(m1["loss"]), train_state_from_numpy(
                 jax.tree.map(np.asarray, s1), cfg, device="cpu"))
+        ref["serve"] = jax_serve(jstate.params, jbatch["tokens"], jcfg)
+        ref["port_serve"] = port_serve(state.params, torch.from_numpy(
+            np.asarray(jbatch["tokens"])), cfg)
         jg = jax.grad(lambda p: japi.loss_fn(p, jbatch, jcfg))(jstate.params)
         ref["grads"] = dict(lm_from_numpy(jax.tree.map(np.asarray, jg), cfg,
                                           device="cpu").named_parameters())
@@ -592,9 +760,29 @@ def test_reshard_from_checkpoint_is_bit_exact(group):
     assert res["restore_on_mesh"]
 
 
+@pytest.mark.parametrize("case", [case_name(m, b) for m, b in CASES])
+def test_prefill_and_decode_on_a_mesh_match_jax(group, case):
+    """The reduced dense LM's prefill and 4 greedy decode steps on the
+    mesh against the single-device JAX ``api.prefill`` /
+    ``api.decode_step`` and against the single-device port
+    (``torch_mesh_serve.check_served``)."""
+    res = _results(group)
+    b = int(case.rsplit("_b", 1)[1])
+    got = np.load(os.path.join(group["out"], f"serve_dense_{case}.npz"))
+    check_served(got, group["ref"]["serve"][b],
+                 group["ref"]["port_serve"][b], res["serve"][case], b)
+
+
 @pytest.mark.parametrize("what", sorted(NON_DENSE)
                          + ["prefill", "decode", "int8"])
 def test_what_is_not_ported_raises_on_a_mesh(group, what):
+    """encdec and vlm training (by family), their prefill and their
+    decode, and the int8 optimizer state raise "A17" on a mesh."""
     res = _results(group)
-    assert res["raises"][what] is not None, what
-    assert "A17" in res["raises"][what]
+    got = res["raises"][what]
+    msgs = got.values() if isinstance(got, dict) else [got]
+    if isinstance(got, dict):
+        assert set(got) == set(NON_DENSE)
+    for msg in msgs:
+        assert msg is not None, what
+        assert "A17" in msg
