@@ -9,8 +9,9 @@ width and depth, an encoder-decoder (whisper-small) and a VLM
 its published width, as deep as the card holds, and a hybrid LM
 (jamba-1.5-large) at its published width over one period, and train
 the two decoder LMs, with delta checkpoints and a recovery, the
-encoder-decoder, VLM and MoE LMs, and the dense, MoE and SSM LMs on a
-``DeviceMesh``, and serve the dense, MoE, SSM and hybrid LMs on it.
+encoder-decoder, VLM and MoE LMs, and the dense, MoE, SSM,
+encoder-decoder and VLM LMs on a ``DeviceMesh``, and serve all six
+families on it.
 
     python3 chip_smoke.py                 # full size, one card
     python3 chip_smoke.py --dense-nodes 1024 --edge-nodes 4096 \
@@ -70,8 +71,9 @@ Phases, in order (any failure exits non-zero):
 4. edge session — the same at ``n_cap=131072``, ``layout="edge"``;
 5. smollm-360m and 6. mamba2-130m — bf16 weights from a seeded
    ``torch.Generator``, prefill of 8 prompts of 2048 seeded tokens
-   (``cache_cap`` 2080), 32 greedy decode steps (``phase_lm``, verdict
-   ``family_failures``);
+   (``cache_cap`` 2080), 32 greedy decode steps, and the float32
+   card-vs-CPU check at 6 layers (``F32_CHECK_LAYERS``, the cut
+   printed) (``phase_lm``, verdict ``family_failures``);
 7. durable indexed sessions — the sessions of phases 3 and 4 again with
    ``path=`` (a temporary root) and ``indexed=True``: the same ops in
    the same flushed batches and the same mix, then ``close`` and
@@ -154,10 +156,10 @@ Phases, in order (any failure exits non-zero):
    into a delta store (a temporary root) with one injected failure at
    step 3: the state restored at the failure must equal the state saved
    there, and the final state the uninterrupted run's, bit for bit;
-   printed: storage bytes, save and restore seconds; 6 of mamba2's 24
-   layers (``RECOVERY_LAYERS``).  (d) both models, 2 layers at full
-   width, float32, 2 × 256 tokens, 3 steps on the card and on the CPU
-   from the same initial state: per-step loss and grad norm within the
+   printed: storage bytes, save and restore seconds; 3 of mamba2's 24
+   layers (``RECOVERY_LAYERS``, the cut printed).  (d) both models, 2
+   layers at full width, float32, 2 × 256 tokens, 3 steps on the card
+   and on the CPU from the same initial state: per-step loss and grad norm within the
    tolerance printed.
 
 12. serving driver — ``repro_torch.launch.serve.main`` (the paper's
@@ -232,7 +234,8 @@ Phases, in order (any failure exits non-zero):
    other kernel, none in decode; (b) bf16 decode against a fresh
    forward over sequence 0 (its frames / patches included) within
    BF16_FIRST_STEP_RTOL / BF16_DECODE_RTOL; (c) float32 on the card
-   against the CPU at full depth (whisper all 1500 frames, internvl2
+   against the CPU at 6 layers (whisper 6 + 6; ``F32_CHECK_LAYERS``,
+   as (d); the cut printed; whisper all 1500 frames, internvl2
    256 patches, + 256 tokens + 32 steps) within F32_CARD_CPU_RTOL, the
    same greedy tokens; (d) whisper with float32 frames under bf16
    weights (JAX's promotion): B5 in float32 for the encoder and the
@@ -258,9 +261,10 @@ Phases, in order (any failure exits non-zero):
    phase 11 (a), bf16 params, 6 steps: flash attention twice a call a
    step (forward and remat's recompute: whisper 2 × 18, internvl2 2 ×
    12, mixtral 2 × layers), no plain attention forward, the plain
-   version once a call a step (B5's backward); (b) the three at 2
-   layers of published width (whisper 2 + 2; mixtral 1, its ~27 GB of
-   float32 state a side, the host's free memory printed first), float32
+   version once a call a step (B5's backward); (b) the three at 1
+   layer of published width (whisper 1 + 1; mixtral's ~27 GB of
+   float32 state a side, the host's free memory printed first;
+   ``FAMILY_CHECK_LAYERS``, the cut printed), float32
    card vs CPU as phase 11 (d) (2 steps, mixtral 1:
    ``FAMILY_CHECK_STEPS``, for the script's time), for mixtral also
    step 1's routes: a
@@ -272,23 +276,31 @@ Phases, in order (any failure exits non-zero):
    over the data dimension bit-equal to its numpy form; a delta-store
    save and ``reshard_from_checkpoint`` bit-equal; then mixtral-8x7b
    (published width and 8 experts, expert parallel, as deep as
-   ``moe_train_cut`` reckons, printed) and mamba2-130m (published
-   size) through ``train(mesh=)`` in bf16, 4 steps (B5 2 × layers,
-   B6 2 × 24 a step), and float32 mesh vs plain on the card, mixtral 1
-   layer within 2e-4 with the first forward's pairs routed differently
-   printed, mamba2 2 layers within 1e-4, 2 steps each (``MESH_MODELS``,
-   the cuts printed); jamba's reckoning printed (its mesh step needs
-   two cards); then, at world 1, each of ``MESH_SERVE`` served on the
-   mesh (``models.api.prefill`` / ``decode_step``, the caches at
-   ``launch.dryrun.cache_sharding``'s placements) and plainly from one
-   draw of its weights (``mesh_and_plain``): smollm-360m and mamba2-130m
-   at published size, mixtral-8x7b as deep as ``moe_depth`` reckons,
-   jamba-1.5-large's period with ``hybrid_distinct_moe``'s experts (or
-   its reckoning printed where it does not fit), a prefill of 8 × 2048
-   and 32 greedy steps, counters zeroed around each: every step's
-   logits bit-equal to the plain path's, the same launches (B5 / B6 a
-   layer a prefill, none in decode); printed: prefill s (warm, cold)
-   and decode ms/step beside the plain path's, peak memory.  Verdicts
+   ``moe_train_cut`` reckons, printed), mamba2-130m (12 of 24 layers),
+   whisper-small (6 + 6 layers, 8 × 448 tokens over float32 frames) and
+   internvl2-1b (12 layers, 256 patches + 2048 tokens; both at (a)'s
+   depths) through ``train(mesh=)`` in bf16, 4 steps (B5 2 × its calls,
+   B6 2 × 24 a step), their steps beside (a)'s where (a) trained the
+   same depth, and float32 mesh vs plain on the card, mixtral 1 layer
+   within 2e-4 with the first forward's pairs routed differently
+   printed, mamba2, whisper (2 + 2) and internvl2 2 layers within 1e-4,
+   2 steps each (``MESH_MODELS``, the cuts printed); jamba's reckoning
+   printed (its mesh step needs two cards); then, at world 1, each of
+   ``MESH_SERVE`` served on the mesh (``models.api.prefill`` /
+   ``decode_step``, the caches at ``launch.dryrun.cache_sharding``'s
+   placements, whisper's cross caches at the batch rule) and plainly
+   from one draw of its weights (``mesh_and_plain``): whisper-small (12
+   + 12) and internvl2-1b (24) at published size, smollm-360m at 16 of
+   32 layers, mamba2-130m at 12 of 24 and mixtral-8x7b at 8
+   (``MESH_SERVE_LAYERS``, the cuts printed), jamba-1.5-large's period
+   with ``hybrid_distinct_moe``'s experts (or its reckoning printed
+   where it does not fit), a prefill of 8 × 2048 (whisper 8 × 416 over
+   8 × 1500 float32 frames, internvl2 after 8 × 256 patches) and 32
+   greedy steps, counters zeroed around each: every step's logits
+   bit-equal to the plain path's, the same launches (B5 / B6 a layer a
+   prefill, whisper's 36, none in decode); printed: prefill s (warm,
+   cold) and decode ms/step beside the plain path's, peak memory.
+   Verdicts
    ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
    the end.
 
@@ -407,6 +419,15 @@ BF16_DECODE_RTOL = 2.0 ** -2
 # float64, at every layer; with the plain scan forming them in float64
 # too, card and CPU sit within 0.7-1.8x of each other, layer by layer.
 F32_CARD_CPU_RTOL = 1e-4
+# the float32 card-vs-CPU checks of phases 5, 6 and 14, and phase 14's
+# mixed-dtype promotion check, run at most 6 layers deep (an
+# encoder-decoder 6 + 6): their CPU side is host-bound, and at published
+# depth they took 13.9 (smollm-360m), 5.0 (mamba2-130m), 11.3
+# (whisper-small), 12.7 (internvl2-1b) and 10.2 s (the promotion check)
+# on one H100 80GB HBM3 at 700 W (the slowest host measured).  Cut when
+# phase 15 (c) began to train and serve whisper-small and internvl2-1b,
+# for the script's time
+F32_CHECK_LAYERS = 6
 PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
                     events_per_unit=8)      # paper Table 3
 # phase 11: (a) / (b) / (c) train 8 × 2048 tokens a step for 6 steps;
@@ -415,9 +436,12 @@ PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
 # the card and on the CPU
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
 CKPT_EVERY, CKPT_FAIL_AT = 2, 3
-# (c) trains 6 of mamba2's 24 layers: with phase 15 (c)'s serving the
-# whole script read 1120 s at 12 layers (24 layers took ~65 s, 12 ~42 s)
-RECOVERY_LAYERS = 6
+# (c) trains 3 of mamba2's 24 layers: with phase 15 (c)'s serving the
+# whole script read 1120 s at 12 layers (24 layers took ~65 s, 12 ~42
+# s, 6 ~32 s on one H100 at 700 W, the slowest host measured); cut from
+# 6 when phase 15 (c) began to train and serve whisper-small and
+# internvl2-1b
+RECOVERY_LAYERS = 3
 CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
 CHECK_TRAIN_STEPS = 3
 # float32 training on the card against the CPU: per step, |Δ loss| /
@@ -2874,6 +2898,12 @@ def stub_inputs(cfg, seed: int):
     return make
 
 
+def f32_check_config(cfg):
+    """``cfg`` at most F32_CHECK_LAYERS deep, for phases 5, 6 and 14's
+    float32 and promotion checks."""
+    return at_depth(cfg, min(cfg.n_layers, F32_CHECK_LAYERS))
+
+
 def prefill_launches_want(cfg, kernel: str) -> dict:
     """``kernel``'s launches in one prefill: one a layer; an
     encoder-decoder's encoder layers and its decoder's self- and
@@ -2997,9 +3027,11 @@ def phase_lm(cfg, kernel: str, seed: int, *, extra=None, offset: int = 0,
     if on_card:
         torch.cuda.empty_cache()
 
-    # float32: the same model on the device and on the CPU
+    # float32: the same model on the device and on the CPU, at most
+    # F32_CHECK_LAYERS deep
     t0 = time.perf_counter()
-    cpu = api.init_params(cfg, torch.Generator().manual_seed(seed),
+    fcfg = f32_check_config(cfg)
+    cpu = api.init_params(fcfg, torch.Generator().manual_seed(seed),
                           torch.float32, "cpu")
     card = copy.deepcopy(cpu).to(device)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, check_prompt)))
@@ -3007,38 +3039,40 @@ def phase_lm(cfg, kernel: str, seed: int, *, extra=None, offset: int = 0,
     ex32_card = {k: v.to(device) for k, v in ex32.items()}
     cap = offset + check_prompt + check_decode
     build.reset_launches()
-    g_card, s_card, _ = greedy(api, card, cfg, toks.to(device), check_decode,
+    g_card, s_card, _ = greedy(api, card, fcfg, toks.to(device), check_decode,
                                cap, extra=ex32_card, offset=offset)
     _sync(device)
     f32_launches = build.LAUNCHES[kernel]
-    g_cpu, s_cpu, _ = greedy(api, cpu, cfg, toks, check_decode, cap,
+    g_cpu, s_cpu, _ = greedy(api, cpu, fcfg, toks, check_decode, cap,
                              extra=ex32, offset=offset)
     f32_rel = max(_rel_err(a.cpu(), b) for a, b in zip(s_card, s_cpu))
     same = bool(torch.equal(g_card.cpu(), g_cpu))
     f32_s = time.perf_counter() - t0
     witness = ""
     plain_rel = drift = None
-    if cfg.family == "ssm":
+    if fcfg.family == "ssm":
         # witness: the same float32 run on the card with the plain
         # chunked scan (the CPU's path) in the kernel's place
         from repro_torch.models import ssm as ssm_module
         kernel_scan = ssm_module.ssd_scan
         ssm_module.ssd_scan = ssm_module.ssd_chunked
         try:
-            _, s_plain, _ = greedy(api, card, cfg, toks.to(device),
+            _, s_plain, _ = greedy(api, card, fcfg, toks.to(device),
                                    check_decode, cap)
         finally:
             ssm_module.ssd_scan = kernel_scan
         plain_rel = max(_rel_err(a.cpu(), b) for a, b in zip(s_plain, s_cpu))
         witness = (f"; with the plain chunked scan on the card instead of "
                    f"the kernel: rel err {plain_rel:.3g}")
-        drift = float64_drift(cpu, card, cfg, toks)
+        drift = float64_drift(cpu, card, fcfg, toks)
         print(f"{arch}: float32 against a float64 copy on the CPU, prompt "
               f"{check_prompt}, max|Δ|/max|ref| card / CPU (card vs CPU): "
               + ", ".join(f"{r['output']} {r['card']:.3g} / {r['cpu']:.3g}"
                           f" ({r['card_cpu']:.3g})" for r in drift),
               flush=True)
-    print(f"{arch}: float32 card vs CPU, prompt {check_prompt} + "
+    print(f"{arch}: float32 card vs CPU, {fcfg.n_layers} of "
+          f"{cfg.n_layers} layers (F32_CHECK_LAYERS, cut for the "
+          f"script's time), prompt {check_prompt} + "
           f"{check_decode} steps: rel err {f32_rel:.3g} (tolerance "
           f"{F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: {same} "
           f"({f32_s:.1f} s){witness}", flush=True)
@@ -3061,6 +3095,8 @@ def phase_lm(cfg, kernel: str, seed: int, *, extra=None, offset: int = 0,
                 decode_rel_err=decode_rel, decode_rel_err_by_step=step_rel,
                 profile_prefill=prof_prefill, profile_decode8=prof_decode,
                 greedy_agreement=greedy_same, f32_launches=f32_launches,
+                f32_n_layers=fcfg.n_layers,
+                f32_want_launches=prefill_launches_want(fcfg, kernel),
                 f32_rel_err=f32_rel, f32_plain_scan_rel_err=plain_rel,
                 f32_float64_drift=drift, f32_greedy_identical=same,
                 f32_check_s=f32_s, generated=gen[0].tolist())
@@ -3094,9 +3130,10 @@ def family_failures(res: dict) -> list:
         bad.append(f"bf16 decode disagrees with a fresh forward (rel err "
                    f"per step {[round(r, 5) for r in rel]})")
     k = res["kernel"]
-    if res["f32_launches"] != want.get(k, 0):
+    want32 = res["f32_want_launches"].get(k, 0)
+    if res["f32_launches"] != want32:
         bad.append(f"float32 prefill launched {k} {res['f32_launches']} "
-                   f"times, want {want.get(k, 0)}")
+                   f"times, want {want32}")
     if not (res["f32_rel_err"] <= F32_CARD_CPU_RTOL
             and res["f32_greedy_identical"]):
         bad.append(f"float32 card and CPU disagree (rel err "
@@ -3234,7 +3271,8 @@ def phase_family(cfg, seed: int, prompt: int, device="cuda",
                    check_prompt=check_prompt, check_decode=check_decode)
     if cfg.family == "encdec":
         t0 = time.perf_counter()
-        res["promotion"] = promotion_check(cfg, seed, device, check_prompt)
+        res["promotion"] = promotion_check(f32_check_config(cfg), seed,
+                                           device, check_prompt)
         res["promotion"]["seconds"] = time.perf_counter() - t0
     return res
 
@@ -4849,6 +4887,10 @@ def phase_training(layers: int, seed: int) -> dict:
 
     cfg = lm_config("mamba2-130m", min(layers or RECOVERY_LAYERS,
                                        RECOVERY_LAYERS))
+    print(f"train recovery mamba2-130m: depth {cfg.n_layers} of 24 layers, "
+          f"cut for the script's time (RECOVERY_LAYERS: its saves and "
+          f"restores are host npz work, ~32 s at 6 layers on one H100 at "
+          f"700 W, the slowest host measured)", flush=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         t0 = time.perf_counter()
@@ -4912,9 +4954,12 @@ MOE_TRAIN_TRANSIENT_BYTES = 24 * 2 ** 30
 # and up and [5120, 4096] down products and the q / k / v / o projections,
 # bf16
 MOE_TRAIN_SAVED_BYTES_PER_LAYER = 3 * 10 ** 9
-# (b): 2 layers of whisper-small (2 + 2) and internvl2-1b, 1 of mixtral,
-# at published width
-FAMILY_CHECK_LAYERS = {"whisper-small": 2, "internvl2-1b": 2,
+# (b): 1 layer of whisper-small (1 + 1), internvl2-1b and mixtral, at
+# published width.  whisper and internvl2 were cut from 2 layers when
+# (c) began to train them on the mesh (its float32 check holds 2 layers
+# of each, mesh against plain on the card): their CPU steps took 5.8-7.8
+# s at 2 layers on one H100's host at 700 W (the slowest measured)
+FAMILY_CHECK_LAYERS = {"whisper-small": 1, "internvl2-1b": 1,
                        MOE_ARCH: 1}
 # (b)'s steps, cut from CHECK_TRAIN_STEPS for the script's time: on an
 # H100's host (8 cores) the CPU side of a step took 5.8-7.8 s (whisper,
@@ -4934,11 +4979,21 @@ MESH_CHILD_TIMEOUT_S = 900
 # bounds (test_distributed.py:454-458 for the moe family, :496-499 for
 # ssm).  Cut, and printed, to hold the script near its 895 s: 4 bf16
 # steps of TRAIN_STEPS (a warm median of 3), 2 float32 steps of CHECK_TRAIN_STEPS, mixtral's
-# check at 1 layer
+# check at 1 layer.  whisper-small and internvl2-1b train as in (a), at
+# FAMILY_TRAIN_LAYERS' depths and FAMILY_TRAIN's sequences, with a
+# float32 check of 2 layers (whisper 2 + 2) within MESH_ATOL; mamba2
+# trains at 12 of its 24 layers (MESH_TRAIN_LAYERS, cut with them for
+# the script's time; ~8 s at 24 on one H100 at 700 W, the slowest host
+# measured)
+MESH_TRAIN_LAYERS = {"mamba2-130m": 12, **FAMILY_TRAIN_LAYERS}
 MESH_MODELS = {MOE_ARCH: dict(steps=4, check_layers=1, check_steps=2,
                               atol=2e-4),
                "mamba2-130m": dict(steps=4, check_layers=2, check_steps=2,
-                                   atol=MESH_ATOL)}
+                                   atol=MESH_ATOL),
+               "whisper-small": dict(steps=4, check_layers=2, check_steps=2,
+                                     atol=MESH_ATOL),
+               "internvl2-1b": dict(steps=4, check_layers=2, check_steps=2,
+                                    atol=MESH_ATOL)}
 
 
 def moe_train_params(cfg) -> int:
@@ -4983,12 +5038,14 @@ def family_check_config(arch: str, n: int | None = None):
     """``arch`` at published width and ``n`` layers (default phase 15
     (b)'s cut, FAMILY_CHECK_LAYERS; an encoder-decoder: as many encoder
     layers)."""
+    return at_depth(lm_config(arch, 0), n or FAMILY_CHECK_LAYERS[arch])
+
+
+def at_depth(cfg, n: int):
+    """``cfg`` at ``n`` layers (an encoder-decoder: ``n`` + ``n``)."""
     import dataclasses
-    n = n or FAMILY_CHECK_LAYERS[arch]
-    cfg = lm_config(arch, n)
-    if cfg.family == "encdec":
-        cfg = dataclasses.replace(cfg, n_enc_layers=n)
-    return cfg
+    return dataclasses.replace(cfg, n_layers=n, **(
+        {"n_enc_layers": n} if cfg.family == "encdec" else {}))
 
 
 def moe_train_cut(free_bytes: int, layers: int) -> tuple:
@@ -5045,8 +5102,10 @@ def phase_family_training(layers: int, seed: int, smi: str) -> dict:
     for arch in FAMILY_CHECK_LAYERS:
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"train {arch}: float32 card vs CPU, host memory available "
-              f"{host_free_gib():.1f} GiB", flush=True)
+        print(f"train {arch}: float32 card vs CPU, {FAMILY_CHECK_LAYERS[arch]}"
+              f" layer(s) of published width (FAMILY_CHECK_LAYERS, cut for "
+              f"the script's time: a step's CPU side is its largest part), "
+              f"host memory available {host_free_gib():.1f} GiB", flush=True)
         t0 = time.perf_counter()
         r = phase_train_card_cpu(
             family_check_config(arch), seed,
@@ -5172,7 +5231,6 @@ def mesh_model_run(full, mesh, dev, *, batch: int, seq: int, steps: int,
     first forward (``first_routes``).  Returns (the results, the float32
     mesh run's state)."""
     import copy
-    import dataclasses
 
     import torch
 
@@ -5199,7 +5257,7 @@ def mesh_model_run(full, mesh, dev, *, batch: int, seq: int, steps: int,
                step_s=[ms / 1e3 for ms in hist.rows["step_ms"]])
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(full, n_layers=check_layers)
+    cfg = at_depth(full, check_layers)
     tcfg, scfg = train_configs(cfg, batch, check_seq, check_steps,
                                "float32")
     n_moe = n_moe_layers(cfg) if cfg.n_experts else 0
@@ -5234,8 +5292,15 @@ def mesh_model_run(full, mesh, dev, *, batch: int, seq: int, steps: int,
 def mesh_model_config(arch: str, layers: int, device_type: str) -> tuple:
     """Phase 15 (c)'s config of ``arch`` and its cut, as printed: mixtral
     at published width, as deep as ``moe_train_cut`` reckons from the
-    card's free memory; any other at published size (or ``layers``)."""
+    card's free memory; whisper-small and internvl2-1b at phase 15 (a)'s
+    depth and mamba2-130m at 12 layers (MESH_TRAIN_LAYERS); any other
+    at published size (or ``layers``)."""
     import torch
+    if arch in MESH_TRAIN_LAYERS and not layers:
+        cfg = family_check_config(arch, MESH_TRAIN_LAYERS[arch])
+        return cfg, (f"{cfg.n_layers} of {lm_config(arch, 0).n_layers} "
+                     f"layers, cut for the script's time "
+                     f"(MESH_TRAIN_LAYERS)")
     if arch != MOE_ARCH:
         cfg = lm_config(arch, layers)
         return cfg, f"{cfg.n_layers} layers"
@@ -5260,15 +5325,28 @@ def hybrid_mesh_reckoning() -> str:
             f"{total / 1e9:.1f} GB: it waits for a second card")
 
 
-# (c) also serves on the world-1 mesh: smollm-360m and mamba2-130m at
-# published size, mixtral-8x7b as deep as ``moe_depth`` reckons and
-# jamba-1.5-large's one period with ``hybrid_distinct_moe``'s experts,
-# each a prefill of LM_BATCH x LM_PROMPT and LM_DECODE greedy steps on
-# the mesh and plainly, from one draw of the weights (the earlier phases
-# that serve these models have freed theirs by now: the same seeds and
-# generators draw them again).  At world 1 every local shard is the whole
-# tensor, so the mesh's logits must equal the plain path's bit for bit
-MESH_SERVE = ("smollm-360m", "mamba2-130m", MOE_ARCH, HYBRID_ARCH)
+# (c) also serves on the world-1 mesh: mamba2-130m, whisper-small and
+# internvl2-1b at published size, smollm-360m and mixtral-8x7b at
+# MESH_SERVE_LAYERS' depths and jamba-1.5-large's one period with
+# ``hybrid_distinct_moe``'s experts, each a prefill of LM_BATCH x
+# LM_PROMPT (whisper 416 tokens over 1500 float32 frames, internvl2
+# after its 256 patches: phase 14's shapes, the stub from
+# ``SyntheticLM``) and LM_DECODE greedy steps on the mesh and plainly,
+# from one draw of the weights (the earlier phases that serve these
+# models have freed theirs by now: the same seeds and generators draw
+# them again).  At world 1 every local shard is the whole tensor, so the
+# mesh's logits must equal the plain path's bit for bit
+MESH_SERVE = ("smollm-360m", "mamba2-130m", MOE_ARCH, HYBRID_ARCH,
+              "whisper-small", "internvl2-1b")
+# depth cuts of (c)'s serving, made when it began to serve whisper-small
+# and internvl2-1b, for the script's time: a mesh decode step is
+# host-bound (DTensor dispatch), on one H100 at 700 W (the slowest host
+# measured) 531 ms for
+# mixtral's 24 layers (its 32 steps and the plain path's ~28 s), 398
+# ms for smollm's 32 (~16 s) and 138 ms for mamba2's 24 (~6 s).  Phase
+# 13 serves mixtral at 24 layers, phases 5 and 6 smollm at 32 and
+# mamba2 at 24, plainly
+MESH_SERVE_LAYERS = {"smollm-360m": 16, "mamba2-130m": 12, MOE_ARCH: 8}
 
 
 def mesh_and_plain(model, mesh) -> tuple:
@@ -5302,13 +5380,16 @@ def mesh_and_plain(model, mesh) -> tuple:
     return model, plain
 
 
-def serve_timed(model, cfg, prompts, decode: int, dev, mesh=None) -> dict:
-    """A prefill of ``prompts`` (a cold one first, its caches let go) and
-    ``decode`` greedy steps through ``models.api``, on ``mesh`` (the
-    prompts placed by ``batch_sharding``, in its context) or plainly:
-    the counters zeroed before the warm prefill and before the decode
-    and read after each, the clock after a synchronize, every step's
-    logits kept (gathered)."""
+def serve_timed(model, cfg, prompts, decode: int, dev, mesh=None,
+                extra=None) -> dict:
+    """A prefill of ``prompts`` (with the batch's ``extra`` inputs:
+    ``frames`` or ``patches``; a cold one first, its caches let go) and
+    ``decode`` greedy steps through ``models.api`` (the vlm's positions
+    after its patches), on ``mesh`` (the batch placed by
+    ``batch_sharding``, in its context) or plainly: the counters zeroed
+    before the warm prefill and before the decode and read after each,
+    the clock after a synchronize, every step's logits kept
+    (gathered)."""
     import contextlib
 
     from repro_torch.kernels import build
@@ -5317,10 +5398,11 @@ def serve_timed(model, cfg, prompts, decode: int, dev, mesh=None) -> dict:
     from repro_torch.runtime.elastic import place_tree
     from repro_torch.sharding import mesh_context
 
-    batch = {"tokens": prompts}
+    batch = {"tokens": prompts, **(extra or {})}
     if mesh is not None:
         batch = place_tree(batch, batch_sharding(batch, mesh))
-    cap = prompts.shape[1] + decode
+    start = prompts.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
+    cap = start + decode
 
     def full(t):
         return t.full_tensor() if hasattr(t, "full_tensor") else t
@@ -5343,7 +5425,7 @@ def serve_timed(model, cfg, prompts, decode: int, dev, mesh=None) -> dict:
         t0 = time.perf_counter()
         for i in range(decode):
             logits, caches = api.decode_step(model, out[-1].argmax(-1)[:, None],
-                                             prompts.shape[1] + i, caches, cfg)
+                                             start + i, caches, cfg)
             out.append(full(logits))
         _sync(dev)
         res["decode_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / decode
@@ -5357,27 +5439,37 @@ def mesh_serve(model, cfg, mesh, dev, *, seed: int, batch: int,
     """Phase 15 (c)'s serving of ``model`` (``cfg``, bf16 on ``dev``) on
     the world-1 ``mesh`` against the plain path on the same weights
     (``mesh_and_plain``) and prompts (seeded as phases 5, 6, 13 and 16
-    seed theirs): ``serve_timed`` plainly, then on the mesh; each
+    seed theirs; an encdec's float32 frames or a vlm's patches from
+    ``SyntheticLM``): ``serve_timed`` plainly, then on the mesh; each
     step's logits compared bit for bit.  The verdict is
     ``mesh_serve_failures``."""
     import numpy as np
     import torch
 
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.synthetic import stub_rows
+
     cuda = dev.type == "cuda"
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (batch, prompt))).to(dev)
+    drawn = SyntheticLM(cfg, batch, prompt, seed=seed, device=dev).batch_at(0)
+    extra = {k: drawn[k] for k in stub_rows(cfg)}
     model, plain = mesh_and_plain(model, mesh)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     res = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
                cut=cut, batch=batch, prompt=prompt, decode=decode,
-               want=hybrid_launches_want(cfg), mesh=dict(zip(
-                   mesh.mesh_dim_names, mesh.shape)))
-    res["plain"] = serve_timed(plain, cfg, prompts, decode, dev)
+               stub={k: [*v.shape, str(v.dtype)[6:]]
+                     for k, v in extra.items()},
+               want=(prefill_launches_want(cfg, "flash_attention")
+                     if cfg.family == "encdec" else hybrid_launches_want(cfg)),
+               mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    res["plain"] = serve_timed(plain, cfg, prompts, decode, dev, extra=extra)
     del plain
     gc.collect()
-    res["mesh_run"] = serve_timed(model, cfg, prompts, decode, dev, mesh)
+    res["mesh_run"] = serve_timed(model, cfg, prompts, decode, dev, mesh,
+                                  extra)
     a, b = res["mesh_run"].pop("logits"), res["plain"].pop("logits")
     res["bit_equal"] = [torch.equal(x.contiguous().view(torch.uint8),
                                     y.contiguous().view(torch.uint8))
@@ -5392,21 +5484,31 @@ def mesh_serve(model, cfg, mesh, dev, *, seed: int, batch: int,
 def mesh_serve_config(arch: str, layers: int, device_type: str) -> tuple:
     """Phase 15 (c)'s served config of ``arch`` and its cut, as printed
     (None where the card does not hold it): mixtral at published width,
-    as deep as ``moe_depth`` reckons from the free memory; jamba's one
-    period with ``hybrid_distinct_moe``'s distinct MoE layers (None
-    below HYBRID_MIN_DISTINCT); any other at published size (or
-    ``layers``).  Returns (config, cut, distinct)."""
+    as deep as ``moe_depth`` reckons from the free memory, at most
+    MESH_SERVE_LAYERS; jamba's one period with ``hybrid_distinct_moe``'s
+    distinct MoE layers (None below HYBRID_MIN_DISTINCT); any other at
+    published size or MESH_SERVE_LAYERS' depth (or ``layers``).
+    Returns (config, cut, distinct)."""
     import torch
     free = (torch.cuda.mem_get_info()[0] if device_type == "cuda"
             else 128 * 2 ** 30)
     if arch == MOE_ARCH:
         n, cut = moe_depth(lm_config(arch, 0), free, layers)
+        if not layers and n > MESH_SERVE_LAYERS[arch]:
+            n, cut = MESH_SERVE_LAYERS[arch], (
+                f"{MESH_SERVE_LAYERS[arch]} of 32 layers, cut for the "
+                f"script's time (MESH_SERVE_LAYERS; the card holds {cut})")
         return lm_config(arch, n), cut, None
     if arch == HYBRID_ARCH:
         cfg = hybrid_config()
         distinct, cut = hybrid_distinct_moe(cfg, free)
         return (cfg if distinct >= HYBRID_MIN_DISTINCT else None), cut, \
             distinct
+    if arch in MESH_SERVE_LAYERS and not layers:
+        cfg = lm_config(arch, MESH_SERVE_LAYERS[arch])
+        return cfg, (f"{cfg.n_layers} of {lm_config(arch, 0).n_layers} "
+                     f"layers, cut for the script's time "
+                     f"(MESH_SERVE_LAYERS)"), None
     cfg = lm_config(arch, layers)
     return cfg, f"{cfg.n_layers} layers", None
 
@@ -5495,8 +5597,6 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
     LM_DECODE steps), a model the card does not hold skipped with its
     reckoning.  ``cfg`` replaces smollm-360m (a CPU rehearsal).  The
     verdict is ``mesh_failures``."""
-    import dataclasses
-
     import torch
     import torch.distributed as dist
 
@@ -5526,7 +5626,7 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             check_layers=check_layers, check_seq=check_seq,
             check_steps=check_steps, atol=MESH_ATOL)
         res.update(run)
-        cfg = dataclasses.replace(full, n_layers=check_layers)
+        cfg = at_depth(full, check_layers)
         tcfg, scfg = train_configs(cfg, batch, check_seq, check_steps,
                                    "float32")
 
@@ -5573,7 +5673,10 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
                       f"{knobs['check_layers']} layer(s) x "
                       f"{knobs['check_steps']} steps of "
                       f"{CHECK_TRAIN_STEPS}", flush=True)
-            r, _ = mesh_model_run(given, mesh, dev, batch=batch, seq=seq,
+            # whisper's decoder trains at its text context, as in (a)
+            r, _ = mesh_model_run(given, mesh, dev, batch=batch,
+                                  seq=min(seq, dict(FAMILY_TRAIN).get(arch,
+                                                                      seq)),
                                   check_seq=check_seq, **knobs)
             r["cut"] = cut
             res["models"][arch] = r
@@ -5597,7 +5700,8 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
                 continue
             res["serve"][arch] = mesh_serve(
                 mesh_serve_model(served, seed, distinct, dev), served, mesh,
-                dev, seed=seed, batch=LM_BATCH, prompt=LM_PROMPT,
+                dev, seed=seed, batch=LM_BATCH,
+                prompt=dict(FAMILY_ARCHS).get(arch, LM_PROMPT),
                 decode=LM_DECODE, cut=cut)
         return res
     finally:
@@ -6039,11 +6143,11 @@ def main(argv=None) -> int:
     phases["mesh_s"] = time.perf_counter() - t0
     print(mesh_line(mesh, warm_median(training["smollm-360m"]["step_s"]),
                     smi.splitlines()[0]), flush=True)
-    moe_a = family_train["train"][MOE_ARCH]
     for arch, r in mesh["models"].items():
-        plain = (("phase 15 (a)'s plain step",
-                  warm_median(moe_a["step_s"]))
-                 if arch == MOE_ARCH and moe_a["n_layers"] == r["n_layers"]
+        a = family_train["train"].get(arch)
+        plain = (("phase 15 (a)'s plain step", warm_median(a["step_s"]))
+                 if a and (a["n_layers"], a["seq"]) == (r["n_layers"],
+                                                        r["seq"])
                  else None)
         print(mesh_model_line(r, plain, smi.splitlines()[0]), flush=True)
     print(hybrid_mesh_reckoning(), flush=True)

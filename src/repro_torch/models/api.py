@@ -14,12 +14,12 @@ Batches are dicts holding ``tokens`` (and ``labels``, optionally
 (``models/encdec.py``) and ``patches`` [B, n_patches, d] for vlm
 (``models/lm.py``; decode positions then count the patches).  There is
 no ``impl`` argument: the device decides how attention runs
-(``models/attention.py``).  On a mesh the dense, moe, ssm and hybrid
-families' ``loss_fn`` / ``forward`` / ``prefill`` / ``decode_step`` run
-(the caches at ``launch.dryrun.cache_sharding``'s placements); the
-encdec and vlm families raise, naming their ROADMAP step
-(``check_lm_mesh``).  ``input_specs`` comes with the dry-run (ROADMAP
-A18).
+(``models/attention.py``).  On a mesh every family's ``loss_fn`` /
+``forward`` / ``prefill`` / ``decode_step`` runs, the batch's
+``tokens``, ``labels``, ``frames`` and ``patches`` placed by
+``launch.dryrun.batch_sharding`` and the caches at
+``launch.dryrun.cache_sharding``'s placements.  ``input_specs`` comes
+with the dry-run (ROADMAP A18).
 """
 from __future__ import annotations
 
@@ -30,9 +30,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import encdec, lm
 from repro_torch.sharding import current_mesh
 
-# the families whose training, prefill and decode run on a mesh; encdec
-# and vlm come with the rest of ROADMAP A17's item 3
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose training, prefill and decode run on a mesh
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_lm_mesh(cfg: ModelConfig, what: str = "training") -> None:

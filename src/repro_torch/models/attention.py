@@ -23,7 +23,11 @@ reference annotates them — batch over the ``batch`` axes, heads over
 ``local_map`` on each process's shards (``_flash_on_mesh``): a
 hand-written kernel has no DTensor sharding rule.  Where q's heads are
 split and k / v's are not (GQA with fewer kv heads than the ``model``
-axis), each process takes the kv heads of its own q heads.
+axis), each process takes the kv heads of its own q heads.  The out
+projection runs under ``local_map`` too (``_out``: each process's
+heads' part summed over ``model``), and so does a decode step's
+cross-attention against an encoder-decoder's whole cross caches
+(``cross_decode``).
 
 Decode writes the new key/value row into the cache tensors in place
 (PyTorch's idiom; the JAX package returns fresh arrays) and returns the
@@ -47,7 +51,7 @@ from repro_torch.sharding import (all_reduce_over, axes_of,
                                   batch_cache_spec, current_mesh,
                                   kv_cache_spec, local_range,
                                   on_local_shards, place, placements, shard,
-                                  shard_index, spec, split_dims)
+                                  shard_index, spec, split_dims, sum_over)
 
 
 def init_attention(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -129,7 +133,26 @@ def _project_local(x, w):
 
 
 def _out(o, wo):
-    """[B, S, H, hd] @ [H, hd, d] → [B, S, d]."""
+    """[B, S, H, hd] @ [H, hd, d] → [B, S, d].  On a mesh, under
+    ``local_map``: o placed as the reference's ``shard(.., "batch", None,
+    "model", None)`` resolves it, wo split by the same heads and whole
+    along d, each process's heads' part summed over the axes that split
+    them (``sum_over``).  (DTensor left to itself may split the H · hd
+    rows of wo's gradient over ``model`` where H does not divide it,
+    which no view can unflatten.)"""
+    mesh = current_mesh()
+    if mesh is None:
+        return _out_local(o, wo)
+    so = spec("batch", None, "model", None, dims=o.shape)
+    groups = [mesh.get_group(a) for a in axes_of(so[2])
+              if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+    return on_local_shards(lambda ol, wl: sum_over(_out_local(ol, wl),
+                                                   groups),
+                           (so[0], None, None), (so, (so[2], None, None)),
+                           o, wo)
+
+
+def _out_local(o, wo):
     h, hd, d = wo.shape
     return mm(o.reshape(*o.shape[:-2], h * hd), wo.reshape(h * hd, d))
 
@@ -148,24 +171,42 @@ def kv_heads_for(q0: int, n_q: int, group: int) -> torch.Tensor:
     return torch.arange(q0, q0 + n_q) // group
 
 
+def own_kv_heads(k, v, q0: int, n_q: int, group: int):
+    """k / v [B, S, Hkv, hd] (every kv head) cut to the kv head of each
+    of q heads ``q0 .. q0 + n_q - 1``, one a q head: what a process
+    whose q heads the ``model`` axis splits reads where k / v's heads
+    are whole."""
+    idx = kv_heads_for(q0, n_q, group).to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _flash_on_mesh(q, k, v, causal, window, scale):
     """``_flash`` under ``local_map``: q / k / v [B, S, H, hd] placed as
     the reference's ``shard(.., "batch", None, "model", None)`` resolves
     them, the kernel on each process's shards, the output placed as
     q."""
+    return _on_q_heads(
+        lambda ql, kl, vl: _flash_local(ql, kl, vl, causal, window, scale),
+        q, k, v, spec("batch", None, "model", None, dims=k.shape))
+
+
+def _on_q_heads(fn, q, k, v, skv: tuple):
+    """``fn(q, k, v)`` on each process's shards (``local_map``): q placed
+    as the reference's ``shard(.., "batch", None, "model", None)``
+    resolves it, k / v by ``skv``, the output as q.  Where q's heads are
+    split and k / v's are not, each process reads the kv heads of its
+    own q heads (``own_kv_heads``)."""
     mesh = current_mesh()
     hq, hkv = q.shape[2], k.shape[2]
     sq = spec("batch", None, "model", None, dims=q.shape)
-    skv = spec("batch", None, "model", None, dims=k.shape)
     heads = axes_of(sq[2])
     split_q_only = heads and not axes_of(skv[2])
 
     def local(ql, kl, vl):
-        if split_q_only:    # this process's q heads read their kv heads
-            idx = kv_heads_for(shard_index(mesh, heads) * ql.shape[2],
-                               ql.shape[2], hq // hkv).to(kl.device)
-            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
-        return _flash_local(ql, kl, vl, causal, window, scale)
+        if split_q_only:
+            kl, vl = own_kv_heads(kl, vl, shard_index(mesh, heads)
+                                  * ql.shape[2], ql.shape[2], hq // hkv)
+        return fn(ql, kl, vl)
 
     return on_local_shards(local, sq, (sq, skv, skv), q, k, v)
 
@@ -328,9 +369,8 @@ def _decode_on_mesh(q, k_new, v_new, cfg: ModelConfig, cache: KVCache,
     mask = _mask(qpos, pmap.full_tensor(), True, cfg.window)[:, lo:hi]
     heads = axes_of(sq[2])
     if heads and not split_dims(cache.k, 2):
-        idx = kv_heads_for(shard_index(mesh, heads) * ql.shape[2],
-                           ql.shape[2], hq // hkv).to(kc.device)
-        kc, vc = kc.index_select(2, idx), vc.index_select(2, idx)
+        kc, vc = own_kv_heads(kc, vc, shard_index(mesh, heads)
+                              * ql.shape[2], ql.shape[2], hq // hkv)
     scale = cfg.hd() ** -0.5
     if seq:
         o = _heads_last(merge_blocks(
@@ -340,6 +380,26 @@ def _decode_on_mesh(q, k_new, v_new, cfg: ModelConfig, cache: KVCache,
         o = _sdpa(ql, kc, vc, mask, scale)
     return DTensor.from_local(o, mesh, placements(sq, mesh),
                               run_check=False)
+
+
+def cross_decode(q, xk, xv, scale: float):
+    """A decode step's cross-attention: q [B, 1, Hq, hd] against every
+    row of a layer's cross keys / values [B, S_enc, Hkv, hd] (plain
+    PyTorch, as it is XLA in the JAX package).  On a mesh, under
+    ``local_map`` (``_on_q_heads``), xk / xv at their cache placement
+    (``batch_cache_spec``: heads and rows whole).  The cross caches never
+    split their rows, so no log-sum-exp merge is needed."""
+    if current_mesh() is None:
+        return _attend_all(q, xk, xv, scale)
+    return _on_q_heads(lambda ql, kl, vl: _attend_all(ql, kl, vl, scale),
+                       q, xk, xv, batch_cache_spec(tuple(xk.shape)))
+
+
+def _attend_all(q, k, v, scale):
+    """``_sdpa`` with every key row valid."""
+    everywhere = torch.ones((1, k.shape[1]), dtype=torch.bool,
+                            device=k.device)
+    return _sdpa(q, k, v, everywhere, scale)
 
 
 def block_softmax(q, k, v, mask, scale):

@@ -23,6 +23,17 @@ dtypes follow JAX's promotion: float32 frames under bfloat16 params run
 the whole encoder in float32, and so the cross keys / values, while the
 decoder's own activations and its self-KV cache stay bfloat16.
 
+On a mesh (``sharding.mesh_context``; parameters, ``frames``,
+``tokens`` and ``labels`` placed as ``models/lm.py`` says) the encoder's
+input is annotated by batch as the reference's, the learned positions
+are read with the token table under ``local_map``
+(``layers._lookup``), every B5 call runs on each process's shards
+(``attention._flash_on_mesh``), the loss is ``lm.next_token_nll``'s,
+the self caches sit at ``kv_cache_spec``'s placements and the cross
+caches at the batch rule only (``_cross_kv``), and the decode step's
+cross-attention runs on each process's q heads against whole cross
+caches (``attention.cross_decode``).
+
 Remat: the JAX package wraps a layer in ``jax.checkpoint`` without a
 policy, so "block" and "full" both keep only each layer's input and
 recompute the whole layer in the backward (``lm.py``'s "block" also
@@ -32,7 +43,6 @@ memory differs.  ``prefill`` and ``decode_step`` run without autograd.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
@@ -42,6 +52,9 @@ from repro_torch.models import attention as A
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed,
                                        init_embed, init_mlp, init_norm,
                                        sinusoidal, unembed)
+from repro_torch.models.lm import next_token_nll
+from repro_torch.sharding import (batch_cache_spec, current_mesh, place,
+                                  replicated_like, shard)
 
 
 def _enc_layer_init(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -130,8 +143,9 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
            remat: str = "block") -> torch.Tensor:
     """frames: [B, enc_seq, d] (stub frontend output) → [B, enc_seq, d],
     in the promoted dtype of frames and params."""
-    x = frames + sinusoidal(frames.shape[1], cfg.d_model, frames.dtype,
-                            frames.device)
+    x = frames + replicated_like(sinusoidal(
+        frames.shape[1], cfg.d_model, frames.dtype, frames.device), frames)
+    x = shard(x, "batch", None, None)
     positions = torch.arange(frames.shape[1], dtype=torch.int32,
                              device=frames.device)
     x = _layers(params.enc, _enc_layer, x, remat, cfg, positions)
@@ -161,6 +175,7 @@ def _dec_layer_out(lp, h, cfg, enc_out, positions):
 def decode_seq(params: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
                cfg: ModelConfig, remat: str = "block") -> torch.Tensor:
     """Teacher-forced decoder pass → logits [B, S, V] (float32)."""
+    tokens = shard(tokens, "batch", None)
     positions = _positions(0, tokens.shape[1], cfg, tokens.device)
     x = embed(params.embed, tokens.long(), cfg, positions=positions)
     x = _layers(params.dec, _dec_layer_out, x, remat, cfg, enc_out,
@@ -175,9 +190,7 @@ def loss_fn(params: EncDec, batch: dict, cfg: ModelConfig, *,
     ``batch`` holds ``frames``, ``tokens`` and ``labels``."""
     enc_out = encode(params, batch["frames"], cfg, remat)
     logits = decode_seq(params, batch["tokens"], enc_out, cfg, remat)
-    lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
-    targets = batch["labels"][:, 1:].long()
-    return -torch.gather(lp, -1, targets[..., None])[..., 0].mean()
+    return next_token_nll(logits, batch["labels"]).mean()
 
 
 @torch.no_grad()
@@ -187,17 +200,29 @@ def prefill(params: EncDec, tokens: torch.Tensor, frames: torch.Tensor,
     Returns (last logits [B, V], caches: one dict a decoder layer with
     its self-KV ``KVCache`` and its cross keys / values)."""
     enc_out = encode(params, frames, cfg, remat="none")
+    tokens = shard(tokens, "batch", None)
     positions = _positions(0, tokens.shape[1], cfg, tokens.device)
     x = embed(params.embed, tokens.long(), cfg, positions=positions)
     cap = cache_cap or tokens.shape[1]
     caches = []
     for lp in params.dec:
         x, self_c = _dec_layer(lp, x, cfg, enc_out, positions, True, cap)
-        caches.append({"self": self_c,
-                       "xk": A._project(enc_out, lp.xattn.wk),
-                       "xv": A._project(enc_out, lp.xattn.wv)})
+        caches.append({"self": self_c, "xk": _cross_kv(enc_out, lp.xattn.wk),
+                       "xv": _cross_kv(enc_out, lp.xattn.wv)})
     x = apply_norm(params.final_norm, x[:, -1], cfg.norm_kind)
     return unembed(params.embed, x, cfg), caches
+
+
+def _cross_kv(enc_out, w):
+    """A decoder layer's cross keys or values [B, enc_seq, Hkv, hd]; on
+    a mesh at the reference's cache placement, the batch rule only
+    (``batch_cache_spec``, C10): the heads the projection split over
+    ``model`` gathered, and the whole tensor replicated where the batch
+    does not divide the ``batch`` axes."""
+    t = A._project(enc_out, w)
+    mesh = current_mesh()
+    return t if mesh is None else place(t, mesh,
+                                        batch_cache_spec(tuple(t.shape)))
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
@@ -218,18 +243,18 @@ def decode_step(params: EncDec, token: torch.Tensor, pos: int, caches,
     values; the self caches are updated in place.  token: [B, 1]; pos:
     its absolute position.  → (logits [B, V], caches)."""
     pos = int(pos)
-    x = embed(params.embed, token.long(), cfg,
-              positions=_positions(pos, 1, cfg, token.device))
+    token = shard(token, "batch", None)
+    x = shard(embed(params.embed, token.long(), cfg,
+                    positions=_positions(pos, 1, cfg, token.device)),
+              "batch", None, None)
     scale = cfg.hd() ** -0.5
     for lp, cache in zip(params.dec, caches):
         a = apply_norm(lp.norm1, x, cfg.norm_kind)
         a, _ = A.decode_attention(lp.attn, a, cfg, cache["self"], pos)
         x = x + a
         c = apply_norm(lp.norm_x, x, cfg.norm_kind)
-        xk, xv = cache["xk"], cache["xv"]
-        everywhere = torch.ones((1, xk.shape[1]), dtype=torch.bool,
-                                device=xk.device)
-        o = A._sdpa(A._project(c, lp.xattn.wq), xk, xv, everywhere, scale)
+        o = A.cross_decode(A._project(c, lp.xattn.wq), cache["xk"],
+                           cache["xv"], scale)
         x = x + A._out(o, lp.xattn.wo)
         m = apply_norm(lp.norm2, x, cfg.norm_kind)
         x = x + apply_mlp(lp.mlp, m, cfg.mlp_kind)

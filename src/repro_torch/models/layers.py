@@ -162,25 +162,34 @@ def init_embed(gen, cfg: ModelConfig, dtype, device) -> nn.Module:
     return params_module(**p)
 
 
-def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  On a mesh, under ``local_map``: tokens split by
-    batch, the table whole on each process (DTensor's own rules for a
-    lookup in a split table are not relied on)."""
+def _lookup(table: torch.Tensor, tokens: torch.Tensor,
+            pos: torch.Tensor | None = None,
+            positions: torch.Tensor | None = None) -> torch.Tensor:
+    """``table[tokens]``, plus ``pos[positions]`` where a learned
+    position table ``pos`` is given.  On a mesh, under ``local_map``:
+    tokens split by batch, the tables whole on each process (DTensor's
+    own rules for a lookup in a split table are not relied on)."""
+    def local(tl, wl, *pl):
+        x = wl[tl]
+        return x + pl[0][positions] if pl else x
+
+    tables = (table,) if pos is None else (table, pos)
     if current_mesh() is None:
-        return table[tokens]
+        return local(tokens, *tables)
     rows = spec("batch", None, dims=tokens.shape)[0]
-    return on_local_shards(lambda tl, wl: wl[tl], (rows, None, None),
-                           ((rows, None), (None, None)), tokens, table)
+    return on_local_shards(local, (rows, None, None),
+                           ((rows, None),) + ((None, None),) * len(tables),
+                           tokens, *tables)
 
 
 def embed(p: nn.Module, tokens: torch.Tensor, cfg: ModelConfig,
           positions: torch.Tensor | None = None) -> torch.Tensor:
-    x = _lookup(p.tok, tokens)
     if cfg.pos_kind == "learned":
-        x = x + p.pos[positions]
-    elif cfg.pos_kind == "sinusoidal":
-        x = x + sinusoidal(cfg.max_seq, cfg.d_model, x.dtype,
-                           x.device)[positions]
+        return _lookup(p.tok, tokens, p.pos, positions)
+    x = _lookup(p.tok, tokens)
+    if cfg.pos_kind == "sinusoidal":
+        x = x + replicated_like(sinusoidal(cfg.max_seq, cfg.d_model, x.dtype,
+                                           x.device)[positions], x)
     return x
 
 

@@ -23,17 +23,18 @@ Its MoE layers run as every other MoE family's do, on a mesh too.
 
 On a mesh (``sharding.mesh_context`` of a ``DeviceMesh``, parameters and
 batch placed as DTensors, ``runtime.elastic.reshard_state`` /
-``launch.dryrun.batch_sharding``) the dense, moe, ssm and hybrid
-families' ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` run
-as DTensor programs: activations are annotated at the reference's
-``shard`` sites, attention runs the kernel on each process's shards
+``launch.dryrun.batch_sharding``) every family's ``forward``,
+``loss_fn``, ``prefill`` and ``decode_step`` run as DTensor programs
+(the vlm's batch-placed patches projected by the replicated
+``patch_proj`` and joined to the tokens along the unsplit sequence):
+activations are annotated at the reference's ``shard`` sites,
+attention runs the kernel on each process's shards
 (``models/attention.py``), the MoE runs expert parallel
 (``models/moe.py::apply_moe_sharded``) and the SSM block each process's
 batch rows (``models/ssm.py``).  The caches ``prefill`` returns, and
 ``decode_step`` takes and returns, sit at ``launch.dryrun.
 cache_sharding``'s placements, so a serve loop never reshuffles them
-between steps; ``pos`` stays a Python int.  ``models/api.py`` refuses
-the encdec and vlm families on a mesh (``api.check_lm_mesh``).
+between steps; ``pos`` stays a Python int.
 """
 from __future__ import annotations
 
@@ -164,19 +165,26 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, *,
     float32: ``batch`` holds ``tokens`` and ``labels`` [B, S] and
     optionally ``mask`` [B, S]; ``extra`` as ``forward`` takes it."""
     logits = forward(params, batch["tokens"], cfg, extra=extra, remat=remat)
-    targets = batch["labels"][:, 1:].long()
-    if current_mesh() is None:
-        nll = _token_nll(logits[:, :-1], targets)
-    else:   # each process its batch rows, the vocabulary whole
-        rows = spec("batch", dims=targets.shape)[0]
-        nll = on_local_shards(_token_nll, (rows, None),
-                              ((rows, None, None), (rows, None)),
-                              logits[:, :-1], shard(targets, "batch", None))
+    nll = next_token_nll(logits, batch["labels"])
     mask = batch.get("mask")
     if mask is not None:
         m = mask[:, 1:].float()
         return (nll * m).sum() / m.sum().clamp_min(1.0)
     return nll.mean()
+
+
+def next_token_nll(logits, labels):
+    """−log softmax(logits[:, :-1])[labels[:, 1:]] at each position
+    [B, S − 1], in float32; on a mesh, under ``local_map``, each process
+    its batch rows with the vocabulary whole (a DTensor log-softmax and
+    gather over logits split by vocabulary are not relied on)."""
+    targets = labels[:, 1:].long()
+    if current_mesh() is None:
+        return _token_nll(logits[:, :-1], targets)
+    rows = spec("batch", dims=targets.shape)[0]
+    return on_local_shards(_token_nll, (rows, None),
+                           ((rows, None, None), (rows, None)),
+                           logits[:, :-1], shard(targets, "batch", None))
 
 
 def _token_nll(logits, targets):

@@ -34,6 +34,19 @@ chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The rehearsals' reduced models are too small to gain from
+    intra-op threads, and under ``pytest -n`` a worker's threads spin
+    against the other workers' (phase 15 (c)'s rehearsal took 14.2 s on
+    one thread and 18.4 s on eight, alone): the port runs this file on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def bf16_rule(out):
     """B5's bf16 per-element rule, as ``chip_smoke.attention_case``."""
     return 2.0 ** -7 * out.float().abs() + 2.0 ** -12
@@ -647,7 +660,18 @@ def test_moe_train_depth_reckons_two_layers_on_an_h100():
 
 def test_family_check_config_cuts_both_stacks():
     cfg = chip_smoke.family_check_config("whisper-small")
+    assert (cfg.n_layers, cfg.n_enc_layers, cfg.d_model) == (1, 1, 768)
+    cfg = chip_smoke.family_check_config("whisper-small", 2)
     assert (cfg.n_layers, cfg.n_enc_layers, cfg.d_model) == (2, 2, 768)
+    # phases 5, 6 and 14's float32 and promotion checks: at most
+    # F32_CHECK_LAYERS deep, both stacks, published width
+    n = chip_smoke.F32_CHECK_LAYERS
+    cfg = chip_smoke.f32_check_config(chip_smoke.lm_config("whisper-small", 0))
+    assert (cfg.n_layers, cfg.n_enc_layers, cfg.d_model) == (n, n, 768)
+    assert chip_smoke.f32_check_config(
+        chip_smoke.lm_config("smollm-360m", 0)).n_layers == n
+    small = _reduced("whisper-small")
+    assert chip_smoke.f32_check_config(small) == small
     assert chip_smoke.family_check_config("mixtral-8x7b").n_layers == 1
     assert chip_smoke.family_check_config("internvl2-1b").d_model == 896
 
@@ -745,11 +769,13 @@ def test_phase_15_mesh_on_the_cpu(tmp_path):
 
 
 def test_phase_15_mesh_models_on_the_cpu(tmp_path):
-    """Phase 15 (c)'s mixtral-8x7b and mamba2-130m mesh runs rehearsed on
-    the CPU at reduced size (one gloo process): the float32 mesh and
-    plain steps within each model's bound, the first forward of both
-    routing alike (at world 1 the local tokens are the whole batch);
-    only the launch checks fail."""
+    """Phase 15 (c)'s mixtral-8x7b, mamba2-130m, whisper-small and
+    internvl2-1b mesh runs rehearsed on the CPU at reduced size (one
+    gloo process; whisper's batch with its float32 frames, internvl2's
+    with its patches): the float32 mesh and plain steps within each
+    model's bound, the first forward of both routing alike (at world 1
+    the local tokens are the whole batch); only the launch checks
+    fail."""
     from repro_torch.config import reduced
     models = {a: reduced(chip_smoke.lm_config(a, 0))
               for a in chip_smoke.MESH_MODELS}
@@ -758,7 +784,8 @@ def test_phase_15_mesh_models_on_the_cpu(tmp_path):
         batch=2, seq=32, steps=2, check_seq=32, check_steps=2,
         root=str(tmp_path / "ckpt"),
         cfg=reduced(chip_smoke.lm_config("smollm-360m", 0)), models=models)
-    assert set(res["models"]) == {"mixtral-8x7b", "mamba2-130m"}
+    assert set(res["models"]) == {"mixtral-8x7b", "mamba2-130m",
+                                  "whisper-small", "internvl2-1b"}
     want = []
     for arch, r in res["models"].items():
         c, knobs = r["check"], chip_smoke.MESH_MODELS[arch]
@@ -1496,9 +1523,10 @@ def test_phase_family_on_the_cpu(arch):
 
 
 def _family_passing():
-    """Phase 14's whisper results as a passing run leaves them."""
-    bd = [["bfloat16", True, 416, 416, 12], ["float32", False, 416, 1500, 12],
-          ["float32", False, 1500, 1500, 12]]
+    """Phase 14's whisper results as a passing run leaves them (the
+    float32 and promotion checks at F32_CHECK_LAYERS, 6 + 6)."""
+    bd = [["bfloat16", True, 256, 256, 6], ["float32", False, 256, 1500, 6],
+          ["float32", False, 1500, 1500, 6]]
     dt = {"encoder": ["float32"], "xk/xv": ["float32"],
           "self-KV": ["bfloat16"], "logits": ["float32"]}
     return dict(
@@ -1506,9 +1534,10 @@ def _family_passing():
         want_launches={"flash_attention": 36},
         prefill_launches={"flash_attention": 36, "ssd_scan": 0},
         decode_launches={"flash_attention": 0, "ssd_scan": 0}, finite=True,
-        decode_rel_err_by_step=[0.01] * 32, f32_launches=36,
+        decode_rel_err_by_step=[0.01] * 32, f32_launches=18,
+        f32_want_launches={"flash_attention": 18},
         f32_rel_err=1e-6, f32_greedy_identical=True,
-        promotion=dict(launches={"flash_attention": 36}, want_total=36,
+        promotion=dict(launches={"flash_attention": 18}, want_total=18,
                        by_dtype=[list(b) for b in bd], want_by_dtype=bd,
                        dtypes=dict(dt), want_dtypes=dt,
                        rel=dict(encoder=1e-6, xk=1e-6, xv=1e-6,
@@ -1528,7 +1557,7 @@ def _family_passing():
     (lambda r: r["decode_rel_err_by_step"].__setitem__(9, float("nan")),
      "bf16 decode disagrees with a fresh forward"),
     (lambda r: r.update(f32_launches=12),
-     "float32 prefill launched flash_attention 12 times, want 36"),
+     "float32 prefill launched flash_attention 12 times, want 18"),
     (lambda r: r.update(f32_rel_err=2e-4), "float32 card and CPU disagree"),
     (lambda r: r.update(f32_greedy_identical=False),
      "greedy tokens identical: False"),
@@ -1820,16 +1849,28 @@ def test_mesh_and_plain_share_storage_and_shared_experts(world_1_mesh):
 
 
 def test_mesh_serve_config_reckons_each_model():
-    """On an H100's free memory mixtral is cut as phase 13 cuts it and
-    jamba keeps phase 16's experts; on too little, jamba is skipped
-    with its reckoning."""
-    cfg, cut, distinct = chip_smoke.mesh_serve_config(
-        "smollm-360m", 0, "cpu")
-    assert (cfg.n_layers, cut, distinct) == (32, "32 layers", None)
+    """On an H100's free memory mixtral would be cut as phase 13 cuts
+    it, and is cut further, as smollm and mamba2 are, to
+    MESH_SERVE_LAYERS for the script's time (the cut and the memory's
+    reckoning printed); whisper and internvl2 are served at published
+    size; jamba keeps phase 16's experts; on too little, jamba is
+    skipped with its reckoning."""
+    for arch in ("smollm-360m", "mamba2-130m"):
+        cfg, cut, distinct = chip_smoke.mesh_serve_config(arch, 0, "cpu")
+        n = chip_smoke.MESH_SERVE_LAYERS[arch]
+        assert cfg.n_layers == n < chip_smoke.lm_config(arch, 0).n_layers
+        assert distinct is None and "cut for the script's time" in cut
+    assert chip_smoke.mesh_serve_config("smollm-360m", 4, "cpu")[:2] == (
+        chip_smoke.lm_config("smollm-360m", 4), "4 layers")
+    for arch in ("whisper-small", "internvl2-1b"):
+        cfg, cut, _ = chip_smoke.mesh_serve_config(arch, 0, "cpu")
+        assert cfg == chip_smoke.lm_config(arch, 0)
     cfg, cut, distinct = chip_smoke.mesh_serve_config(
         chip_smoke.MOE_ARCH, 0, "cpu")
-    assert cfg.n_layers == chip_smoke.MOE_LAYERS and distinct is None
-    assert cut.startswith(f"{chip_smoke.MOE_LAYERS} of 32 layers")
+    n = chip_smoke.MESH_SERVE_LAYERS[chip_smoke.MOE_ARCH]
+    assert cfg.n_layers == n < chip_smoke.MOE_LAYERS and distinct is None
+    assert cut.startswith(f"{n} of 32 layers, cut for the script's time")
+    assert f"the card holds {chip_smoke.MOE_LAYERS} of 32 layers" in cut
     cfg, cut, distinct = chip_smoke.mesh_serve_config(
         chip_smoke.HYBRID_ARCH, 0, "cpu")
     assert cfg.n_layers == 8 and distinct >= chip_smoke.HYBRID_MIN_DISTINCT
@@ -1891,3 +1932,15 @@ def test_phase_15_training_depth_cuts():
     assert chip_smoke.moe_train_cut(free, 3)[0] == 3
     cfg, cut = chip_smoke.mesh_model_config(chip_smoke.MOE_ARCH, 0, "cpu")
     assert cfg.n_layers == chip_smoke.MOE_TRAIN_MAX_LAYERS
+    # (c) trains whisper and internvl2 at (a)'s depths, mamba2 at 12 of
+    # 24; (b) checks whisper and internvl2 at 1 layer; 11 (c) at 3
+    for arch, n in chip_smoke.MESH_TRAIN_LAYERS.items():
+        cfg, cut = chip_smoke.mesh_model_config(arch, 0, "cpu")
+        assert cfg == chip_smoke.family_check_config(arch, n)
+        assert cut.startswith(f"{n} of ") and "script's time" in cut
+        assert chip_smoke.mesh_model_config(arch, 4, "cpu")[0].n_layers == 4
+    assert chip_smoke.MESH_TRAIN_LAYERS == {
+        "mamba2-130m": 12, "whisper-small": 6, "internvl2-1b": 12}
+    assert chip_smoke.FAMILY_CHECK_LAYERS == {
+        "whisper-small": 1, "internvl2-1b": 1, chip_smoke.MOE_ARCH: 1}
+    assert chip_smoke.RECOVERY_LAYERS == 3

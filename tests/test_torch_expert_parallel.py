@@ -18,9 +18,9 @@ the JAX package:
   wg, w_up, w_gate and w_down within ``GRAD_REL`` of the largest entry
   of ``jax.grad``'s through the vmapped oracle;
 * the mesh gate (``models.api.check_lm_mesh``) for every architecture:
-  training of the dense, moe, ssm and hybrid families passes it; encdec
-  and vlm training, and prefill and decode of every family, raise
-  "A17";
+  training, prefill and decode of every family pass it (the encdec and
+  vlm families run on a mesh in ``tests/test_torch_sharding.py``'s
+  group);
 * one ``gloo`` group of 8 CPU processes (this file run as a script,
   importing only ``repro_torch``; a ``file://`` rendezvous in a
   temporary directory), started once for the module: one train step of
@@ -128,8 +128,9 @@ def _worker_checks(rank: int, out: str) -> dict:
         params = io.load_into(init_train_state(
             cfg, TrainConfig(**_train_kwargs(1)), device="cpu"),
             os.path.join(out, f"{arch}_init.npz")).params
-        res["serve"][arch] = serve_cases(params, batch["tokens"], cfg,
-                                         meshes, out, arch, rank)
+        res["serve"][arch] = serve_cases(
+            params, {"tokens": batch["tokens"]}, cfg, meshes, out, arch,
+            rank)
         res["serve_seconds"][arch] = time.perf_counter() - t0
     return res
 
@@ -202,7 +203,7 @@ GRAD_REL = 1e-4
 # skewed tokens overflow some experts
 FACTORS = {8.0: 0.0, 1.25: 1.0}
 TOKENS = (4, 64)
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _configs(case, factor):
@@ -333,20 +334,16 @@ def test_local_moe_matches_the_reference_under_vmap(case, factor, ep, dp):
 
 @pytest.mark.parametrize("arch", sorted(J_ARCHS))
 def test_the_mesh_gate(arch):
-    """Training, prefill and decode pass ``check_lm_mesh`` for the dense,
-    moe, ssm and hybrid families; the encdec and vlm families' raise
-    "A17"."""
+    """Training, prefill and decode pass ``check_lm_mesh`` for every
+    family."""
     cfg = reduced(get_config(arch))
     mesh = sharding.AbstractMesh((4, 2), ("data", "model"))
     api.check_lm_mesh(cfg)
+    assert cfg.family in MESH_FAMILIES
+    assert api.MESH_FAMILIES == MESH_FAMILIES
     with sharding.mesh_context(mesh):
         for what in ("training", "prefill", "decode"):
-            if cfg.family in MESH_FAMILIES:
-                api.check_lm_mesh(cfg, what)
-                continue
-            with pytest.raises(NotImplementedError,
-                               match=r"not ported yet \(ROADMAP step A17\)"):
-                api.check_lm_mesh(cfg, what)
+            api.check_lm_mesh(cfg, what)
 
 
 # ---------------------------------------------------------------------------
@@ -373,11 +370,12 @@ def _jax_references(jcfg, cfg, jstate, jbatch) -> dict:
                 jstate, jbatch)
         ref[mb] = (float(m1["loss"]), train_state_from_numpy(
             jax.tree.map(np.asarray, s1), cfg, device="cpu"))
-    ref["serve"] = jax_serve(jstate.params, jbatch["tokens"], jcfg)
+    ref["serve"] = jax_serve(jstate.params, {"tokens": jbatch["tokens"]},
+                             jcfg)
     ref["port_serve"] = port_serve(
         train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
                                device="cpu").params,
-        torch.from_numpy(np.asarray(jbatch["tokens"])), cfg)
+        {"tokens": torch.from_numpy(np.asarray(jbatch["tokens"]))}, cfg)
     jg = jax.grad(lambda p: japi.loss_fn(p, jbatch, jcfg))(jstate.params)
     ref["grads"] = {n: g.detach().numpy() for n, g in lm_from_numpy(
         jax.tree.map(np.asarray, jg), cfg, device="cpu").named_parameters()}

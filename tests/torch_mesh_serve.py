@@ -1,16 +1,20 @@
 """Prefill and greedy decode on a ``DeviceMesh``, shared by the gloo
-groups of ``test_torch_sharding.py`` (the dense family) and
-``test_torch_expert_parallel.py`` (moe, ssm, hybrid): the worker side
+groups of ``test_torch_sharding.py`` (the dense, encdec and vlm
+families) and ``test_torch_expert_parallel.py`` (moe, ssm, hybrid): the
+worker side
 (``serve_on_mesh``, importing only ``repro_torch``), the single-device
 JAX oracle (``jax_serve``) and the single-device port (``port_serve``),
 both run in the parent process, and the checks (``check_served``).
 
 Each case is a (mesh, batch) pair: batch 8 splits the batch over the
 ``batch`` axes; batch 2 does not divide them, so the caches split their
-KV sequence over ``kv_seq`` (asserted from the placements).  A model
-with a sliding window gets a cache cap below the prompt, so that its
-ring buffer wraps across the sequence shards; any other a cap of
-prompt + steps rounded up to the data axis.
+KV sequence over ``kv_seq`` (asserted from the placements).  A batch is
+a dict of ``tokens`` and the family's stub input (``frames`` for
+encdec, ``patches`` for vlm), each cut to the case's first rows.  A
+model with a sliding window gets a cache cap below the prompt, so that
+its ring buffer wraps across the sequence shards; any other a cap of
+the prefix (the vlm's patches), the prompt and the steps rounded up to
+a multiple of 8; decode positions count the prefix.
 """
 import numpy as np
 
@@ -33,10 +37,20 @@ MESH_RTOL = 1e-5
 
 def cache_cap(cfg, prompt: int) -> int:
     """Below the prompt for a windowed model (its ring wraps); else the
-    prompt and the decode steps, rounded up to a multiple of 8."""
+    prompt and the decode steps, rounded up to a multiple of 8.
+    ``prompt`` counts the prefix."""
     if cfg.window is not None:
         return prompt - 8
     return -(-(prompt + DECODE_STEPS) // 8) * 8
+
+
+def prefix_len(cfg) -> int:
+    """The positions before the prompt's tokens: the vlm's patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def first_rows(batch: dict, b: int) -> dict:
+    return {k: v[:b] for k, v in batch.items()}
 
 
 def case_name(mesh: str, batch: int) -> str:
@@ -55,10 +69,10 @@ def _flat(caches: dict, prefix: str) -> dict:
     return out
 
 
-def serve_on_mesh(model, tokens, cfg, mesh=None) -> tuple[dict, dict]:
+def serve_on_mesh(model, batch, cfg, mesh=None) -> tuple[dict, dict]:
     """``api.prefill`` and ``DECODE_STEPS`` greedy ``api.decode_step``s
     of ``model`` (placed on ``mesh`` by the parameter rules) over
-    ``tokens`` (placed by ``batch_sharding``), in the mesh's context;
+    ``batch`` (placed by ``batch_sharding``), in the mesh's context;
     with no ``mesh``, on the one device.  Returns (arrays: every step's
     logits, the greedy tokens, the caches gathered after the prefill and
     after the last step; facts: the cache leaves not at
@@ -75,8 +89,7 @@ def serve_on_mesh(model, tokens, cfg, mesh=None) -> tuple[dict, dict]:
     from repro_torch.runtime.elastic import place_tree
     from repro_torch.sharding import mesh_context
 
-    batch = {"tokens": tokens}
-    prompt = tokens.shape[1]
+    prompt = prefix_len(cfg) + batch["tokens"].shape[1]
     cap = cache_cap(cfg, prompt)
     misplaced, logits, chosen = [], [], []
 
@@ -111,10 +124,10 @@ def serve_on_mesh(model, tokens, cfg, mesh=None) -> tuple[dict, dict]:
     return arrays, dict(misplaced=misplaced, seq_split=bool(seq_split))
 
 
-def serve_cases(model, tokens, cfg, meshes: dict, out: str, tag: str,
+def serve_cases(model, batch, cfg, meshes: dict, out: str, tag: str,
                 rank: int) -> dict:
     """``serve_on_mesh`` for every case of ``CASES`` (the first rows of
-    ``tokens`` as the batch); rank 0 writes each case's arrays to
+    ``batch``); rank 0 writes each case's arrays to
     ``<out>/serve_<tag>_<case>.npz``.  Returns {case: facts}."""
     from repro_torch.runtime.elastic import place_tree
     from repro_torch.sharding import named_shardings
@@ -124,21 +137,21 @@ def serve_cases(model, tokens, cfg, meshes: dict, out: str, tag: str,
             placed[name] = place_tree(model,
                                       named_shardings(model, meshes[name]))
         arrays, facts[case_name(name, b)] = serve_on_mesh(
-            placed[name], tokens[:b], cfg, meshes[name])
+            placed[name], first_rows(batch, b), cfg, meshes[name])
         if rank == 0:
             np.savez(f"{out}/serve_{tag}_{case_name(name, b)}.npz", **arrays)
     return facts
 
 
-def port_serve(params, tokens, cfg) -> dict:
+def port_serve(params, batch, cfg) -> dict:
     """``serve_on_mesh`` on one device for each batch of ``CASES``: the
     single-device port, run in the parent process.  Returns {batch:
     arrays}."""
-    return {b: serve_on_mesh(params, tokens[:b], cfg)[0]
+    return {b: serve_on_mesh(params, first_rows(batch, b), cfg)[0]
             for b in sorted({b for _, b in CASES})}
 
 
-def jax_serve(jparams, jtokens, jcfg) -> dict:
+def jax_serve(jparams, jbatch, jcfg) -> dict:
     """The single-device JAX oracle of ``serve_on_mesh`` for each batch
     of ``CASES``: ``api.prefill`` and greedy ``api.decode_step``s, each
     fed its own greedy tokens.  Returns {batch: arrays as
@@ -154,14 +167,13 @@ def jax_serve(jparams, jtokens, jcfg) -> dict:
         return _flat(caches_to_numpy(caches_from_numpy(
             jax.tree.map(np.asarray, caches), device="cpu")), prefix)
 
-    prompt = jtokens.shape[1]
+    prompt = prefix_len(jcfg) + jbatch["tokens"].shape[1]
     cap = cache_cap(jcfg, prompt)
-    prefill = jax.jit(lambda p, t: japi.prefill(p, {"tokens": t}, jcfg,
-                                                cache_cap=cap))
+    prefill = jax.jit(lambda p, bt: japi.prefill(p, bt, jcfg, cache_cap=cap))
     step = jax.jit(lambda p, t, pos, c: japi.decode_step(p, t, pos, c, jcfg))
     out = {}
     for b in sorted({b for _, b in CASES}):
-        lg, caches = prefill(jparams, jtokens[:b])
+        lg, caches = prefill(jparams, first_rows(jbatch, b))
         arrays = port_form(caches, "prefill")
         logits, chosen = [np.asarray(lg)], [np.asarray(jnp.argmax(lg, -1))]
         for i in range(DECODE_STEPS):
