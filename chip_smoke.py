@@ -283,24 +283,32 @@ Phases, in order (any failure exits non-zero):
    B6 2 × 24 a step), their steps beside (a)'s where (a) trained the
    same depth, and float32 mesh vs plain on the card, mixtral 1 layer
    within 2e-4 with the first forward's pairs routed differently
-   printed, mamba2, whisper (2 + 2) and internvl2 2 layers within 1e-4,
-   2 steps each (``MESH_MODELS``, the cuts printed); jamba's reckoning
-   printed (its mesh step needs two cards); then, at world 1, each of
+   printed, 1 step, mamba2, whisper (2 + 2) and internvl2 2 layers
+   within 1e-4, 2 steps each (``MESH_MODELS``, the cuts printed);
+   jamba's reckoning printed (its mesh step needs two cards); then, at
+   world 1, each of
    ``MESH_SERVE`` served on the mesh (``models.api.prefill`` /
    ``decode_step``, the caches at ``launch.dryrun.cache_sharding``'s
    placements, whisper's cross caches at the batch rule) and plainly
    from one draw of its weights (``mesh_and_plain``): whisper-small (12
-   + 12) and internvl2-1b (24) at published size, smollm-360m at 16 of
-   32 layers, mamba2-130m at 12 of 24 and mixtral-8x7b at 8
-   (``MESH_SERVE_LAYERS``, the cuts printed), jamba-1.5-large's period
+   + 12) at published size, internvl2-1b at 12 of 24 layers,
+   smollm-360m at 8 of 32, mamba2-130m at 12 of 24 and mixtral-8x7b at
+   4 (``MESH_SERVE_LAYERS``, the cuts printed), jamba-1.5-large's period
    with ``hybrid_distinct_moe``'s experts (or its reckoning printed
    where it does not fit), a prefill of 8 × 2048 (whisper 8 × 416 over
    8 × 1500 float32 frames, internvl2 after 8 × 256 patches) and 32
    greedy steps, counters zeroed around each: every step's logits
    bit-equal to the plain path's, the same launches (B5 / B6 a layer a
    prefill, whisper's 36, none in decode); printed: prefill s (warm,
-   cold) and decode ms/step beside the plain path's, peak memory.
-   Verdicts
+   cold) and decode ms/step beside the plain path's, peak memory; last
+   of all, at world 1, one training step of smollm-360m at that depth
+   with the int8 optimizer state (``int8_mesh_step``: 8 × 2048 tokens,
+   bf16 params) on the mesh and plainly from the same state: every
+   ``q``, every ``scale`` and every parameter bit-equal, B5 twice a
+   layer in each; the mesh step runs twice from that state, and both
+   its seconds (cold, warm), the plain step's and the warm step's
+   ``torch.cuda.max_memory_allocated`` (the counter reset just before
+   it) are printed.  Verdicts
    ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
    the end.
 
@@ -334,9 +342,22 @@ Phases, in order (any failure exits non-zero):
    card's name and power limit; the verdict is ``hybrid_failures``,
    read after phase 11.
 
+17. the dry-run — ``launch.dryrun.run_cell`` traces phase 15 (c)'s
+   int8 smollm-360m training cell (the same depth, batch, sequence and
+   state dtype, the world-1 mesh, the baseline rules) on fake CUDA
+   tensors in a process of its own (``--dryrun-child``, on the fake
+   process group; started with phase 15 (c), so that it has ended
+   before the int8 steps, and read after it): its peak beside the
+   measured ``max_memory_allocated`` of the warm step and their ratio,
+   which must lie in [0.5, 2.0] (``DRYRUN_MEMORY_RATIO``), and its flops
+   (B5 counted as its plain version, masked scores included) over the
+   warm step's seconds as TFLOP/s, beside the card's name and power
+   limit and how long before the int8 steps the child ended; the
+   verdict is ``dryrun_failures``.
+
 Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
 phase 14 runs after phases 5 and 6, phase 13 after phase 14, phase 16
-after phase 13, phase 11 after them, and phase 15 last.
+after phase 13, phase 11 after them, phase 15 then, and phase 17 last.
 ``main`` sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
 before the first CUDA allocation, so that memory earlier phases freed
 can hold phase 13's and phase 16's models.
@@ -4971,6 +4992,10 @@ FAMILY_CHECK_STEPS = {"whisper-small": 2, "internvl2-1b": 2, MOE_ARCH: 1}
 # 256 tokens, 3 steps, mesh against the plain step within the
 # reference's own bound (test_distributed.py:496-499)
 MESH_ARCH, MESH_CHECK_SEQ, MESH_ATOL = "smollm-360m", 256, 1e-4
+# phase 17: the dry-run's peak over the measured one, fixed before the
+# first run on the card
+DRYRUN_MEMORY_RATIO = (0.5, 2.0)
+DRYRUN_CHILD_TIMEOUT_S = 600
 MESH_CHILD_TIMEOUT_S = 900
 # (c) also trains mixtral-8x7b (published width and 8 experts, as deep
 # as ``moe_train_depth`` reckons) and mamba2-130m (published size) on
@@ -4979,14 +5004,15 @@ MESH_CHILD_TIMEOUT_S = 900
 # bounds (test_distributed.py:454-458 for the moe family, :496-499 for
 # ssm).  Cut, and printed, to hold the script near its 895 s: 4 bf16
 # steps of TRAIN_STEPS (a warm median of 3), 2 float32 steps of CHECK_TRAIN_STEPS, mixtral's
-# check at 1 layer.  whisper-small and internvl2-1b train as in (a), at
+# check at 1 layer and, since the int8 step and phase 17 came, 1 step.
+# whisper-small and internvl2-1b train as in (a), at
 # FAMILY_TRAIN_LAYERS' depths and FAMILY_TRAIN's sequences, with a
 # float32 check of 2 layers (whisper 2 + 2) within MESH_ATOL; mamba2
 # trains at 12 of its 24 layers (MESH_TRAIN_LAYERS, cut with them for
 # the script's time; ~8 s at 24 on one H100 at 700 W, the slowest host
 # measured)
 MESH_TRAIN_LAYERS = {"mamba2-130m": 12, **FAMILY_TRAIN_LAYERS}
-MESH_MODELS = {MOE_ARCH: dict(steps=4, check_layers=1, check_steps=2,
+MESH_MODELS = {MOE_ARCH: dict(steps=4, check_layers=1, check_steps=1,
                               atol=2e-4),
                "mamba2-130m": dict(steps=4, check_layers=2, check_steps=2,
                                    atol=MESH_ATOL),
@@ -5346,7 +5372,8 @@ MESH_SERVE = ("smollm-360m", "mamba2-130m", MOE_ARCH, HYBRID_ARCH,
 # ms for smollm's 32 (~16 s) and 138 ms for mamba2's 24 (~6 s).  Phase
 # 13 serves mixtral at 24 layers, phases 5 and 6 smollm at 32 and
 # mamba2 at 24, plainly
-MESH_SERVE_LAYERS = {"smollm-360m": 16, "mamba2-130m": 12, MOE_ARCH: 8}
+MESH_SERVE_LAYERS = {"smollm-360m": 8, "mamba2-130m": 12, MOE_ARCH: 4,
+                     "internvl2-1b": 12}
 
 
 def mesh_and_plain(model, mesh) -> tuple:
@@ -5595,8 +5622,9 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
     of ``MESH_SERVE`` at ``mesh_serve_config``'s config served on the
     mesh and plainly (``mesh_serve``: LM_BATCH x LM_PROMPT prompts,
     LM_DECODE steps), a model the card does not hold skipped with its
-    reckoning.  ``cfg`` replaces smollm-360m (a CPU rehearsal).  The
-    verdict is ``mesh_failures``."""
+    reckoning; (7) last, at world 1, ``int8_mesh_step``.  ``cfg``
+    replaces smollm-360m (a CPU rehearsal).  The verdict is
+    ``mesh_failures``."""
     import torch
     import torch.distributed as dist
 
@@ -5620,13 +5648,13 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             else torch.device("cpu")
         res = dict(world=world, mesh=dict(zip(mesh.mesh_dim_names,
                                               mesh.shape)))
-        full = cfg or lm_config(MESH_ARCH, layers)
+        model = cfg or lm_config(MESH_ARCH, layers)
         run, meshed = mesh_model_run(
-            full, mesh, dev, batch=batch, seq=seq, steps=steps,
+            model, mesh, dev, batch=batch, seq=seq, steps=steps,
             check_layers=check_layers, check_seq=check_seq,
             check_steps=check_steps, atol=MESH_ATOL)
         res.update(run)
-        cfg = at_depth(full, check_layers)
+        cfg = at_depth(model, check_layers)
         tcfg, scfg = train_configs(cfg, batch, check_seq, check_steps,
                                    "float32")
 
@@ -5703,9 +5731,241 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
                 dev, seed=seed, batch=LM_BATCH,
                 prompt=dict(FAMILY_ARCHS).get(arch, LM_PROMPT),
                 decode=LM_DECODE, cut=cut)
+        if world == 1:
+            gc.collect()
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            res["int8"] = int8_mesh_step(model, mesh, dev, batch=batch,
+                                         seq=seq)
         return res
     finally:
         dist.destroy_process_group()
+
+
+def state_to(state, dev):
+    """A ``TrainState`` copied onto ``dev`` (an int8 moment's ``q`` and
+    ``scale`` each moved)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.optim.adamw import QTensor
+
+    def move(x):
+        if isinstance(x, QTensor):
+            return QTensor(q=x.q.to(dev), scale=x.scale.to(dev))
+        return x.to(dev)
+    return dataclasses.replace(
+        state, params=copy.deepcopy(state.params).to(dev),
+        opt=dataclasses.replace(
+            state.opt, m={n: move(x) for n, x in state.opt.m.items()},
+            v={n: move(x) for n, x in state.opt.v.items()}))
+
+
+def int8_mesh_step(cfg, mesh, dev, *, batch: int, seq: int) -> dict:
+    """Phase 15 (c)'s int8 step: one training step of ``cfg`` (bf16
+    params, ``opt_state_dtype="int8"``) on the world-1 ``mesh`` and one
+    plainly on ``dev``, from one initial state (built on the CPU) and
+    one batch: every array of both states after it (every ``q``,
+    ``scale`` and parameter) compared bit for bit.  The mesh step runs
+    twice from that state, each timed: the first (cold, the first step
+    of this model on the card) and the second (warm), with the peak
+    counter reset just before the second and read after; phase 17
+    holds its dry-run to that peak and divides its flops by that
+    step's seconds.  ``started`` is the wall clock at the first step
+    (phase 17 prints how long before it its child had ended)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import io
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import batch_sharding
+    from repro_torch.runtime import (init_train_state, make_train_step,
+                                     reshard_state)
+    from repro_torch.runtime.elastic import place_tree
+    from repro_torch.sharding import mesh_context
+
+    tcfg, scfg = train_configs(cfg, batch, seq, 1, "bfloat16")
+    tcfg = dataclasses.replace(tcfg, opt_state_dtype="int8")
+    start = init_train_state(cfg, tcfg, device="cpu")
+    data = SyntheticLM(cfg, batch, seq, seed=tcfg.seed,
+                       device=dev).batch_at(0)
+    step = make_train_step(cfg, tcfg, scfg)
+    cuda = dev.type == "cuda"
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=batch, seq=seq,
+               per_step=launches_per_step(cfg, scfg), started=time.time())
+    placed = place_tree(data, batch_sharding(data, mesh))
+
+    def mesh_step():
+        # the step updates the parameters in place: each run starts
+        # from its own copy of ``start``
+        meshed = reshard_state(start, mesh)
+        _sync(dev)
+        if cuda:
+            out["allocated_before"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with mesh_context(mesh):
+            meshed, m = step(meshed, placed)
+        _sync(dev)
+        return meshed, m, time.perf_counter() - t0
+
+    meshed, m, out["first_step_s"] = mesh_step()
+    got = io.raw_arrays(meshed)
+    out["q_placed"] = all(
+        x.q.placements == p.placements
+        for n, p in meshed.params.named_parameters()
+        for x in (meshed.opt.m[n], meshed.opt.v[n]))
+    out["loss"] = float(m["loss"])
+    del meshed, m
+    gc.collect()
+    meshed, m, out["step_s"] = mesh_step()
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) if cuda
+                         else None)
+    out["launches"] = dict(build.LAUNCHES)
+    del meshed, placed, m
+    gc.collect()
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    plain, m = step(state_to(start, dev), data)
+    _sync(dev)
+    out["plain_step_s"] = time.perf_counter() - t0
+    out["plain_launches"] = dict(build.LAUNCHES)
+    out["plain_loss"] = float(m["loss"])
+    want = io.raw_arrays(plain)
+    out["arrays"] = len(want)
+    out["q_arrays"] = sum(k.endswith("/q") for k in want)
+    out["differing"] = differing_arrays(got, want)
+    del plain, m, start, data
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_failures(r: dict) -> list:
+    """Phase 15 (c)'s int8 step: the mesh and plain states bit-equal
+    (every ``q``, ``scale`` and parameter), each ``q`` at its parameter's
+    placement, B5 twice a layer in each step and no other kernel."""
+    bad = []
+    if r["differing"] or not r["q_arrays"]:
+        bad.append(f"the int8 mesh and plain steps differ in "
+                   f"{r['differing'][:5]} ({len(r['differing'])} of "
+                   f"{r['arrays']} arrays)")
+    if not r["q_placed"]:
+        bad.append("an int8 moment's q is not at its parameter's placement")
+    for what, launches in (("mesh", r["launches"]),
+                           ("plain", r["plain_launches"])):
+        want = {"flash_attention": r["per_step"]}
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            bad.append(f"the int8 {what} step launched {got}, want {want}")
+    return bad
+
+
+def int8_line(r: dict, smi: str) -> str:
+    peak = (f"{r['peak_bytes'] / 2 ** 30:.2f} GiB"
+            if r["peak_bytes"] is not None else "not measured")
+    return (f"train {r['arch']} with the int8 optimizer state: "
+            f"{r['n_layers']} layers, bf16, {r['batch']}x{r['seq']} "
+            f"tokens; one step on the world-1 mesh {r['first_step_s']:.4f}"
+            f" s cold, {r['step_s']:.4f} s warm (peak {peak}), plainly "
+            f"{r['plain_step_s']:.4f} s; loss "
+            f"{r['loss']:.6f} / {r['plain_loss']:.6f}; bit-equal "
+            f"{not r['differing']} ({r['q_arrays']} q of {r['arrays']} "
+            f"arrays); flash_attention "
+            f"{r['launches'].get('flash_attention', 0)} / "
+            f"{r['plain_launches'].get('flash_attention', 0)} (want "
+            f"{r['per_step']} each)  [{smi}]")
+
+
+def dryrun_child(layers: int, device: str = "cuda", cfg=None,
+                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> int:
+    """Phase 17's trace (``--dryrun-child``): ``run_cell`` of phase 15
+    (c)'s int8 smollm-360m training cell on fake CUDA tensors, the
+    world-1 mesh on the fake process group of this process; the result
+    is the last line of its standard output.  ``device``, ``cfg``,
+    ``batch`` and ``seq`` cut it for a CPU rehearsal."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    res = dryrun.run_cell(
+        MESH_ARCH, "train", device=device,
+        cfg=cfg or lm_config(MESH_ARCH, layers),
+        shape=ShapeConfig("train", seq, batch, "train"),
+        mesh_shape=(1, 1), rules_name="baseline", opt_state_dtype="int8",
+        param_dtype="bfloat16")
+    res["child_s"] = time.perf_counter() - t0
+    res["ended"] = time.time()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def start_dryrun(layers: int, log_path: str):
+    """Start phase 17's child (it traces on the host while phase 15 (c)
+    runs on the card)."""
+    f = open(log_path, "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-child",
+         "--lm-layers", str(layers)], stdout=f, stderr=subprocess.STDOUT), f
+
+
+def phase_dryrun(child, log, log_path: str, int8: dict) -> dict:
+    """Phase 17: the child's trace beside phase 15 (c)'s measured int8
+    step."""
+    t0 = time.perf_counter()
+    rc = child.wait(timeout=DRYRUN_CHILD_TIMEOUT_S)
+    log.close()
+    with open(log_path) as f:
+        text = f.read()
+    res = dict(rc=rc, wait_s=time.perf_counter() - t0, log=text[-3000:])
+    if rc == 0:
+        res["trace"] = json.loads(text.strip().splitlines()[-1])
+        mem = res["trace"]["memory_analysis"]
+        res["peak_bytes"] = mem["peak_bytes"]
+        res["measured_bytes"] = int8["peak_bytes"]
+        res["ratio"] = mem["peak_bytes"] / int8["peak_bytes"]
+        res["tflops"] = (res["trace"]["flops_per_device"] / int8["step_s"]
+                         / 1e12)
+        res["step_s"] = int8["step_s"]
+        res["ended_before_s"] = int8["started"] - res["trace"]["ended"]
+    return res
+
+
+def dryrun_failures(r: dict) -> list:
+    """Phase 17's verdict: the child ran, and the traced peak over the
+    measured one lies in ``DRYRUN_MEMORY_RATIO``."""
+    if r["rc"] != 0:
+        return [f"the dry-run child exited {r['rc']}: {r['log'][-1500:]}"]
+    lo, hi = DRYRUN_MEMORY_RATIO
+    if not lo <= r["ratio"] <= hi:
+        return [f"the dry-run's peak {r['peak_bytes']} B over the measured "
+                f"{r['measured_bytes']} B is {r['ratio']:.4f}, outside "
+                f"[{lo}, {hi}]"]
+    return []
+
+
+def dryrun_line(r: dict, smi: str) -> str:
+    t, mem = r["trace"], r["trace"]["memory_analysis"]
+    return (f"dry-run of phase 15 (c)'s int8 {t['arch']} cell (fake CUDA, "
+            f"mesh {t['mesh']}, {t['rules']} rules; traced in "
+            f"{t['setup_s']} + {t['trace_s']} s): peak "
+            f"{mem['peak_bytes'] / 2 ** 30:.3f} GiB (arguments "
+            f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f}, temporaries "
+            f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f}) against the "
+            f"measured max_memory_allocated "
+            f"{r['measured_bytes'] / 2 ** 30:.3f} GiB: ratio "
+            f"{r['ratio']:.4f} (bound {list(DRYRUN_MEMORY_RATIO)}); "
+            f"{t['flops_per_device']:.6g} traced flops (B5 counted as its "
+            f"plain version, masked scores included) over the measured "
+            f"warm {r['step_s']:.4f} s step: {r['tflops']:.2f} TFLOP/s; "
+            f"the child ended {r['ended_before_s']:.1f} s before the "
+            f"int8 steps began; bytes "
+            f"{t['bytes_per_device']:.6g}; roofline {t['roofline']}  "
+            f"[{smi}]")
 
 
 def psum_differing(grads: dict, out: dict, new_err: dict,
@@ -5755,6 +6015,8 @@ def mesh_failures(res: dict, plain_step_s: float | None = None) -> list:
         bad.append(f"reshard_from_checkpoint differs in "
                    f"{res['restore_differing'][:5]} (on the mesh: "
                    f"{res['restore_on_mesh']})")
+    if "int8" in res:
+        bad += int8_failures(res["int8"])
     for arch, r in res.get("models", {}).items():
         bad += [f"{arch}: {b}" for b in mesh_model_failures(r)]
     for arch, r in res.get("serve", {}).items():
@@ -5855,7 +6117,8 @@ def mesh_child(rank: int, world: int, init: str, seed: int,
 def phase_mesh(seed: int, layers: int) -> dict:
     """Phase 15 (c): a (data n, model 1) mesh over the n visible cards,
     one process a card: this process is rank 0 and starts the others;
-    a ``file://`` rendezvous in a temporary directory."""
+    a ``file://`` rendezvous in a temporary directory.  At world 1 the
+    int8 step runs last (``int8_mesh_step``)."""
     import torch
     world = torch.cuda.device_count()
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
@@ -5898,6 +6161,8 @@ def parse_args(argv=None):
     ap.add_argument("--first-call", action="store_true",
                     help="build with ptxas's report, run small kernel "
                          "cases against their plain versions and stop")
+    ap.add_argument("--dryrun-child", action="store_true",
+                    help="phase 17's trace, in a process of its own")
     ap.add_argument("--crash-child", metavar="ROOT",
                     help="phase 8's child: run the dense configuration "
                          "durably at ROOT and die mid-swap (the parent "
@@ -5951,6 +6216,8 @@ def main(argv=None) -> int:
         rank, world, init = args.mesh_child
         return mesh_child(int(rank), int(world), init, args.seed,
                           args.lm_layers)
+    if args.dryrun_child:
+        return dryrun_child(args.lm_layers)
     phases = {}
 
     t0 = time.perf_counter()
@@ -6139,8 +6406,18 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh = phase_mesh(args.seed, args.lm_layers)
+    dry_log = os.path.join(os.path.dirname(args.out), "dryrun_child.txt")
+    os.makedirs(os.path.dirname(dry_log), exist_ok=True)
+    dry_child, dry_file = start_dryrun(args.lm_layers, dry_log)
+    try:
+        mesh = phase_mesh(args.seed, args.lm_layers)
+    except BaseException:
+        dry_child.kill()
+        dry_child.wait()
+        raise
     phases["mesh_s"] = time.perf_counter() - t0
+    if "int8" in mesh:
+        print(int8_line(mesh["int8"], smi.splitlines()[0]), flush=True)
     print(mesh_line(mesh, warm_median(training["smollm-360m"]["step_s"]),
                     smi.splitlines()[0]), flush=True)
     for arch, r in mesh["models"].items():
@@ -6160,6 +6437,24 @@ def main(argv=None) -> int:
         for r, c in enumerate(mesh["children"], 1) if c]
     for b in train_bad:
         log(f"chip_smoke: phase 15: {b}")
+    # phase 17 — the dry-run of 15 (c)'s int8 cell beside its measurement
+    # (the int8 step, and so phase 17, runs at world 1 only)
+    t0 = time.perf_counter()
+    dry, dry_bad = {"skipped": f"world {mesh['world']}"}, []
+    if "int8" in mesh:
+        dry = phase_dryrun(dry_child, dry_file, dry_log, mesh["int8"])
+        dry_bad = dryrun_failures(dry)
+    else:
+        dry_child.kill()
+        dry_child.wait()
+        dry_file.close()
+        print(f"phase 17: not run at world {mesh['world']}", flush=True)
+    phases["dryrun_wait_s"] = time.perf_counter() - t0
+    if "trace" in dry and not dry_bad:
+        phases["dryrun_child_s"] = dry["trace"]["child_s"]
+        print(dryrun_line(dry, smi.splitlines()[0]), flush=True)
+    for b in dry_bad:
+        log(f"chip_smoke: phase 17: {b}")
     phases["dense_session_s"] = dense["seconds"]
     phases["dense_cpu_s"] = dense["cpu_seconds"]
     phases["edge_session_s"] = edge["seconds"]
@@ -6193,6 +6488,10 @@ def main(argv=None) -> int:
     for arch, r in family_train["card_cpu"].items():
         runs[f"{arch} train float32 (card vs CPU)"] = r["launches"]
     runs[f"{MESH_ARCH} train on a mesh"] = mesh["launches"]
+    if "int8" in mesh:
+        runs[f"{MESH_ARCH} int8 train on a mesh"] = mesh["int8"]["launches"]
+        runs[f"{MESH_ARCH} int8 train (plain)"] = \
+            mesh["int8"]["plain_launches"]
     for arch, r in mesh["models"].items():
         runs[f"{arch} train on a mesh"] = r["launches"]
         runs[f"{arch} train float32 on a mesh"] = r["check"]["launches"]
@@ -6220,16 +6519,17 @@ def main(argv=None) -> int:
                   serving=serving, lms=lms, families=families, moe=moe,
                   hybrid=hybrid,
                   training=training, family_train=family_train, mesh=mesh,
-                  args=vars(args))
+                  dryrun=dry, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels, "phases": phases}))
-    if moe_bad or family_bad or train_bad or hybrid_bad:
+    if moe_bad or family_bad or train_bad or hybrid_bad or dry_bad:
         return fail("; ".join([f"phase 13: {b}" for b in moe_bad]
                               + [f"phase 14: {b}" for b in family_bad]
                               + [f"phase 15: {b}" for b in train_bad]
-                              + [f"phase 16: {b}" for b in hybrid_bad]))
+                              + [f"phase 16: {b}" for b in hybrid_bad]
+                              + [f"phase 17: {b}" for b in dry_bad]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -85,8 +85,10 @@ def _placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     is on its mesh."""
     if _is_dtensor(like):
         from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.sharding import mesh_device
         mesh = like.device_mesh
-        return distribute_tensor(t.to(mesh.device_type), mesh,
+        return distribute_tensor(t.to(mesh_device(mesh)), mesh,
                                  like.placements)
     return t.to(like.device)
 

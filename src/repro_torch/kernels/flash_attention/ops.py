@@ -18,11 +18,20 @@ get zero columns (``pad_head_dim``) and the output's extra columns are
 sliced off.  The caller's ``scale`` is explicit, the zero columns add
 nothing to q·kᵀ, and the kept columns of P·V are those of the unpadded
 product; the backward, through the plain version on the saved unpadded
-q, k and v, is the unpadded function's."""
+q, k and v, is the unpadded function's.
+
+The launch is the operator ``torch.ops.repro_torch.flash_attention_fwd``
+(a ``torch.library`` schema with a CUDA implementation, the leanest
+dispatch that still takes a fake one): its fake implementation gives
+the output's shape and dtype, so a step on fake CUDA tensors (the dry-run,
+``launch/dryrun.py``) traces through the kernel without launching it,
+and its flop formula is the plain version's count at the same shapes
+(every masked score included, as ``attention_ref`` computes them)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -107,6 +116,17 @@ def flash_attention_fwd(q, k, v, causal: bool, window: int | None,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     build.check_same_device(q=q, k=k, v=v)
+    return torch.ops.repro_torch.flash_attention_fwd.default(
+        q, k, v, bool(causal), window, float(scale), kv_len)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window, float scale, int? kv_len) -> Tensor")
+
+
+def _launch(q, k, v, causal, window, scale, kv_len):
+    d = q.shape[-1]
     q, k, v = pad_head_dim(q, k, v)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -114,9 +134,25 @@ def flash_attention_fwd(q, k, v, causal: bool, window: int | None,
     out = torch.empty_like(q)           # keeps q's (transposed) strides
     if out.numel() == 0:
         return out[..., :d]
-    n_keys = skv if kv_len is None else max(0, min(int(kv_len), skv))
-    build.ext().flash_attention(q, k, v, out, bool(causal), int(window or 0),
-                                n_keys, float(scale),
-                                build.stream_handle(q.device))
+    n_keys = k.shape[2] if kv_len is None else max(0, min(int(kv_len),
+                                                          k.shape[2]))
+    build.ext().flash_attention(q, k, v, out, causal, int(window or 0),
+                                n_keys, scale, build.stream_handle(q.device))
     build.LAUNCHES["flash_attention"] += 1
     return out[..., :d]
+
+
+_LIB.impl("flash_attention_fwd", _launch, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd")
+def _(q, k, v, causal, window, scale, kv_len):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs):
+    """``attention_ref``'s two products, q·kᵀ and p·v, over every score
+    (masked ones included): 2 · 2 · B · Hq · Sq · Skv · D."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * sq * k_shape[2] * d

@@ -9,10 +9,19 @@ there is no backward kernel there either).  Takes the
 model's own layout — the kernel forms dt·x and a·dt itself and reads
 B/C once per batch, so nothing is transposed, broadcast to heads or
 padded here (the caller pads the sequence to a chunk multiple with
-dt = 0, as ``models/ssm.py::apply_ssm`` does)."""
+dt = 0, as ``models/ssm.py::apply_ssm`` does).
+
+The launches are the operator ``torch.ops.repro_torch.ssd_scan_fwd`` (a
+``torch.library`` schema with a CUDA implementation, the leanest
+dispatch that still takes a fake one): its fake implementation gives
+the outputs' shapes and dtypes, so a step on fake CUDA tensors (the
+dry-run, ``launch/dryrun.py``) traces through the kernel without
+launching it, and its flop formula is the plain ``ssd_chunked``'s
+count at the same shapes."""
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -77,14 +86,26 @@ def ssd_scan_fwd(x, dt, a, b, c, chunk: int, state0=None):
                          f"got {p} and {n}")
     if chunk <= 0 or s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
-    if state0 is None:
-        s0 = torch.empty(0, dtype=torch.float32, device=x.device)
-    else:
+    if state0 is not None:
         build.check_cuda("state0", state0, torch.float32, 4)
         if tuple(state0.shape) != (bsz, h, p, n):
             raise ValueError(f"state0 must be [{bsz}, {h}, {p}, {n}]")
-        s0 = state0
-    build.check_same_device(x=x, dt=dt, a=a, b=b, c=c, state0=s0)
+    build.check_same_device(x=x, dt=dt, a=a, b=b, c=c,
+                            **({} if state0 is None else {"state0": state0}))
+    return torch.ops.repro_torch.ssd_scan_fwd.default(x, dt, a, b, c,
+                                                      int(chunk), state0)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_scan_fwd(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, "
+            "int chunk, Tensor? state0) -> (Tensor, Tensor)")
+
+
+def _launch(x, dt, a, b, c, chunk, state0):
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    s0 = (torch.empty(0, dtype=torch.float32, device=x.device)
+          if state0 is None else state0)
     for name, t in (("x", x), ("b", b), ("c", c), ("state0", s0)):
         build.check_aligned(name, t)
     y = torch.empty_like(x)
@@ -96,7 +117,30 @@ def ssd_scan_fwd(x, dt, a, b, c, chunk: int, state0=None):
     ext = build.ext()
     cb = torch.empty((bsz, s // chunk, chunk, ext.ssd_scan_cb_stride(chunk)),
                      dtype=torch.float32, device=x.device)
-    ext.ssd_scan(x, dt, a, b, c, s0, y, state, chunks, cum, cb, int(chunk),
+    ext.ssd_scan(x, dt, a, b, c, s0, y, state, chunks, cum, cb, chunk,
                  build.stream_handle(x.device))
     build.LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+_LIB.impl("ssd_scan_fwd", _launch, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::ssd_scan_fwd")
+def _(x, dt, a, b, c, chunk, state0):
+    bsz, _, h, p = x.shape
+    return torch.empty_like(x), x.new_empty((bsz, h, p, b.shape[-1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
+           out_shape=None, **kwargs):
+    """``ssd_chunked``'s products (the counter counts its ``bmm``s; the
+    elementwise ones are free): the float64 cumsum as a product with the
+    [Q, Q] ones matrix, C·Bᵀ, the intra-chunk sum, the chunk states and
+    the carried state's read-out, with Q = ``chunk`` and nc = S / Q."""
+    bsz, s, h, p = x_shape
+    n, q = b_shape[-1], chunk
+    nc = s // q
+    return 2 * bsz * nc * (q * q * h + q * q * n + h * q * q * p
+                           + 2 * h * p * n * q)

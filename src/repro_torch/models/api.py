@@ -8,6 +8,8 @@ vlm, encdec) — counterpart of ``repro/models/api.py``:
   prefill(params, batch, cfg, cache_cap)        → (logits [B, V], caches)
   decode_step(params, token, pos, caches, cfg)  → (logits [B, V], caches)
   init_decode_caches(cfg, batch, cache_len, dtype, device) → caches
+  input_specs(cfg, shape, device)               → a dry-run cell's inputs
+                                                  (meta or fake tensors)
 
 Batches are dicts holding ``tokens`` (and ``labels``, optionally
 ``mask``, for the loss), plus ``frames`` [B, enc_seq, d] for encdec
@@ -18,15 +20,14 @@ no ``impl`` argument: the device decides how attention runs
 ``forward`` / ``prefill`` / ``decode_step`` runs, the batch's
 ``tokens``, ``labels``, ``frames`` and ``patches`` placed by
 ``launch.dryrun.batch_sharding`` and the caches at
-``launch.dryrun.cache_sharding``'s placements.  ``input_specs`` comes
-with the dry-run (ROADMAP A18).
+``launch.dryrun.cache_sharding``'s placements.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import not_ported
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, lm
 from repro_torch.sharding import current_mesh
 
@@ -95,3 +96,28 @@ def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
         return encdec.init_decode_caches(cfg, batch, cache_len, dtype,
                                          device)
     return lm.init_decode_caches(cfg, batch, cache_len, dtype, device)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                device="meta") -> dict:
+    """Stand-ins for every model input of a dry-run cell: the reference's
+    leaves with its shapes and dtypes (int32 tokens, labels and decode
+    token; bfloat16 frames and patches; decode's ``pos`` a 0-d int32),
+    as empty tensors on ``device`` — ``"meta"``, or a fake device under
+    ``FakeTensorMode`` — so nothing is allocated."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def empty(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind == "decode":    # one token against a cache of length s
+        return {"token": empty((b, 1)), "pos": empty(())}
+    batch = {"tokens": empty((b, s))}
+    if shape.kind == "train":
+        batch["labels"] = empty((b, s))
+    if cfg.family == "encdec":
+        batch["frames"] = empty((b, cfg.enc_seq, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        batch["patches"] = empty((b, cfg.n_patches, cfg.d_model),
+                                 torch.bfloat16)
+    return batch

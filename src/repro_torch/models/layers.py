@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.sharding import (current_mesh, on_local_shards,
+from repro_torch.sharding import (current_mesh, gathered, on_local_shards,
                                   replicated_like, spec)
 
 
@@ -134,9 +134,12 @@ def _gelu(x):
 
 def ffn(x: torch.Tensor, w_up, w_down, kind: str,
         w_gate=None) -> torch.Tensor:
-    """The MLP on its weight matrices (one dense MLP, or one expert)."""
+    """The MLP on its weight matrices (one dense MLP, or one expert).
+    On a mesh each weight's d dimension (its ZeRO split) is gathered
+    for the product (``sharding.gathered``)."""
+    w_up, w_down = gathered(w_up, 0, x), gathered(w_down, 1, x)
     if kind in ("swiglu", "geglu"):
-        g = mm(x, w_gate)
+        g = mm(x, gathered(w_gate, 0, x))
         act = F.silu(g) if kind == "swiglu" else _gelu(g)
         return mm(act * mm(x, w_up), w_down)
     return mm(_gelu(mm(x, w_up)), w_down)
@@ -197,7 +200,7 @@ def unembed(p: nn.Module, x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """Logits in float32: the product runs in the param dtype and is
     cast afterwards, as in the JAX package."""
-    w = p.unembed if hasattr(p, "unembed") else p.tok.T
+    w = gathered(p.unembed if hasattr(p, "unembed") else p.tok.T, 0, x)
     logits = at_least_f32(x @ w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap

@@ -33,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import sys
 from typing import Sequence
 
 import numpy as np
@@ -160,22 +161,66 @@ def placements(sp: tuple, mesh) -> tuple:
     return tuple(out)
 
 
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor.  None can exist before
+    ``torch.distributed.tensor`` is imported, so a run without a mesh
+    never pays for that import (seconds, on the first plain step)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
-def place(x: torch.Tensor, mesh, sp: tuple) -> torch.Tensor:
+def mesh_device(mesh) -> torch.device:
+    """This process's device on ``mesh`` (a ``DeviceMesh``): the CPU, or
+    the current CUDA device.  Without a CUDA runtime a CUDA mesh can only
+    be the dry-run's, on the fake process group (``launch/dryrun.py``),
+    whose fake tensors sit on ``cuda:0`` (``.to("cuda")`` would ask the
+    absent runtime for its current device)."""
+    if mesh.device_type != "cuda":
+        return torch.device(mesh.device_type)
+    if torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cuda", 0)
+
+
+def place(x: torch.Tensor, mesh, sp: tuple, *,
+          local: bool = False) -> torch.Tensor:
     """``x`` (a full tensor, or a DTensor on any mesh) as a DTensor on
     ``mesh`` with spec ``sp``; a full tensor is moved to the mesh's
-    device type first."""
+    device first.  By default rank 0's ``x`` is sent to every process;
+    ``local`` keeps each process's own chunk of its own ``x``, with no
+    communication (the dry-run's fake tensors, alike on every
+    process)."""
     from torch.distributed.tensor import distribute_tensor
     want = placements(sp, mesh)
-    if _is_dtensor(x):
+    if is_dtensor(x):
         if x.device_mesh == mesh:
             return x.redistribute(mesh, want)
         x = x.full_tensor()
-    return distribute_tensor(x.to(mesh.device_type), mesh, want)
+    return distribute_tensor(x.to(mesh_device(mesh)), mesh, want,
+                             src_data_rank=None if local else 0)
+
+
+def gathered(w: torch.Tensor, dim: int, x: torch.Tensor) -> torch.Tensor:
+    """Weight ``w`` with its dimension ``dim`` (its ZeRO-3 ``fsdp`` split)
+    gathered for a product with activations ``x``, where ``x`` splits its
+    batch (dimension 0) over every mesh dimension that splits ``w``
+    there: as ZeRO-3 gathers a parameter for compute, each process then
+    multiplies its own batch rows.  Left to DTensor's strategy, such a
+    product whose activations are smaller than the weight gathers the
+    activations instead and repeats the work on every process (ROADMAP
+    C11).  Anything else (a plain tensor, a batch not split so) as it
+    is."""
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return w
+    from torch.distributed.tensor import Replicate
+    dim %= w.ndim
+    split = [j for j, p in enumerate(w.placements)
+             if p.is_shard(dim) and w.device_mesh.size(j) > 1]
+    if not split or any(not x.placements[j].is_shard(0) for j in split):
+        return w
+    return w.redistribute(w.device_mesh, tuple(
+        Replicate() if j in split else p
+        for j, p in enumerate(w.placements)))
 
 
 def shard(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
@@ -192,7 +237,7 @@ def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """``t`` (a plain tensor every process computes alike: a rope
     table) as a replicated DTensor on ``ref``'s mesh where ``ref`` is a
     DTensor; else ``t``."""
-    if current_mesh() is None or not _is_dtensor(ref):
+    if current_mesh() is None or not is_dtensor(ref):
         return t
     from torch.distributed.tensor import DTensor, Replicate
     mesh = ref.device_mesh
@@ -459,9 +504,10 @@ def named_shardings(tree, mesh) -> dict:
 __all__ = ["AbstractMesh", "GraphMesh", "LOGICAL_RULES", "NamedSharding",
            "PARAM_RULES", "Replicated", "axes_of", "batch_pad", "check_mesh",
            "all_reduce_over", "batch_cache_spec", "cache_spec",
-           "current_mesh", "divides", "graph_mesh", "kv_cache_spec",
+           "current_mesh", "divides", "gathered", "graph_mesh",
+           "kv_cache_spec",
            "local_range", "logical_rules", "mesh_context", "mesh_dims",
-           "mesh_size", "named_shardings", "on_local_shards",
+           "mesh_device", "mesh_size", "named_shardings", "on_local_shards",
            "param_spec_for", "param_specs", "place", "placements",
            "replicate", "replicated_like", "resolve", "shard",
            "shard_index", "shard_rows", "shard_slots", "single_device",

@@ -20,6 +20,7 @@ kernel output that is NaN or infinite where the plain value is finite
 must read as an infinite difference, never as none (Python's ``max``
 and ``float(t.max())`` let a NaN through as a pass)."""
 import importlib.util
+import json
 import math
 import os
 
@@ -752,7 +753,8 @@ def test_phase_15_mesh_on_the_cpu(tmp_path):
     """Phase 15 (c) rehearsed on the CPU: one gloo process, a reduced
     smollm in place of the published one: the float32 mesh and plain
     steps within the bound, compressed_psum and the checkpoint round
-    trip bit-exact; only the launch check fails."""
+    trip bit-exact, and last the int8 step (world 1), its mesh and plain
+    states bit-equal; only the launch checks fail."""
     cfg = chip_smoke.lm_config("smollm-360m", 0)
     from repro_torch.config import reduced
     res = chip_smoke.mesh_checks(
@@ -761,9 +763,13 @@ def test_phase_15_mesh_on_the_cpu(tmp_path):
         root=str(tmp_path / "ckpt"), cfg=reduced(cfg))
     assert res["mesh"] == {"data": 1, "model": 1}
     assert res["check"]["param_diff"] <= chip_smoke.MESH_ATOL
+    assert res["int8"]["differing"] == [] and res["int8"]["q_arrays"] > 0
     assert chip_smoke.mesh_failures(res) == [
         f"the mesh run launched flash_attention 0 times, want "
-        f"{2 * res['per_step']}"]
+        f"{2 * res['per_step']}"] + [
+        f"the int8 {what} step launched {{}}, want "
+        f"{{'flash_attention': {res['int8']['per_step']}}}"
+        for what in ("mesh", "plain")]
     line = chip_smoke.mesh_line(res, 1.0, "NVIDIA H100 80GB HBM3, 700.00 W")
     assert "700.00 W" in line and "reshard_from_checkpoint" in line
 
@@ -805,7 +811,7 @@ def test_phase_15_mesh_models_on_the_cpu(tmp_path):
     assert moe["check"]["moe_calls"] == 1
     assert ssm["check"]["routes_differing"] is None
     bad = chip_smoke.mesh_failures(res)
-    assert bad[1:] == want, bad
+    assert bad[3:] == want, bad
     line = chip_smoke.mesh_model_line(moe, ("plain", 1.0),
                                       "NVIDIA H100 80GB HBM3, 700.00 W")
     assert "routed differently 0 over 1 MoE calls" in line
@@ -1850,21 +1856,19 @@ def test_mesh_and_plain_share_storage_and_shared_experts(world_1_mesh):
 
 def test_mesh_serve_config_reckons_each_model():
     """On an H100's free memory mixtral would be cut as phase 13 cuts
-    it, and is cut further, as smollm and mamba2 are, to
+    it, and is cut further, as smollm, mamba2 and internvl2 are, to
     MESH_SERVE_LAYERS for the script's time (the cut and the memory's
-    reckoning printed); whisper and internvl2 are served at published
-    size; jamba keeps phase 16's experts; on too little, jamba is
+    reckoning printed); whisper is served at published size; jamba keeps phase 16's experts; on too little, jamba is
     skipped with its reckoning."""
-    for arch in ("smollm-360m", "mamba2-130m"):
+    for arch in ("smollm-360m", "mamba2-130m", "internvl2-1b"):
         cfg, cut, distinct = chip_smoke.mesh_serve_config(arch, 0, "cpu")
         n = chip_smoke.MESH_SERVE_LAYERS[arch]
         assert cfg.n_layers == n < chip_smoke.lm_config(arch, 0).n_layers
         assert distinct is None and "cut for the script's time" in cut
     assert chip_smoke.mesh_serve_config("smollm-360m", 4, "cpu")[:2] == (
         chip_smoke.lm_config("smollm-360m", 4), "4 layers")
-    for arch in ("whisper-small", "internvl2-1b"):
-        cfg, cut, _ = chip_smoke.mesh_serve_config(arch, 0, "cpu")
-        assert cfg == chip_smoke.lm_config(arch, 0)
+    cfg, cut, _ = chip_smoke.mesh_serve_config("whisper-small", 0, "cpu")
+    assert cfg == chip_smoke.lm_config("whisper-small", 0)
     cfg, cut, distinct = chip_smoke.mesh_serve_config(
         chip_smoke.MOE_ARCH, 0, "cpu")
     n = chip_smoke.MESH_SERVE_LAYERS[chip_smoke.MOE_ARCH]
@@ -1944,3 +1948,68 @@ def test_phase_15_training_depth_cuts():
     assert chip_smoke.FAMILY_CHECK_LAYERS == {
         "whisper-small": 1, "internvl2-1b": 1, chip_smoke.MOE_ARCH: 1}
     assert chip_smoke.RECOVERY_LAYERS == 3
+
+
+def test_phase_15_int8_step_on_the_cpu(world_1_mesh):
+    """Phase 15 (c)'s int8 step rehearsed on the CPU at reduced size
+    (one gloo process, bf16 params, the int8 optimizer state): the mesh
+    and plain states after one step bit-equal — every ``q``, ``scale``
+    and parameter — each ``q`` at its parameter's placement; no kernel
+    launched (the CPU runs the plain versions), so only the launch rule
+    fails.  The mesh step is timed twice (cold, warm) from one state."""
+    from repro_torch.config import reduced
+    cfg = reduced(chip_smoke.lm_config("smollm-360m", 0))
+    r = chip_smoke.int8_mesh_step(cfg, world_1_mesh, torch.device("cpu"),
+                                  batch=2, seq=32)
+    assert r["differing"] == [] and r["q_arrays"] > 0 and r["q_placed"]
+    assert r["peak_bytes"] is None
+    assert r["first_step_s"] > 0 and r["step_s"] > 0
+    assert chip_smoke.int8_failures(r) == [
+        f"the int8 {what} step launched {{}}, want "
+        f"{{'flash_attention': {r['per_step']}}}"
+        for what in ("mesh", "plain")]
+    line = chip_smoke.int8_line(r, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "bit-equal True" in line and "peak not measured" in line
+    assert " s cold, " in line and " s warm " in line
+
+
+def test_phase_17_dryrun_on_the_cpu(tmp_path):
+    """Phase 17 rehearsed on the CPU: the child (this script's
+    ``dryrun_child``, a process of its own on the fake process group)
+    traces a reduced int8 cell on fake CPU tensors (a train cell on fake
+    CUDA tensors needs a CUDA build) and prints its result last; the
+    verdict and the line read it beside a measured step, and a ratio
+    outside the bound fails."""
+    import subprocess
+    import sys
+    code = ("import sys, chip_smoke; from repro_torch.config import reduced;"
+            "sys.exit(chip_smoke.dryrun_child(0, device='cpu', "
+            "cfg=reduced(chip_smoke.lm_config('smollm-360m', 0)), batch=2, "
+            "seq=32))")
+    log = tmp_path / "child.txt"
+    with open(log, "w") as f:
+        child = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                 stderr=subprocess.STDOUT,
+                                 cwd=chip_smoke.ROOT,
+                                 env=dict(os.environ, OMP_NUM_THREADS="1",
+                                          PYTHONPATH=os.path.join(
+                                              chip_smoke.ROOT, "src")))
+    int8 = {"peak_bytes": None, "step_s": 0.5}
+    f = open(log, "a")
+    child.wait(timeout=300)
+    with open(log) as g:
+        trace = json.loads(g.read().strip().splitlines()[-1])
+    peak = trace["memory_analysis"]["peak_bytes"]
+    assert trace["opt_state_dtype"] == "int8" and trace["mesh"] == "1x1"
+    assert trace["flops_per_device"] > 0 and peak > 0
+    int8["peak_bytes"], int8["started"] = peak * 0.8, trace["ended"] + 2.0
+    r = chip_smoke.phase_dryrun(child, f, str(log), int8)
+    assert r["rc"] == 0 and r["ratio"] == pytest.approx(1.25)
+    assert r["ended_before_s"] == pytest.approx(2.0)
+    assert chip_smoke.dryrun_failures(r) == []
+    assert r["tflops"] == trace["flops_per_device"] / 0.5 / 1e12
+    line = chip_smoke.dryrun_line(r, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "ratio 1.2500" in line and "700.00 W" in line
+    assert "masked scores included" in line and "ended 2.0 s before" in line
+    r["ratio"] = 2.5
+    assert "outside [0.5, 2.0]" in chip_smoke.dryrun_failures(r)[0]

@@ -35,7 +35,11 @@ the JAX package:
   and every gradient within 1e-4 of its largest entry of ``jax.grad``'s
   (a missing or doubled sum of the tokens' and the router's gradients
   over the expert axis, hazard (t), moves no loss and no first AdamW
-  step beyond those bounds; only the gradients show it).
+  step beyond those bounds; only the gradients show it); then 2 int8
+  steps of reduced mixtral-8x7b on (4, 2), each held to the
+  single-device JAX step from the same state under
+  ``tests/test_torch_optim.py``'s int8 rule (``torch_int8_mesh``; the
+  loss within the moe family's 2e-4).
 """
 import json
 import os
@@ -56,6 +60,8 @@ GROUP_ARCHS = {"mixtral-8x7b": 2e-4, "kimi-k2-1t-a32b": 2e-4,
 GRAD_BOUND = 1e-4
 BATCH, SEQ, LR = 8, 32, 1e-3
 GROUP_TIMEOUT_S = 600
+# the int8 optimizer state on a mesh (tests/torch_int8_mesh.py)
+INT8_ARCH, INT8_MESH = "mixtral-8x7b", "4x2"
 
 
 def _train_kwargs(mb: int) -> dict:
@@ -132,6 +138,16 @@ def _worker_checks(rank: int, out: str) -> dict:
             params, {"tokens": batch["tokens"]}, cfg, meshes, out, arch,
             rank)
         res["serve_seconds"][arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from torch_int8_mesh import INT8_KW, int8_steps
+    arrays = np.load(os.path.join(out, f"{INT8_ARCH}_batch.npz"))
+    res["int8"] = int8_steps(
+        reduced(get_config(INT8_ARCH)),
+        TrainConfig(global_batch=BATCH, seq_len=SEQ, **INT8_KW),
+        os.path.join(out, f"{INT8_ARCH}_int8_init.npz"),
+        {k: torch.from_numpy(arrays[k]) for k in ("tokens", "labels")},
+        meshes[INT8_MESH], out, INT8_ARCH, rank)
+    res["seconds"]["int8"] = time.perf_counter() - t0
     return res
 
 
@@ -395,6 +411,7 @@ def group(tmp_path_factory):
             os.path.join(out, f"{arch}_init.npz"))
         np.savez(os.path.join(out, f"{arch}_batch.npz"),
                  **{k: np.asarray(jbatch[k]) for k in ("tokens", "labels")})
+    int8 = _int8_inputs(out, *inputs[INT8_ARCH][:2])
     env = dict(os.environ, OMP_NUM_THREADS="1")
     t0 = time.monotonic()
     procs = [subprocess.Popen(
@@ -403,6 +420,7 @@ def group(tmp_path_factory):
         for r in range(WORLD)]
     try:
         ref = {arch: _jax_references(*args) for arch, args in inputs.items()}
+        ref["int8"] = int8
         deadline = t0 + GROUP_TIMEOUT_S
         logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0]
                 .decode(errors="replace") for p in procs]
@@ -427,6 +445,38 @@ def _results(group):
         group["errors"] or group["logs"][0][-4000:])
     assert group["rcs"] == [0] * WORLD, group["rcs"]
     return group["results"]
+
+
+def _int8_inputs(out: str, jcfg, cfg) -> dict:
+    """``INT8_ARCH``'s JAX initial state with the int8 optimizer state,
+    written for the processes (the batch is the float32 steps')."""
+    from torch_int8_mesh import INT8_KW
+    jtcfg = JTrainConfig(global_batch=BATCH, seq_len=SEQ, **INT8_KW)
+    jstate = j_init(jax.random.PRNGKey(0), jcfg, jtcfg)
+    io.save_pytree(train_state_from_numpy(jax.tree.map(np.asarray, jstate),
+                                          cfg, device="cpu"),
+                   os.path.join(out, f"{INT8_ARCH}_int8_init.npz"))
+    return dict(jcfg=jcfg, jtcfg=jtcfg, jstate=jstate, cfg=cfg)
+
+
+def test_int8_steps_on_a_mesh_match_jax(group):
+    """Reduced mixtral-8x7b, 2 int8 steps on (4, 2) (expert parallel),
+    each held to the single-device JAX step from the same state under
+    ``test_torch_optim.py``'s int8 rule (``torch_int8_mesh``): loss within
+    the moe family's 2e-4, every gradient within 1e-4 of its largest,
+    every ``q`` and ``scale`` of the reference's ``adamw_update`` on the
+    step's gradients bit for bit, every parameter within 1e-6; each ``q``
+    at its parameter's placement, each ``scale`` replicated."""
+    from torch_int8_mesh import check_int8_steps
+    res = _results(group)
+    assert res["int8"] == {"q_as_param": True, "scale_replicated": True,
+                           "q_int8": True}, res["int8"]
+    r = group["ref"]["int8"]
+    jbatch = np.load(os.path.join(group["out"], f"{INT8_ARCH}_batch.npz"))
+    check_int8_steps(group["out"], INT8_ARCH, r["jcfg"], r["jtcfg"],
+                     r["jstate"], {k: jnp.asarray(jbatch[k])
+                                   for k in jbatch.files}, r["cfg"],
+                     loss_bound=GROUP_ARCHS[INT8_ARCH])
 
 
 @pytest.mark.parametrize("case", [case_name(m, b) for m, b in SERVE_CASES])

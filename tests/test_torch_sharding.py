@@ -45,10 +45,22 @@ and vlm families trained and served on a mesh against the reference:
   the float32-promoted encoder, ``patch_proj``); their prefill and 4
   greedy steps on the five serving cases (frames, or patches before the
   tokens; whisper's cross caches at the batch rule); the mesh gate
-  passed by the encdec and vlm families, and the int8 optimizer state
-  still raising ``not_ported`` with "A17" on a mesh (the moe, ssm and
-  hybrid families train and serve on a mesh in
-  ``tests/test_torch_expert_parallel.py``);
+  passed by the encdec and vlm families (the moe, ssm and hybrid
+  families train and serve on a mesh in
+  ``tests/test_torch_expert_parallel.py``); the int8 optimizer state:
+  reduced smollm-360m (two groups, so a stacked leaf's absmax spans
+  shards and slices), 2 int8 steps on (4, 2) and on (2, 4), each held to
+  the single-device JAX step from the same state under
+  ``tests/test_torch_optim.py``'s int8 rule (``torch_int8_mesh``: loss,
+  every gradient, every parameter, every ``q`` and ``scale``), each
+  ``q`` at its parameter's placement and each ``scale`` replicated; the
+  int8 state resharded (4, 2) → (2, 4), and saved from (4, 2) through a
+  delta store and restored onto (2, 4), bit for bit; fake against real:
+  rank 0 counts the (4, 2) train step and one bf16 decode step with the
+  dry-run's ``Trace`` and ``MemTracker`` (``launch.dryrun.traced``), and
+  a process of its own traces the same steps on the same mesh on fake
+  tensors (``run_cell`` on the fake process group): equal flops, equal
+  collective counts and bytes by kind, equal argument bytes and peak;
 * in process, the decode step's cross-attention on a mesh: each model
   shard's q heads against its own kv heads of the whole cross caches,
   joined, against the single-device step.
@@ -69,6 +81,8 @@ MICROBATCHES = (1, 2)
 TINY = dict(n_layers=1, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab=128)
 BATCH, SEQ, LR = 8, 32, 1e-3
+# the group's step counted against its fake trace: (mesh, microbatches)
+REAL_STEP = ("4x2", 1)
 # compressed_psum: leaf "b" is all zero on this process (C8)
 ZERO_RANK = 3
 NON_DENSE = {"encdec": "whisper-small", "vlm": "internvl2-1b"}
@@ -95,7 +109,9 @@ FAMILY_STEPS = {
 }
 # the models served on the group's serving cases
 FAMILY_SERVED = ("whisper-small", "internvl2-1b")
-GROUP_TIMEOUT_S = 480
+GROUP_TIMEOUT_S = 720
+# the int8 optimizer state's steps (tests/torch_int8_mesh.py)
+INT8_MESHES = ("4x2", "2x4")
 
 
 def stub_key(cfg) -> str | None:
@@ -137,13 +153,14 @@ def _worker_checks(rank: int, out: str) -> dict:
     from repro_torch.checkpoint import DeltaCheckpointStore, io
     from repro_torch.config import ShardingConfig, TrainConfig, reduced
     from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import batch_sharding, state_sharding
+    from repro_torch.launch.dryrun import (batch_sharding, cache_sharding,
+                                           state_sharding, traced)
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import api
-    from repro_torch.optim import adamw_update, compressed_psum
-    from repro_torch.runtime import (init_train_state, make_grad_fn,
-                                     make_train_step, reshard_from_checkpoint,
-                                     reshard_state)
+    from repro_torch.optim import compressed_psum
+    from repro_torch.runtime import (init_train_state, make_decode_step,
+                                     make_grad_fn, make_train_step,
+                                     reshard_from_checkpoint, reshard_state)
     from repro_torch.runtime.elastic import place_tree
     from repro_torch.sharding import mesh_context
     from torch_mesh_serve import serve_cases
@@ -170,8 +187,13 @@ def _worker_checks(rank: int, out: str) -> dict:
                 _, grads = make_grad_fn(cfg, tcfg, ShardingConfig())(
                     on_mesh.params, placed)
                 grads = io.raw_arrays(grads)
-                after, m = make_train_step(cfg, tcfg, ShardingConfig())(
-                    on_mesh, placed)
+                step = make_train_step(cfg, tcfg, ShardingConfig())
+                if rank == 0 and (name, mb) == REAL_STEP:
+                    (after, m), trace, mem = traced(step, (on_mesh, placed),
+                                                    (on_mesh, placed))
+                    res["real"] = {"train": counted(trace, mem)}
+                else:
+                    after, m = step(on_mesh, placed)
             arrs = io.raw_arrays(after)
             if rank == 0:
                 np.savez(os.path.join(out, f"step_{name}_{mb}.npz"),
@@ -220,12 +242,25 @@ def _worker_checks(rank: int, out: str) -> dict:
                                "dense", rank)
     res["families"] = _family_checks(rank, out, meshes)
 
-    def raised(fn):
-        try:
-            fn()
-            return None
-        except NotImplementedError as exc:
-            return str(exc)
+    # the fake trace's decode cell (run_cell): bf16 parameters and caches
+    # of the reduced model, the token at the cache's last slot; counted
+    mesh = meshes[REAL_STEP[0]]
+    dec = api.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.bfloat16, "cpu")
+    dec = place_tree(dec, state_sharding(dec, mesh))
+    caches = api.init_decode_caches(cfg, BATCH, SEQ, torch.bfloat16, "cpu")
+    caches = place_tree(caches, cache_sharding(caches, mesh))
+    token = torch.zeros((BATCH, 1), dtype=torch.int32)
+    token = place_tree({"token": token},
+                       batch_sharding({"token": token}, mesh))["token"]
+    with mesh_context(mesh), torch.no_grad():
+        args = (dec, caches, token, SEQ - 1)
+        if rank == 0:
+            _, trace, mem = traced(make_decode_step(cfg), args,
+                                   (dec, caches, token))
+            res["real"]["decode"] = counted(trace, mem)
+        else:
+            make_decode_step(cfg)(*args)
 
     res["raises"] = {"prefill": {}, "decode": {}}
     with mesh_context(meshes["4x2"]):
@@ -236,9 +271,105 @@ def _worker_checks(rank: int, out: str) -> dict:
                 lambda: api.check_lm_mesh(c, "prefill"))
             res["raises"]["decode"][family] = raised(
                 lambda: api.check_lm_mesh(c, "decode"))
-        res["raises"]["int8"] = raised(lambda: adamw_update(
-            {}, None, {}, TrainConfig(opt_state_dtype="int8"), 0.1))
+    res["int8"] = _int8_checks(rank, out, meshes)
     return res
+
+
+def raised(fn):
+    try:
+        fn()
+        return None
+    except NotImplementedError as exc:
+        return str(exc)
+
+
+def counted(trace, mem: dict) -> dict:
+    """What the fake trace is held to: flops, collectives by kind,
+    memory."""
+    return {"flops": trace.flops, "collective": trace.collective(),
+            "memory": mem}
+
+
+def _int8_checks(rank: int, out: str, meshes: dict) -> dict:
+    """The int8 state on a mesh: ``torch_int8_mesh.int8_steps`` on
+    ``INT8_MESHES``; the state resharded (4, 2) → (2, 4); a state after
+    an int8 step on (4, 2) saved through a delta store and restored onto
+    (2, 4)."""
+    import torch
+
+    from repro_torch.checkpoint import DeltaCheckpointStore, io
+    from repro_torch.config import ShardingConfig, TrainConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import batch_sharding, state_sharding
+    from repro_torch.runtime import (init_train_state, make_train_step,
+                                     reshard_from_checkpoint, reshard_state)
+    from repro_torch.runtime.elastic import place_tree
+    from repro_torch.sharding import mesh_context
+    from torch_int8_mesh import INT8_KW, int8_steps
+
+    cfg = reduced(get_config("smollm-360m"))
+    tcfg = TrainConfig(global_batch=BATCH, seq_len=SEQ, **INT8_KW)
+    init = os.path.join(out, "int8_init.npz")
+    arrays = np.load(os.path.join(out, "int8_batch.npz"))
+    batch = {k: torch.from_numpy(arrays[k]) for k in ("tokens", "labels")}
+    res = {"placements": {name: int8_steps(cfg, tcfg, init, batch,
+                                           meshes[name], out, name, rank)
+                          for name in INT8_MESHES}}
+
+    def start():
+        return io.load_into(init_train_state(cfg, tcfg, device="cpu"), init)
+
+    want = io.raw_arrays(start())
+    b = reshard_state(reshard_state(start(), meshes["4x2"]), meshes["2x4"])
+    wanted = state_sharding(b, meshes["2x4"])
+    res["reshard_differing"] = sorted(
+        k for k, v in io.raw_arrays(b).items()
+        if v.tobytes() != want[k].tobytes())
+    res["reshard_misplaced"] = sorted(
+        n for n, leaf in io.leaves(b) if isinstance(leaf, torch.Tensor)
+        and tuple(leaf.placements) != wanted[n].placements)
+
+    a = reshard_state(start(), meshes["4x2"])
+    with mesh_context(meshes["4x2"]):
+        a, _ = make_train_step(cfg, tcfg, ShardingConfig())(
+            a, place_tree(batch, batch_sharding(batch, meshes["4x2"])))
+    saved = io.raw_arrays(a)
+    store = DeltaCheckpointStore(os.path.join(out, f"int8_ckpt_{rank}"))
+    store.save(1, a)
+    restored = reshard_from_checkpoint(store, 1, start(), meshes["2x4"])
+    res["restore_differing"] = sorted(
+        k for k, v in io.raw_arrays(restored).items()
+        if v.tobytes() != saved[k].tobytes())
+    res["restore_on_mesh"] = all(
+        x.q.device_mesh == meshes["2x4"]
+        for mv in (restored.opt.m, restored.opt.v) for x in mv.values())
+    return res
+
+
+def fake_trace(out: str) -> int:
+    """The group's counted steps traced on fake tensors: ``run_cell`` of
+    the (4, 2) train step (``TINY``'s reduced smollm, float32, the
+    baseline rules) and of the bf16 decode step, in this process of its
+    own on the fake process group."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.config import ShapeConfig, reduced
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = reduced(get_config("smollm-360m"), **TINY)
+    res = {}
+    for kind in ("train", "decode"):
+        r = dryrun.run_cell("smollm-360m", "t", device="cpu", cfg=cfg,
+                            shape=ShapeConfig("t", SEQ, BATCH, kind),
+                            mesh_shape=MESHES[REAL_STEP[0]],
+                            rules_name="baseline", param_dtype="float32")
+        res[kind] = {"flops": r["flops_per_device"],
+                     "collective": r["collective"],
+                     "memory": r["memory_analysis"]}
+    with open(os.path.join(out, "fake.json"), "w") as f:
+        json.dump(res, f)
+    return 0
 
 
 def _family_checks(rank: int, out: str, meshes: dict) -> dict:
@@ -338,6 +469,8 @@ def worker(rank: int, out: str) -> int:
 
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
     sys.exit(worker(int(sys.argv[2]), sys.argv[3]))
+if __name__ == "__main__" and sys.argv[1:2] == ["fake"]:
+    sys.exit(fake_trace(sys.argv[2]))
 
 import pytest  # noqa: E402
 
@@ -549,13 +682,6 @@ def test_batch_and_state_sharding_match_reference(mesh):
         assert s.spec == (want[ref][1:] if stacked else want[ref]), (
             name, s.spec)
     assert mapped == set(want)
-
-
-def test_dryrun_itself_waits_for_its_step():
-    with pytest.raises(NotImplementedError, match="A18"):
-        dryrun.run_cell()
-    with pytest.raises(NotImplementedError, match="A18"):
-        dryrun.main([])
 
 
 # (batch, cache length) of the caches whose placement is checked: the
@@ -839,12 +965,16 @@ def group(tmp_path_factory):
     np.savez(os.path.join(out, "batch.npz"),
              **{k: np.asarray(jbatch[k]) for k in ("tokens", "labels")})
     families = _family_inputs(out)
+    int8 = _int8_inputs(out)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     t0 = time.monotonic()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "worker", str(r), out],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(WORLD)]
+    procs.append(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "fake", out],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     try:
         ref = {}
         for mb in MICROBATCHES:
@@ -863,6 +993,7 @@ def group(tmp_path_factory):
                                           device="cpu").named_parameters())
         ref["families"] = {model: _family_references(*args, model)
                            for model, args in families.items()}
+        ref["int8"] = int8
         deadline = time.monotonic() + GROUP_TIMEOUT_S
         logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0]
                 .decode(errors="replace") for p in procs]
@@ -877,7 +1008,11 @@ def group(tmp_path_factory):
     if os.path.exists(os.path.join(out, "results.json")):
         with open(os.path.join(out, "results.json")) as f:
             results = json.load(f)
-    return dict(out=out, ref=ref, errors=errors, results=results,
+    fake = None
+    if os.path.exists(os.path.join(out, "fake.json")):
+        with open(os.path.join(out, "fake.json")) as f:
+            fake = json.load(f)
+    return dict(out=out, ref=ref, errors=errors, results=results, fake=fake,
                 rcs=[p.returncode for p in procs], logs=logs, cfg=cfg,
                 seconds=time.monotonic() - t0)
 
@@ -885,8 +1020,27 @@ def group(tmp_path_factory):
 def _results(group):
     assert not group["errors"] and group["results"] is not None, (
         group["errors"] or group["logs"][0][-4000:])
-    assert group["rcs"] == [0] * WORLD, group["rcs"]
+    assert group["rcs"] == [0] * (WORLD + 1), (group["rcs"],
+                                               group["logs"][-1][-4000:])
     return group["results"]
+
+
+def _int8_inputs(out: str) -> dict:
+    """Reduced smollm-360m's JAX int8 initial state and batch, written
+    for the processes."""
+    from torch_int8_mesh import INT8_KW
+    jcfg = j_reduced(j_get_config("smollm-360m"))
+    cfg = reduced(get_config("smollm-360m"))
+    jtcfg = JTrainConfig(global_batch=BATCH, seq_len=SEQ, **INT8_KW)
+    jstate = j_init(jax.random.PRNGKey(0), jcfg, jtcfg)
+    jbatch = JSyntheticLM(jcfg, BATCH, SEQ, seed=0).batch_at(0)
+    io.save_pytree(train_state_from_numpy(jax.tree.map(np.asarray, jstate),
+                                          cfg, device="cpu"),
+                   os.path.join(out, "int8_init.npz"))
+    np.savez(os.path.join(out, "int8_batch.npz"),
+             **{k: np.asarray(jbatch[k]) for k in ("tokens", "labels")})
+    return dict(jcfg=jcfg, jtcfg=jtcfg, jstate=jstate, jbatch=jbatch,
+                cfg=cfg)
 
 
 @pytest.mark.parametrize("microbatches", MICROBATCHES)
@@ -1012,23 +1166,70 @@ def test_family_prefill_and_decode_on_a_mesh_match_jax(group, model, case):
                  res["families"]["serve"][model][case], b)
 
 
-@pytest.mark.parametrize("what", sorted(NON_DENSE)
-                         + ["prefill", "decode", "int8"])
+@pytest.mark.parametrize("what", sorted(NON_DENSE) + ["prefill", "decode"])
 def test_what_is_not_ported_raises_on_a_mesh(group, what):
     """encdec and vlm training (by family), their prefill and their
     decode pass the mesh gate (``api.check_lm_mesh``: every family runs
-    on a mesh, held above); the int8 optimizer state still raises "A17"
-    on a mesh."""
+    on a mesh, held above)."""
     res = _results(group)
     got = res["raises"][what]
     msgs = got.values() if isinstance(got, dict) else [got]
     if isinstance(got, dict):
         assert set(got) == set(NON_DENSE)
     for msg in msgs:
-        if what == "int8":
-            assert msg is not None and "A17" in msg
-        else:
-            assert msg is None, (what, msg)
+        assert msg is None, (what, msg)
+
+
+@pytest.mark.parametrize("mesh", INT8_MESHES)
+def test_int8_steps_on_a_mesh_match_jax(group, mesh):
+    """Reduced smollm-360m, 2 int8 steps on the mesh, each held to the
+    single-device JAX step from the same state under
+    ``test_torch_optim.py``'s int8 rule (``torch_int8_mesh``): the loss
+    and every gradient within the group's 1e-4, the reference's
+    ``adamw_update`` on the step's gradients giving every ``q`` and
+    ``scale`` bit for bit and every parameter within 1e-6; each ``q`` at
+    its parameter's placement, each ``scale`` replicated."""
+    from torch_int8_mesh import check_int8_steps
+    res = _results(group)
+    facts = res["int8"]["placements"][mesh]
+    assert facts == {"q_as_param": True, "scale_replicated": True,
+                     "q_int8": True}, facts
+    r = group["ref"]["int8"]
+    check_int8_steps(group["out"], mesh, r["jcfg"], r["jtcfg"], r["jstate"],
+                     r["jbatch"], r["cfg"])
+
+
+def test_int8_state_reshards_between_meshes_bit_exact(group):
+    res = _results(group)["int8"]
+    assert res["reshard_differing"] == []
+    assert res["reshard_misplaced"] == []
+
+
+def test_int8_state_checkpoint_round_trip_from_a_mesh(group):
+    """An int8 state after a step on (4, 2), saved through a delta store
+    and restored onto (2, 4): every q, scale and parameter bit-equal."""
+    res = _results(group)["int8"]
+    assert res["restore_differing"] == []
+    assert res["restore_on_mesh"]
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_fake_trace_counts_as_the_real_step(group, kind):
+    """Rank 0's count of the group's (4, 2) train step and of a bf16
+    decode step (``launch.dryrun.traced`` on real tensors over ``gloo``)
+    against the dry-run's trace of the same step on the same mesh on
+    fake tensors (``run_cell``): equal flops, equal collective counts and
+    operand bytes by kind (DTensor's functional collectives and the
+    in-place ``dist.all_reduce`` calls both, hazard (y)), equal argument
+    bytes and peak."""
+    real = _results(group)["real"][kind]
+    fake = group["fake"][kind]
+    assert fake is not None
+    assert real["flops"] == fake["flops"] > 0
+    assert real["collective"] == fake["collective"]
+    assert real["collective"]["total"] > 0
+    assert real["memory"] == fake["memory"], (real["memory"],
+                                               fake["memory"])
 
 
 # ---------------------------------------------------------------------------
