@@ -3,7 +3,7 @@
 against its plain PyTorch version, run the GraphSession end to end on
 both layouts — in memory, sharded over a mesh, durable and indexed,
 reopened and crashed, replicated — run the paper's serving driver,
-serve two decoder LMs (prefill + greedy decode) at their published
+serve five decoder LMs (prefill + greedy decode) at their published
 width and depth, an encoder-decoder (whisper-small) and a VLM
 (internvl2-1b) at theirs, a mixture-of-experts LM (mixtral-8x7b) at
 its published width, as deep as the card holds, and a hybrid LM
@@ -48,8 +48,10 @@ Phases, in order (any failure exits non-zero):
    decoder's self-attention (S 416, causal), internvl2-1b's prefill (B
    8, Hq 14, Hkv 2, S 2304, D 64, causal), kimi-k2's prefill (B 8, Hq
    64, Hkv 8, S 2048, D 112, causal: run padded to D 128) and phase 16's
-   jamba-1.5-large prefill (the same with D 128), all bf16 — plus head
-   dims 128 / 256, and a sliding window and a kv_len-padded non-causal
+   jamba-1.5-large prefill (the same with D 128), and phase 18's three:
+   gemma-2b (B 8, Hq 8, Hkv 1, S 2048, D 256), olmo-1b (Hq 16, Hkv 16,
+   D 128) and glm4-9b (Hq 32, Hkv 2, D 128), causal, all bf16 — plus
+   head dims 128 / 256, and a sliding window and a kv_len-padded non-causal
    case with ragged Sq, each in float32 and bf16) and the
    SSD scan (at the mamba2-130m prefill shape, output and final state,
    from a zero state and continuing a cache, and at jamba-1.5-large's,
@@ -156,7 +158,7 @@ Phases, in order (any failure exits non-zero):
    into a delta store (a temporary root) with one injected failure at
    step 3: the state restored at the failure must equal the state saved
    there, and the final state the uninterrupted run's, bit for bit;
-   printed: storage bytes, save and restore seconds; 3 of mamba2's 24
+   printed: storage bytes, save and restore seconds; 2 of mamba2's 24
    layers (``RECOVERY_LAYERS``, the cut printed).  (d) both models, 2
    layers at full width, float32, 2 × 256 tokens, 3 steps on the card
    and on the CPU from the same initial state: per-step loss and grad norm within the
@@ -265,7 +267,7 @@ Phases, in order (any failure exits non-zero):
    layer of published width (whisper 1 + 1; mixtral's ~27 GB of
    float32 state a side, the host's free memory printed first;
    ``FAMILY_CHECK_LAYERS``, the cut printed), float32
-   card vs CPU as phase 11 (d) (2 steps, mixtral 1:
+   card vs CPU as phase 11 (d) (1 step each:
    ``FAMILY_CHECK_STEPS``, for the script's time), for mixtral also
    step 1's routes: a
    token routed differently must be a near-tie (``route_flip``); (c) a
@@ -308,7 +310,11 @@ Phases, in order (any failure exits non-zero):
    layer in each; the mesh step runs twice from that state, and both
    its seconds (cold, warm), the plain step's and the warm step's
    ``torch.cuda.max_memory_allocated`` (the counter reset just before
-   it) are printed.  Verdicts
+   it) are printed.  Before each model of (c) trains or is served, and
+   before the int8 step, the card's memory is read against the start of
+   (c) (``memory_readout``): the bytes allocated, those in blocks made
+   since, and how much of them lies in tensors the garbage collector
+   reaches (by dtype and shape).  Verdicts
    ``train_failures``, ``card_cpu_failures``, ``mesh_failures``, read at
    the end.
 
@@ -355,9 +361,26 @@ Phases, in order (any failure exits non-zero):
    limit and how long before the int8 steps the child ended; the
    verdict is ``dryrun_failures``.
 
+18. gemma-2b, olmo-1b and glm4-9b — the dense family's other
+   configurations at published width and depth (gemma-2b: 18 layers, d
+   2048, MQA 8 / 1 heads of 256, GeGLU of d_ff 16,384, a tied 256,000
+   table; olmo-1b: 16 layers, MHA 16 / 16 of 128, the non-parametric
+   LayerNorm, a tied 50,304 table; glm4-9b: 40 layers, d 4096, GQA 32 / 2
+   of 128, d_ff 13,696, an untied 151,552 unembedding), one at a time,
+   through ``phase_lm`` as phases 5 and 6: bf16 weights from a seeded
+   generator, a prefill of 8 × 2048 and 32 greedy steps, B5 18 / 16 / 40
+   times a prefill, no other kernel, none in decode; bf16 decode against
+   a fresh forward over sequence 0; the float32 card against the CPU as
+   deep as keeps a CPU decode step within DENSE_CHECK_STEP_BYTES (glm4 2,
+   gemma 4, olmo 6 layers) over DENSE_CHECK_DECODE (8) steps, the cut
+   printed; the card's memory allocated before and after each model
+   printed, and no more after than before.  The verdict is
+   ``dense_failures``, read after phase 11.
+
 Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
-phase 14 runs after phases 5 and 6, phase 13 after phase 14, phase 16
-after phase 13, phase 11 after them, phase 15 then, and phase 17 last.
+phase 18 runs after phases 5 and 6, phase 14 after phase 18, phase 13
+after phase 14, phase 16 after phase 13, phase 11 after them, phase 15
+then, and phase 17 last.
 ``main`` sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
 before the first CUDA allocation, so that memory earlier phases freed
 can hold phase 13's and phase 16's models.
@@ -367,8 +390,8 @@ each session (and each reopen, each driver run) and read them after:
 each kernel the layout should use must have launched.
 A sample of the answers must equal, bit for bit, those of the same
 session built with ``device="cpu"`` from the same ops; triangle counts
-are checked against a sparse count of the snapshot.  Phases 5 and 6 zero
-the counters before the prefill and the decode and read them after
+are checked against a sparse count of the snapshot.  Phases 5, 6 and 18
+zero the counters before the prefill and the decode and read them after
 each: one launch of the model's kernel per layer in the prefill, none
 of the other kernels, none in decode.  The decode must agree with a
 fresh forward over prompt + generated tokens (bf16 tolerance printed),
@@ -457,12 +480,13 @@ PAPER_PARAMS = dict(m_attach=6, lam_extra=2.2, lam_remove=3.61,
 # the card and on the CPU
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
 CKPT_EVERY, CKPT_FAIL_AT = 2, 3
-# (c) trains 3 of mamba2's 24 layers: with phase 15 (c)'s serving the
+# (c) trains 2 of mamba2's 24 layers: with phase 15 (c)'s serving the
 # whole script read 1120 s at 12 layers (24 layers took ~65 s, 12 ~42
-# s, 6 ~32 s on one H100 at 700 W, the slowest host measured); cut from
-# 6 when phase 15 (c) began to train and serve whisper-small and
-# internvl2-1b
-RECOVERY_LAYERS = 3
+# s, 6 ~32 s on one H100 at 700 W, the slowest host measured, and 3
+# layers 25.2 s on a faster one); cut from 6 to 3 when phase 15 (c)
+# began to train and serve whisper-small and internvl2-1b, and to 2
+# when phase 18 began to serve gemma-2b, olmo-1b and glm4-9b
+RECOVERY_LAYERS = 2
 CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
 CHECK_TRAIN_STEPS = 3
 # float32 training on the card against the CPU: per step, |Δ loss| /
@@ -1283,9 +1307,10 @@ def ssd_case(randn, b, s, h, p, n, chunk, with_state0: bool) -> dict:
 def lm_kernel_cases(seed: int):
     """Flash attention and the SSD scan on seeded random inputs: the
     main-path shape of each first (smollm-360m / mamba2-130m prefill),
-    then flash attention at the shapes phases 13, 14, 15 and 16 give it,
-    kimi-k2's prefill (head dim 112) and the other head dims and masks it
-    takes, and the scan continuing a cache and at phase 16's shape."""
+    then flash attention at the shapes phases 13, 14, 15, 16 and 18 give
+    it, kimi-k2's prefill (head dim 112) and the other head dims and
+    masks it takes, and the scan continuing a cache and at phase 16's
+    shape."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1319,6 +1344,12 @@ def lm_kernel_cases(seed: int):
          None),                                       # whisper cross, training
         (LM_BATCH, 12, 12, WHISPER_TEXT_CTX, WHISPER_TEXT_CTX, 64, bf16,
          True, None, None),                           # whisper self, training
+        (LM_BATCH, 8, 1, LM_PROMPT, LM_PROMPT, 256, bf16, True, None,
+         None),                                       # gemma-2b prefill
+        (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 128, bf16, True, None,
+         None),                                       # olmo-1b prefill
+        (LM_BATCH, 32, 2, LM_PROMPT, LM_PROMPT, 128, bf16, True, None,
+         None),                                       # glm4-9b prefill
         (1, 8, 1, 512, 512, 256, bf16, True, None, None),    # gemma-2b heads
         (1, 8, 2, 1000, 1000, 128, f32, True, 256, None),    # sliding window
         (1, 8, 2, 1000, 1000, 128, bf16, True, 256, None),
@@ -2919,10 +2950,32 @@ def stub_inputs(cfg, seed: int):
     return make
 
 
-def f32_check_config(cfg):
-    """``cfg`` at most F32_CHECK_LAYERS deep, for phases 5, 6 and 14's
-    float32 and promotion checks."""
-    return at_depth(cfg, min(cfg.n_layers, F32_CHECK_LAYERS))
+def f32_check_config(cfg, layers: int = F32_CHECK_LAYERS):
+    """``cfg`` at most ``layers`` deep: F32_CHECK_LAYERS for phases 5, 6
+    and 14's float32 and promotion checks, ``dense_check_layers``' for
+    phase 18's."""
+    return at_depth(cfg, min(cfg.n_layers, layers))
+
+
+def f32_pair(cfg, seed: int, device) -> tuple:
+    """The float32 card-versus-CPU checks' two copies of one seeded draw
+    of ``cfg``'s weights: (on the CPU, on ``device``).  The draw is made
+    on ``device`` and each parameter copied to the CPU, so both start
+    from the same bits: the CPU's generator draws one value after
+    another, and glm4-9b's or mixtral-8x7b's float32 checks draw ~1.7 G
+    values (phase 13's took 61.1 s against 86.3 s drawn on the CPU, on
+    one H100 80GB HBM3 at 700 W)."""
+    import copy
+
+    import torch
+
+    from repro_torch.models import api
+    card = api.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(seed), torch.float32, device)
+    return copy.deepcopy(card, {
+        id(p): torch.nn.Parameter(p.detach().cpu(),
+                                  requires_grad=p.requires_grad)
+        for p in card.parameters()}), card
 
 
 def prefill_launches_want(cfg, kernel: str) -> dict:
@@ -2938,17 +2991,18 @@ def phase_lm(cfg, kernel: str, seed: int, *, extra=None, offset: int = 0,
              prompt: int = LM_PROMPT,
              device="cuda", batch: int = LM_BATCH, decode: int = LM_DECODE,
              check_prompt: int = CHECK_PROMPT,
-             check_decode: int = CHECK_DECODE) -> dict:
+             check_decode: int = CHECK_DECODE,
+             check_layers: int = F32_CHECK_LAYERS,
+             check_cut: str = "F32_CHECK_LAYERS") -> dict:
     """Serve ``cfg`` (its width, its depth) in bf16 on ``device``, then
-    the float32 ``device``-versus-CPU check; a prefill must launch
+    the float32 ``device``-versus-CPU check at most ``check_layers`` deep
+    (the cut printed as ``check_cut``); a prefill must launch
     ``kernel`` as ``prefill_launches_want`` says.  ``extra``: the batch's
     stub input as ``stub_inputs`` makes it (bf16
     on the main path, float32 in the check; sequence 0's for the fresh
     forward); ``offset``: the absolute position of the first token (the
-    vlm's patch count).  Phases 5, 6 and 14; the verdict is
+    vlm's patch count).  Phases 5, 6, 14 and 18; the verdict is
     ``family_failures``."""
-    import copy
-
     import numpy as np
     import torch
 
@@ -3049,12 +3103,10 @@ def phase_lm(cfg, kernel: str, seed: int, *, extra=None, offset: int = 0,
         torch.cuda.empty_cache()
 
     # float32: the same model on the device and on the CPU, at most
-    # F32_CHECK_LAYERS deep
+    # check_layers deep
     t0 = time.perf_counter()
-    fcfg = f32_check_config(cfg)
-    cpu = api.init_params(fcfg, torch.Generator().manual_seed(seed),
-                          torch.float32, "cpu")
-    card = copy.deepcopy(cpu).to(device)
+    fcfg = f32_check_config(cfg, check_layers)
+    cpu, card = f32_pair(fcfg, seed, device)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, check_prompt)))
     ex32 = extra(1, torch.float32, "cpu") if extra else {}
     ex32_card = {k: v.to(device) for k, v in ex32.items()}
@@ -3092,7 +3144,7 @@ def phase_lm(cfg, kernel: str, seed: int, *, extra=None, offset: int = 0,
                           f" ({r['card_cpu']:.3g})" for r in drift),
               flush=True)
     print(f"{arch}: float32 card vs CPU, {fcfg.n_layers} of "
-          f"{cfg.n_layers} layers (F32_CHECK_LAYERS, cut for the "
+          f"{cfg.n_layers} layers ({check_cut}, cut for the "
           f"script's time), prompt {check_prompt} + "
           f"{check_decode} steps: rel err {f32_rel:.3g} (tolerance "
           f"{F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: {same} "
@@ -3336,6 +3388,111 @@ def family_lines(res: dict, smi: str) -> list:
             f"outputs, {BF16_FIRST_STEP_RTOL:.3g} for the logits) "
             f"({pr['seconds']:.1f} s)")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: gemma-2b, olmo-1b and glm4-9b (the dense family's other
+# configurations) served on the card
+
+
+DENSE_ARCHS = ("gemma-2b", "olmo-1b", "glm4-9b")
+# phase 18's float32 card-vs-CPU checks: the CPU side is host-bound, and a
+# decode step there reads the float32 layers and the unembedding (glm4-9b
+# ~0.82 GB a layer and a 2.48 GB table; gemma-2b ~0.44 GB and 2.10 GB;
+# olmo-1b ~0.27 GB and 0.41 GB).  Each check runs as deep as keeps a step
+# within DENSE_CHECK_STEP_BYTES (at most F32_CHECK_LAYERS, at least one
+# layer) and DENSE_CHECK_DECODE of the LM_DECODE steps, cut for the
+# script's time: at 6 layers and 32 steps the three would read ~560 GB
+# on the CPU
+DENSE_CHECK_STEP_BYTES = 4.2e9
+DENSE_CHECK_DECODE = 8
+
+
+def f32_step_bytes(cfg, layers: int) -> int:
+    """The float32 weights a CPU decode step of ``cfg`` at ``layers``
+    layers reads: those layers (attention, MLP, norms) and the
+    unembedding table (the tied embedding or its own)."""
+    d, hd = cfg.d_model, cfg.hd()
+    attn = d * hd * 2 * (cfg.n_heads + cfg.n_kv_heads)
+    mlp = (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    norms = {"ln_nonparam": 0, "rms": 2 * d, "ln": 4 * d}[cfg.norm_kind]
+    return 4 * (layers * (attn + mlp + norms) + cfg.vocab * d)
+
+
+def dense_check_layers(cfg) -> int:
+    """Phase 18's float32 check depth for ``cfg``: the most layers, at
+    most F32_CHECK_LAYERS and at least one, whose CPU decode step reads
+    at most DENSE_CHECK_STEP_BYTES (``f32_step_bytes``)."""
+    n = min(cfg.n_layers, F32_CHECK_LAYERS)
+    while n > 1 and f32_step_bytes(cfg, n) > DENSE_CHECK_STEP_BYTES:
+        n -= 1
+    return n
+
+
+def phase_dense(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
+                prompt: int = LM_PROMPT, decode: int = LM_DECODE,
+                check_prompt: int = CHECK_PROMPT,
+                check_decode: int = DENSE_CHECK_DECODE) -> dict:
+    """Phase 18 on one model: ``phase_lm`` (B5 once a layer a prefill,
+    none in decode), its float32 check ``dense_check_layers`` deep over
+    ``check_decode`` steps, the cut printed; the card's memory allocated
+    read before and after (the model must leave no more than it found).
+    The verdict is ``dense_failures``."""
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+
+    def allocated():
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+    before = allocated()
+    layers = dense_check_layers(cfg)
+    cut = (f"float32 check {layers} of {cfg.n_layers} layers "
+           f"({f32_step_bytes(cfg, layers) / 1e9:.2f} GB a CPU decode step "
+           f"within DENSE_CHECK_STEP_BYTES {DENSE_CHECK_STEP_BYTES / 1e9:.1f}"
+           f" GB), {check_decode} of {decode} steps (DENSE_CHECK_DECODE), "
+           f"cut for the script's time")
+    print(f"{cfg.name}: {cut}", flush=True)
+    res = phase_lm(cfg, "flash_attention", seed, device=device, batch=batch,
+                   prompt=prompt, decode=decode, check_prompt=check_prompt,
+                   check_decode=check_decode, check_layers=layers,
+                   check_cut="DENSE_CHECK_STEP_BYTES")
+    res.update(cut=cut, allocated_before=before, allocated_after=allocated())
+    return res
+
+
+def dense_failures(res: dict) -> list:
+    """Phase 18's verdict on one model: ``family_failures``, and no more
+    of the card's memory allocated after the model than before it."""
+    bad = family_failures(res)
+    grew = res["allocated_after"] - res["allocated_before"]
+    if grew > 0:
+        bad.append(f"{res['arch']}: {grew} B more allocated after the "
+                   f"model than before it")
+    return bad
+
+
+def dense_line(res: dict, smi: str) -> str:
+    """Phase 18's own printed line, the card's name and power limit
+    beside its times (``phase_lm`` prints the profiles, the decode check
+    and the float32 check)."""
+    b, s = res["batch"], res["prompt"]
+    peak = (f"{res['peak_gib']:.2f} GiB" if res["peak_gib"] is not None
+            else "n/a")
+    return (f"{res['arch']} [dense] on {smi}: {res['n_layers']} layers, d "
+            f"{res['d_model']}, {res['params'] / 1e6:.1f} M params, peak "
+            f"{peak}; prefill {b}x{s} in {res['prefill_s']:.4f} s "
+            f"({b * s / res['prefill_s']:.0f} tokens/s; cold "
+            f"{res['prefill_cold_s']:.4f} s, "
+            f"{b * s / res['prefill_cold_s']:.0f}), decode "
+            f"{res['decode_ms_per_step']:.3f} ms/step; launches per prefill "
+            f"{ {k: n for k, n in res['prefill_launches'].items() if n} }, "
+            f"decode {sum(res['decode_launches'].values())}; allocated "
+            f"before {res['allocated_before']} B, after "
+            f"{res['allocated_after']} B; {res['cut']}")
 
 
 # ---------------------------------------------------------------------------
@@ -3730,7 +3887,6 @@ def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
     float32 model on ``device`` and on the CPU at the published capacity:
     logits, greedy tokens and every MoE call's routing.  The verdict is
     ``moe_failures``."""
-    import copy
     import dataclasses
 
     import numpy as np
@@ -3760,13 +3916,11 @@ def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
     if on_card:
         torch.cuda.empty_cache()
 
-    # (c) in float32 and (d): f32_layers layers at full width, built on
-    # the CPU and copied, so both devices start from the same bits
+    # (c) in float32 and (d): f32_layers layers at full width, drawn on
+    # the card and copied, so both devices start from the same bits
     t0 = time.perf_counter()
     small = dataclasses.replace(cfg, n_layers=f32_layers)
-    cpu = api.init_params(small, torch.Generator().manual_seed(seed),
-                          torch.float32, "cpu")
-    card = copy.deepcopy(cpu).to(device)
+    cpu, card = f32_pair(small, seed, device)
     res["f32_decode"] = decode_vs_forward(
         card, dataclasses.replace(small, capacity_factor=small.n_experts
                                   / small.top_k), prompts, decode)
@@ -4178,12 +4332,8 @@ def phase_hybrid(cfg, seed: int, distinct: int, device="cuda",
     ``device`` and on the CPU at the published capacity: logits, greedy
     tokens and every MoE call's routing.  The verdict is
     ``hybrid_failures``."""
-    import copy
-
     import numpy as np
     import torch
-
-    from repro_torch.models import api
 
     on_card = torch.device(device).type == "cuda"
     res = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
@@ -4210,13 +4360,11 @@ def phase_hybrid(cfg, seed: int, distinct: int, device="cuda",
     if on_card:
         torch.cuda.empty_cache()
 
-    # (d) float32 on the card against the CPU, built on the CPU and
+    # (d) float32 on the card against the CPU, drawn on the card and
     # copied, so both devices start from the same bits
     small = check_cfg or hybrid_check_config(cfg)
     t0 = time.perf_counter()
-    cpu = api.init_params(small, torch.Generator().manual_seed(seed),
-                          torch.float32, "cpu")
-    card = copy.deepcopy(cpu).to(device)
+    cpu, card = f32_pair(small, seed, device)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, check_prompt)))
     g_card, s_card, r_card = routes_by_call(card, small, toks.to(device),
                                             check_decode)
@@ -4983,11 +5131,13 @@ MOE_TRAIN_SAVED_BYTES_PER_LAYER = 3 * 10 ** 9
 FAMILY_CHECK_LAYERS = {"whisper-small": 1, "internvl2-1b": 1,
                        MOE_ARCH: 1}
 # (b)'s steps, cut from CHECK_TRAIN_STEPS for the script's time: on an
-# H100's host (8 cores) the CPU side of a step took 5.8-7.8 s (whisper,
-# internvl2) and 52.6-57.9 s (mixtral, its 1.45 B float32 parameters);
-# mixtral's one step still holds its forward, backward and routes to
-# the CPU's, and the other families' second step the update's
-FAMILY_CHECK_STEPS = {"whisper-small": 2, "internvl2-1b": 2, MOE_ARCH: 1}
+# H100's host (8 cores) the CPU side of a step took 4.2-7.8 s (whisper,
+# internvl2) and 47.5-57.9 s (mixtral, its 1.45 B float32 parameters);
+# one step still holds each model's forward, backward (and mixtral's
+# routes) to the CPU's; the AdamW update that a second step read is held
+# by phase 11 (d)'s three steps.  Whisper's and internvl2's cut from 2
+# when phase 18 began to serve gemma-2b, olmo-1b and glm4-9b
+FAMILY_CHECK_STEPS = {"whisper-small": 1, "internvl2-1b": 1, MOE_ARCH: 1}
 # (c): smollm-360m at published size on the mesh; 2 float32 layers, 8 ×
 # 256 tokens, 3 steps, mesh against the plain step within the
 # reference's own bound (test_distributed.py:496-499)
@@ -5599,6 +5749,57 @@ def mesh_serve_line(r: dict, smi: str) -> str:
                f"; peak {r['peak_gib']:.2f} GiB") + f"  [{smi}]")
 
 
+def memory_readout(dev, since: dict | None = None) -> dict:
+    """What the caching allocator holds on the card ``dev`` (the caller
+    collects garbage first): the bytes allocated and the active blocks
+    of ``torch.cuda.memory_snapshot()``.  Given an earlier readout
+    ``since``, also ``new``: the bytes in blocks made since, those of
+    them in CUDA tensors the garbage collector reaches, grouped by
+    (dtype, shape), and the rest (held where it does not reach: an
+    autograd graph, a C++ cache)."""
+    import collections
+
+    import torch
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != dev.index:
+            continue
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                blocks[addr] = b["size"]
+            addr += b["size"]
+    res = dict(allocated=torch.cuda.memory_allocated(dev), blocks=blocks)
+    if since is None:
+        return res
+    new_blocks = {a: v for a, v in blocks.items() if a not in since["blocks"]}
+    reached, seen = collections.Counter(), set()
+    # the collector's objects are walked only where new blocks are held
+    for obj in gc.get_objects() if new_blocks else ():
+        if type(obj) in (torch.Tensor, torch.nn.Parameter) and obj.is_cuda:
+            st = obj.untyped_storage()
+            if st.data_ptr() in new_blocks and st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                reached[f"{str(obj.dtype)[6:]}{list(obj.shape)}"] += \
+                    st.nbytes()
+    new = sum(new_blocks.values())
+    res["new"] = dict(bytes=new, reached=sum(reached.values()),
+                      not_reached=new - sum(reached.values()),
+                      reached_by_shape=reached.most_common(6))
+    return res
+
+
+def memory_line(r: dict, start: int) -> str:
+    """One of phase 15 (c)'s memory readouts, as printed."""
+    gib = 2 ** 30
+    return (f"15 (c) memory {r['part']}: {r['allocated'] / gib:.3f} "
+            f"GiB allocated ({start / gib:.3f} at the start of (c)), "
+            f"{r['bytes'] / gib:.3f} GiB of it in blocks made since: "
+            f"{r['reached'] / gib:.3f} GiB in tensors the "
+            f"collector reaches {r['reached_by_shape']}, "
+            f"{r['not_reached'] / gib:.3f} GiB not reached")
+
+
 def mesh_checks(rank: int, world: int, init: str, seed: int,
                 device_type: str = "cuda", layers: int = 0,
                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
@@ -5647,7 +5848,19 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
         dev = torch.device(device_type, rank) if device_type == "cuda" \
             else torch.device("cpu")
         res = dict(world=world, mesh=dict(zip(mesh.mesh_dim_names,
-                                              mesh.shape)))
+                                              mesh.shape)), memory=[])
+        start = memory_readout(dev) if device_type == "cuda" else None
+
+        def readout(part: str) -> None:
+            # what the parts before leave allocated, against the start of
+            # (c); called after a garbage collection
+            if start is None:
+                return
+            m = memory_readout(dev, start)
+            r = dict(part=part, allocated=m["allocated"], **m["new"])
+            res["memory"].append(r)
+            if rank == 0:
+                print(memory_line(r, start["allocated"]), flush=True)
         model = cfg or lm_config(MESH_ARCH, layers)
         run, meshed = mesh_model_run(
             model, mesh, dev, batch=batch, seq=seq, steps=steps,
@@ -5661,9 +5874,9 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
         batch0 = SyntheticLM(cfg, batch, check_seq, seed=tcfg.seed,
                              device=dev).batch_at(0)
         with mesh_context(mesh):
-            _, grads = make_grad_fn(cfg, tcfg, scfg)(
+            grads = make_grad_fn(cfg, tcfg, scfg)(
                 meshed.params,
-                place_tree(batch0, batch_sharding(batch0, mesh)))
+                place_tree(batch0, batch_sharding(batch0, mesh)))[1]
             full = {n: g.full_tensor() for n, g in grads.items()}
             errs = {n: torch.zeros_like(g) for n, g in full.items()}
             tot, new_e = compressed_psum(full, errs, "data")
@@ -5671,7 +5884,7 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             {n: g.cpu().numpy() for n, g in full.items()},
             {n: t.cpu().numpy() for n, t in tot.items()},
             {n: t.cpu().numpy() for n, t in new_e.items()}, world)
-        del grads, full, errs, tot, new_e
+        del batch0, grads, full, errs, tot, new_e
 
         store = DeltaCheckpointStore(root)
         store.save(check_steps - 1, meshed)
@@ -5690,6 +5903,7 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             gc.collect()
             if device_type == "cuda":
                 torch.cuda.empty_cache()
+            readout(f"before training {arch}")
             if given is None:
                 given, cut = mesh_model_config(arch, layers, device_type)
             else:
@@ -5701,11 +5915,14 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
                       f"{knobs['check_layers']} layer(s) x "
                       f"{knobs['check_steps']} steps of "
                       f"{CHECK_TRAIN_STEPS}", flush=True)
-            # whisper's decoder trains at its text context, as in (a)
-            r, _ = mesh_model_run(given, mesh, dev, batch=batch,
-                                  seq=min(seq, dict(FAMILY_TRAIN).get(arch,
-                                                                      seq)),
-                                  check_seq=check_seq, **knobs)
+            # whisper's decoder trains at its text context, as in (a);
+            # the float32 mesh state is let go at once (a name bound to it
+            # kept internvl2-1b's, 1.86 GiB, through the serving and the
+            # int8 step, and mixtral's, 19.2 GiB, through mamba2's run)
+            r = mesh_model_run(given, mesh, dev, batch=batch,
+                               seq=min(seq, dict(FAMILY_TRAIN).get(arch,
+                                                                   seq)),
+                               check_seq=check_seq, **knobs)[0]
             r["cut"] = cut
             res["models"][arch] = r
 
@@ -5719,6 +5936,7 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             gc.collect()
             if device_type == "cuda":
                 torch.cuda.empty_cache()
+            readout(f"before serving {arch}")
             served, cut, distinct = mesh_serve_config(arch, layers,
                                                       device_type)
             if rank == 0:
@@ -5735,6 +5953,7 @@ def mesh_checks(rank: int, world: int, init: str, seed: int,
             gc.collect()
             if device_type == "cuda":
                 torch.cuda.empty_cache()
+            readout("before the int8 step")
             res["int8"] = int8_mesh_step(model, mesh, dev, batch=batch,
                                          seq=seq)
         return res
@@ -6344,6 +6563,19 @@ def main(argv=None) -> int:
         bad = family_failures(lms[arch])
         if bad:
             raise AssertionError("; ".join(bad))
+    # phase 18 — gemma-2b, olmo-1b and glm4-9b at published width and
+    # depth, one at a time; each frees what it holds.  Read after phase
+    # 11, as phase 14's
+    dense_lms = {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        dense_lms[arch] = phase_dense(lm_config(arch, args.lm_layers),
+                                      args.seed)
+        phases[f"{arch}_s"] = time.perf_counter() - t0
+        print(dense_line(dense_lms[arch], smi.splitlines()[0]), flush=True)
+    dense_bad = [b for r in dense_lms.values() for b in dense_failures(r)]
+    for b in dense_bad:
+        log(f"chip_smoke: phase 18: {b}")
     # phase 14 — the encoder-decoder and the vlm at published width and
     # depth; each frees what it holds
     families = {}
@@ -6472,7 +6704,8 @@ def main(argv=None) -> int:
         runs[f"{layout} replication"] = r["launches"]
     for name, r in serving["runs"].items():
         runs[f"serve {name}"] = r["launches"]
-    for arch, r in (list(lms.items()) + list(families.items())
+    for arch, r in (list(lms.items()) + list(dense_lms.items())
+                    + list(families.items())
                     + [(MOE_ARCH, moe), (HYBRID_ARCH, hybrid)]):
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
@@ -6516,7 +6749,8 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, kernels=kernels, phases=phases,
                   dense=dense, edge=edge, durable=durable, crash=crash,
                   replication=replication, sharded=sharded,
-                  serving=serving, lms=lms, families=families, moe=moe,
+                  serving=serving, lms=lms, dense_lms=dense_lms,
+                  families=families, moe=moe,
                   hybrid=hybrid,
                   training=training, family_train=family_train, mesh=mesh,
                   dryrun=dry, args=vars(args))
@@ -6524,12 +6758,14 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels, "phases": phases}))
-    if moe_bad or family_bad or train_bad or hybrid_bad or dry_bad:
+    if (moe_bad or family_bad or train_bad or hybrid_bad or dry_bad
+            or dense_bad):
         return fail("; ".join([f"phase 13: {b}" for b in moe_bad]
                               + [f"phase 14: {b}" for b in family_bad]
                               + [f"phase 15: {b}" for b in train_bad]
                               + [f"phase 16: {b}" for b in hybrid_bad]
-                              + [f"phase 17: {b}" for b in dry_bad]))
+                              + [f"phase 17: {b}" for b in dry_bad]
+                              + [f"phase 18: {b}" for b in dense_bad]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -818,6 +818,69 @@ def test_phase_15_mesh_models_on_the_cpu(tmp_path):
     assert "700.00 W" in line
 
 
+def test_phase_15_lets_each_model_state_go(tmp_path, monkeypatch):
+    """Each float32 mesh state ``mesh_model_run`` returns is let go
+    before the next model trains and before the int8 step (a state kept
+    alive held internvl2-1b's 1.86 GiB on the card through phase 15
+    (c)'s serving and the int8 step)."""
+    import gc
+    import weakref
+
+    from repro_torch.config import reduced
+    states = []
+    run, int8 = chip_smoke.mesh_model_run, chip_smoke.int8_mesh_step
+
+    def live():
+        gc.collect()
+        return [r for r in states if r() is not None]
+
+    def recording_run(*args, **kw):
+        assert live() == []
+        res, state = run(*args, **kw)
+        states.append(weakref.ref(state.params))
+        return res, state
+
+    def checked_int8(*args, **kw):
+        assert len(states) == 3 and live() == []
+        return int8(*args, **kw)
+    monkeypatch.setattr(chip_smoke, "mesh_model_run", recording_run)
+    monkeypatch.setattr(chip_smoke, "int8_mesh_step", checked_int8)
+    models = {a: reduced(chip_smoke.lm_config(a, 0))
+              for a in ("mamba2-130m", "whisper-small")}
+    res = chip_smoke.mesh_checks(
+        0, 1, f"file://{tmp_path}/rendezvous", 7, device_type="cpu",
+        batch=2, seq=32, steps=1, check_seq=32, check_steps=1,
+        root=str(tmp_path / "ckpt"),
+        cfg=reduced(chip_smoke.lm_config("smollm-360m", 0)), models=models)
+    assert set(res["models"]) == set(models) and "int8" in res
+    assert res["memory"] == []          # read on the card only
+
+
+def test_memory_readout_counts_blocks_made_since(monkeypatch):
+    """``memory_readout`` walks each segment's blocks by address: an
+    active block at an address not active at the earlier readout is new
+    (here no CUDA tensor reaches it, so it counts as not reached); an
+    inactive one, or one on another card, is not counted."""
+    def segment(device, address, *blocks):
+        return dict(device=device, address=address, blocks=[
+            dict(size=n, state=st) for n, st in blocks])
+    snaps = [[segment(0, 0, (512, "active_allocated"), (512, "inactive"))],
+             [segment(0, 0, (512, "active_allocated"),
+                      (256, "active_allocated"), (256, "inactive")),
+              segment(1, 0, (4096, "active_allocated"))]]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: snaps.pop(0))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 768)
+    dev = torch.device("cuda", 0)
+    start = chip_smoke.memory_readout(dev)
+    assert start["blocks"] == {0: 512} and "new" not in start
+    new = chip_smoke.memory_readout(dev, start)["new"]
+    assert new == dict(bytes=256, reached=0, not_reached=256,
+                       reached_by_shape=[])
+    line = chip_smoke.memory_line(dict(part="before serving x",
+                                       allocated=768, **new), 512)
+    assert line.startswith("15 (c) memory before serving x: 0.000 GiB")
+
+
 def test_mesh_model_verdict_names_each_failed_check():
     ok = dict(kernel="ssd_scan", per_step=48, steps=3,
               launches={"ssd_scan": 144}, loss=[6.0, 5.9, 5.8],
@@ -1528,6 +1591,75 @@ def test_phase_family_on_the_cpu(arch):
     assert len(lines) == (2 if cfg.family == "encdec" else 1)
 
 
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "glm4-9b"])
+def test_phase_dense_on_the_cpu(arch):
+    """Phase 18 rehearsed on the reduced gemma-2b (GeGLU, MQA, tied
+    table), olmo-1b (the non-parametric LayerNorm, MHA) and glm4-9b
+    (GQA, untied): decode equals the fresh forward over sequence 0, the
+    float32 'card' (the CPU here) equals the CPU at the reckoned depth
+    over the given steps; only the launch checks fail."""
+    cfg = _reduced(arch)
+    res = chip_smoke.phase_dense(cfg, 7, device="cpu", batch=2, prompt=16,
+                                 decode=4, check_prompt=16, check_decode=4)
+    assert res["f32_n_layers"] == chip_smoke.dense_check_layers(cfg) == 2
+    assert len(res["generated"]) == 5 and res["stub"] == {}
+    assert res["allocated_before"] == res["allocated_after"] == 0
+    assert chip_smoke.dense_failures(res) == [
+        f"{arch}: a prefill launched flash_attention 0 times, want 2",
+        f"{arch}: float32 prefill launched flash_attention 0 times, want 2"]
+    line = chip_smoke.dense_line(res, "CPU, 0 W")
+    assert line.startswith(f"{arch} [dense] on CPU, 0 W: 2 layers, d 128")
+    assert "(DENSE_CHECK_DECODE)" in line
+
+
+def test_dense_verdict_names_memory_left_allocated():
+    res = dict(_family_passing(), promotion=None, allocated_before=1024,
+               allocated_after=1024)
+    assert chip_smoke.dense_failures(res) == []
+    res["allocated_after"] = 1536
+    assert chip_smoke.dense_failures(res) == [
+        "whisper-small: 512 B more allocated after the model than before "
+        "it"]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "glm4-9b"])
+def test_f32_step_bytes_are_the_layers_and_the_unembedding(arch):
+    """``f32_step_bytes`` counts what a float32 decode step reads: the
+    built model's layers and its unembedding table (the tied embedding
+    for gemma-2b and olmo-1b, glm4-9b's own)."""
+    from repro_torch.models import api
+    cfg = _reduced(arch)
+    model = api.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    layers = sum(p.numel() for p in model.groups.parameters())
+    table = (model.embed.tok if cfg.tie_embeddings
+             else model.embed.unembed).numel()
+    assert chip_smoke.f32_step_bytes(cfg, cfg.n_layers) == 4 * (layers + table)
+
+
+def test_dense_check_layers_reckons_each_published_model():
+    """Phase 18's float32 checks at published width: each CPU decode
+    step reads at most DENSE_CHECK_STEP_BYTES — glm4-9b 2 layers of
+    ~0.82 GB beside its 2.48 GB table, gemma-2b 4 of ~0.44 GB beside
+    2.10 GB, olmo-1b F32_CHECK_LAYERS (~0.27 GB beside 0.41 GB) — and
+    a table past the budget still leaves one layer."""
+    import dataclasses
+    want = {"glm4-9b": (2, 815_824_896, 2_483_027_968),
+            "gemma-2b": (4, 440_418_304, 2_097_152_000),
+            "olmo-1b": (chip_smoke.F32_CHECK_LAYERS, 268_435_456,
+                        412_090_368)}
+    for arch, (n, layer, table) in want.items():
+        cfg = chip_smoke.lm_config(arch, 0)
+        assert chip_smoke.f32_step_bytes(cfg, 0) == table
+        assert chip_smoke.f32_step_bytes(cfg, 1) - table == layer
+        assert chip_smoke.dense_check_layers(cfg) == n
+        assert chip_smoke.f32_step_bytes(cfg, n) <= \
+            chip_smoke.DENSE_CHECK_STEP_BYTES
+    huge = dataclasses.replace(chip_smoke.lm_config("glm4-9b", 0),
+                               vocab=10 ** 6)
+    assert chip_smoke.dense_check_layers(huge) == 1
+
+
 def _family_passing():
     """Phase 14's whisper results as a passing run leaves them (the
     float32 and promotion checks at F32_CHECK_LAYERS, 6 + 6)."""
@@ -1915,7 +2047,7 @@ def test_phase_15_training_depth_cuts():
     internvl2-1b at FAMILY_TRAIN_LAYERS, published width kept; mixtral
     at most MOE_TRAIN_MAX_LAYERS on an H100's free memory (where
     ``moe_train_depth`` reckons 2), ``--lm-layers`` still overriding;
-    (b)'s checks at 2 steps, mixtral's at 1."""
+    (b)'s checks at 1 step."""
     for arch, n in chip_smoke.FAMILY_TRAIN_LAYERS.items():
         cfg = chip_smoke.family_check_config(arch, n)
         full = chip_smoke.lm_config(arch, 0)
@@ -1924,7 +2056,7 @@ def test_phase_15_training_depth_cuts():
         if cfg.family == "encdec":
             assert cfg.n_enc_layers == n
     assert chip_smoke.FAMILY_CHECK_STEPS == {
-        "whisper-small": 2, "internvl2-1b": 2, chip_smoke.MOE_ARCH: 1}
+        "whisper-small": 1, "internvl2-1b": 1, chip_smoke.MOE_ARCH: 1}
     assert set(chip_smoke.FAMILY_CHECK_STEPS) == set(
         chip_smoke.FAMILY_CHECK_LAYERS)
     free = int(79.1 * 2 ** 30)
@@ -1937,7 +2069,7 @@ def test_phase_15_training_depth_cuts():
     cfg, cut = chip_smoke.mesh_model_config(chip_smoke.MOE_ARCH, 0, "cpu")
     assert cfg.n_layers == chip_smoke.MOE_TRAIN_MAX_LAYERS
     # (c) trains whisper and internvl2 at (a)'s depths, mamba2 at 12 of
-    # 24; (b) checks whisper and internvl2 at 1 layer; 11 (c) at 3
+    # 24; (b) checks whisper and internvl2 at 1 layer; 11 (c) at 2
     for arch, n in chip_smoke.MESH_TRAIN_LAYERS.items():
         cfg, cut = chip_smoke.mesh_model_config(arch, 0, "cpu")
         assert cfg == chip_smoke.family_check_config(arch, n)
@@ -1947,7 +2079,7 @@ def test_phase_15_training_depth_cuts():
         "mamba2-130m": 12, "whisper-small": 6, "internvl2-1b": 12}
     assert chip_smoke.FAMILY_CHECK_LAYERS == {
         "whisper-small": 1, "internvl2-1b": 1, chip_smoke.MOE_ARCH: 1}
-    assert chip_smoke.RECOVERY_LAYERS == 3
+    assert chip_smoke.RECOVERY_LAYERS == 2
 
 
 def test_phase_15_int8_step_on_the_cpu(world_1_mesh):

@@ -125,6 +125,35 @@ def test_matches_jax_pallas_path(setups, arch):
         _same_greedy(got, want)
 
 
+# the dense configurations at their published head layouts (``reduced``
+# gives every model 4 query heads of 32): gemma-2b's MQA at head_dim 256
+# (GeGLU, tied table), olmo-1b's MHA (the non-parametric LayerNorm),
+# glm4-9b's GQA 32 / 2 as 8 / 2 (untied); gemma-2b's also through the
+# JAX package's Pallas attention in interpret mode
+PUBLISHED_HEADS = [
+    ("gemma-2b", "xla", dict(n_heads=8, n_kv_heads=1, head_dim=256)),
+    ("olmo-1b", "xla", dict(n_heads=4, n_kv_heads=4)),
+    ("glm4-9b", "xla", dict(n_heads=8, n_kv_heads=2)),
+    ("gemma-2b", "pallas", dict(n_heads=8, n_kv_heads=1, head_dim=256)),
+]
+
+
+@pytest.mark.parametrize("arch,impl,over", PUBLISHED_HEADS,
+                         ids=[f"{a}-{i}" for a, i, _ in PUBLISHED_HEADS])
+def test_published_head_layouts_match_jax(arch, impl, over):
+    su = _setup(arch, impl, **over)
+    cfg = su["cfg"]
+    assert (cfg.n_heads, cfg.n_kv_heads) == (over["n_heads"],
+                                             over["n_kv_heads"])
+    assert cfg.hd() == over.get("head_dim", 32)
+    full, steps = _port_run(su)
+    assert np.abs(full - su["full"]).max() < TOL
+    _same_greedy(full, su["full"])
+    for got, want in zip(steps, su["steps"]):
+        assert np.abs(got - want).max() < TOL
+        _same_greedy(got, want)
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_prefill_decode_matches_own_forward(setups, arch):
     full, steps = _port_run(setups(arch))
