@@ -5,10 +5,10 @@ both layouts — in memory, sharded over a mesh, durable and indexed,
 reopened and crashed, replicated — run the paper's serving driver,
 serve five decoder LMs (prefill + greedy decode) at their published
 width and depth, an encoder-decoder (whisper-small) and a VLM
-(internvl2-1b) at theirs, a mixture-of-experts LM (mixtral-8x7b) at
-its published width, as deep as the card holds, and a hybrid LM
-(jamba-1.5-large) at its published width over one period, and train
-the two decoder LMs, with delta checkpoints and a recovery, the
+(internvl2-1b) at theirs, two mixture-of-experts LMs (mixtral-8x7b,
+kimi-k2) at their published width, as deep as the card holds, and a
+hybrid LM (jamba-1.5-large) at its published width over one period, and
+train the two decoder LMs, with delta checkpoints and a recovery, the
 encoder-decoder, VLM and MoE LMs, and the dense, MoE, SSM,
 encoder-decoder and VLM LMs on a ``DeviceMesh``, and serve all six
 families on it.
@@ -210,7 +210,8 @@ Phases, in order (any failure exits non-zero):
    for bit.  In float32 (1 layer at full width) no flip at all and
    every step within ``F32_CARD_CPU_RTOL``.  (d) that float32 layer on
    the card and on the CPU at the published capacity, one prompt of 256
-   tokens and 32 steps: logits within ``F32_CARD_CPU_RTOL``, the same
+   tokens and 8 steps (DENSE_CHECK_DECODE, the cut printed): logits
+   within ``F32_CARD_CPU_RTOL``, the same
    greedy tokens, and every MoE call's top-k, keep mask and slots equal.
    Printed: parameters, the cut, peak memory, prefill seconds and
    tokens/s (warm and cold), decode ms/step, the device profile of one
@@ -339,7 +340,8 @@ Phases, in order (any failure exits non-zero):
    capacity_factor E / k = 8, under phase 13's rules; (d) float32 on
    the card against the CPU at d 1024, 8 / 1 heads of 128, d_ff 3072
    and everything else published (~3.3 GB a side), one prompt of 256
-   tokens and 32 steps: logits within F32_CARD_CPU_RTOL, the same
+   tokens and 8 steps (DENSE_CHECK_DECODE, the cut printed): logits
+   within F32_CARD_CPU_RTOL, the same
    greedy tokens, and every MoE call routing alike or, a token routed
    differently, a near-tie (``route_flip``).  Printed: parameters as
    served and as stored and which layers share experts, peak memory,
@@ -377,13 +379,49 @@ Phases, in order (any failure exits non-zero):
    printed, and no more after than before.  The verdict is
    ``dense_failures``, read after phase 11.
 
+19. kimi-k2-1t-a32b — the MoE family at published width (d 7168, 64 /
+   8 heads of 112, 384 experts top-8 of d_ff 2048, swiglu, rms, rope
+   θ 5e6, an untied 163,840 vocabulary, capacity_factor 1.25), random
+   bf16 weights from a seeded generator, memory freed first as in phase
+   13.  One layer with its experts and the tables are 38.76 GB, two
+   72.83 GB, and (c)'s forward holds a dispatch buffer, the experts'
+   outputs and their concatenation of 11.45 GB each: ``kimi_depth``
+   reckons from the free memory, as ``hybrid_distinct_moe`` does, how
+   many layers keep experts of their own (1), and the layers past them
+   route their own tokens through their own routers over that layer's
+   384 experts (``hybrid_model``; 0.242 GB a layer), as deep as the
+   card holds and at most KIMI_LAYERS (2; ``--lm-layers`` overrides),
+   both reckonings printed.  Through ``phase_hybrid``: (a) prefill 8 ×
+   2048 and 32 greedy decode steps, counters zeroed around each: flash
+   attention once a layer a prefill at head_dim 112 (run padded to
+   128), nothing else, nothing in decode; (b) one prefill's routing
+   (pairs dropped at capacity 432, some must; the fullest expert); (c)
+   bf16 decode of sequence 0 against a fresh forward at the check-only
+   capacity_factor E / k = 48, under phase 13's rules; (d) float32 on
+   the card against the CPU at one layer, 8 / 1 heads of 112 and the
+   widest d_model whose CPU decode step reads at most
+   DENSE_CHECK_STEP_BYTES with every expert (``kimi_check_config``: d
+   384), everything else published, one prompt of 256 tokens and 8
+   steps: logits within F32_CARD_CPU_RTOL, the same greedy tokens, and
+   every MoE call routing alike or, a token routed differently, a
+   near-tie.  Printed: both reckonings, parameters as served and as
+   stored, peak memory, prefill seconds and tokens/s (warm and cold),
+   decode ms/step, a decode step's device kernels and the host's share
+   of it, the device profile of one prefill and of 8 decode steps, the
+   card's memory allocated before and after the model (no more after),
+   beside the card's name and power limit; the verdict is
+   ``kimi_failures``, read after phase 11.
+
 Phase 10 runs right after phase 4, and phases 7, 8, 9 and 12 after it;
 phase 18 runs after phases 5 and 6, phase 14 after phase 18, phase 13
-after phase 14, phase 16 after phase 13, phase 11 after them, phase 15
-then, and phase 17 last.
+after phase 14, phase 16 after phase 13, phase 19 after phase 16, phase
+11 after them, phase 15 then, and phase 17 last.  Phase 15 (c) also
+prints the single-card training reckonings with the int8 optimizer
+state of jamba's period and of kimi-k2's layer
+(``int8_train_reckonings``).
 ``main`` sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
 before the first CUDA allocation, so that memory earlier phases freed
-can hold phase 13's and phase 16's models.
+can hold phase 13's, 16's and 19's models.
 
 Phases 3, 4, 7, 8, 9, 10 and 12 zero the launch counters before driving
 each session (and each reopen, each driver run) and read them after:
@@ -2826,9 +2864,10 @@ def _rel_err(a, b) -> float:
 def profile_device(fn, top: int = 8) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity only) and
     return its wall time, the summed device time of the kernels it
-    launched, the device's busy share of the wall time and the kernels
-    that took the most device time.  The profiler's own overhead is in
-    the wall time."""
+    launched, the device's busy share of the wall time, the number of
+    device kernels (copies and fills included) and those that took the
+    most device time.  The profiler's own overhead is in the wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2847,6 +2886,7 @@ def profile_device(fn, top: int = 8) -> dict:
     events.sort(key=dev_us, reverse=True)
     return dict(wall_s=wall, device_s=device_s,
                 busy=device_s / wall if wall else None,
+                kernels=sum(e.count for e in events),
                 top_ms=[(e.key[:80], dev_us(e) / 1e3, e.count)
                         for e in events[:top]])
 
@@ -3410,11 +3450,15 @@ DENSE_CHECK_DECODE = 8
 
 def f32_step_bytes(cfg, layers: int) -> int:
     """The float32 weights a CPU decode step of ``cfg`` at ``layers``
-    layers reads: those layers (attention, MLP, norms) and the
-    unembedding table (the tied embedding or its own)."""
-    d, hd = cfg.d_model, cfg.hd()
+    layers reads: those layers (attention, MLP or experts, norms) and the
+    unembedding table (the tied embedding or its own).  A MoE layer's
+    step reads its router and every expert: ``models.moe.experts`` runs
+    each one over its capacity's slots (8 at a decode step), whether a
+    token chose it or not."""
+    d, hd, e = cfg.d_model, cfg.hd(), cfg.n_experts
     attn = d * hd * 2 * (cfg.n_heads + cfg.n_kv_heads)
-    mlp = (3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    mlp = ((3 if cfg.mlp_kind in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+           * (e or 1) + d * e)
     norms = {"ln_nonparam": 0, "rms": 2 * d, "ln": 4 * d}[cfg.norm_kind]
     return 4 * (layers * (attn + mlp + norms) + cfg.vocab * d)
 
@@ -3429,6 +3473,21 @@ def dense_check_layers(cfg) -> int:
     return n
 
 
+def allocated_now(device) -> int:
+    """The card's memory allocated once the collector has run and
+    cuBLAS's workspaces are let go (0 off the card): a model's first
+    product on a stream allocates a workspace (32 MiB under
+    CUBLAS_WORKSPACE_CONFIG :4096:8) that cuBLAS keeps, as PyTorch's own
+    leak check knows."""
+    import torch
+    gc.collect()
+    if torch.device(device).type != "cuda":
+        return 0
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
 def phase_dense(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
                 prompt: int = LM_PROMPT, decode: int = LM_DECODE,
                 check_prompt: int = CHECK_PROMPT,
@@ -3438,17 +3497,7 @@ def phase_dense(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
     ``check_decode`` steps, the cut printed; the card's memory allocated
     read before and after (the model must leave no more than it found).
     The verdict is ``dense_failures``."""
-    import torch
-
-    on_card = torch.device(device).type == "cuda"
-
-    def allocated():
-        gc.collect()
-        if not on_card:
-            return 0
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_allocated()
-    before = allocated()
+    before = allocated_now(device)
     layers = dense_check_layers(cfg)
     cut = (f"float32 check {layers} of {cfg.n_layers} layers "
            f"({f32_step_bytes(cfg, layers) / 1e9:.2f} GB a CPU decode step "
@@ -3460,7 +3509,8 @@ def phase_dense(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
                    prompt=prompt, decode=decode, check_prompt=check_prompt,
                    check_decode=check_decode, check_layers=layers,
                    check_cut="DENSE_CHECK_STEP_BYTES")
-    res.update(cut=cut, allocated_before=before, allocated_after=allocated())
+    res.update(cut=cut, allocated_before=before,
+               allocated_after=allocated_now(device))
     return res
 
 
@@ -3519,12 +3569,9 @@ MOE_F32_LAYERS = 1
 
 
 def moe_weight_bytes(cfg) -> int:
-    """Bytes of ``cfg``'s LM weights in bf16, the MoE router in float32."""
-    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
-    attn = d * cfg.hd() * 2 * (cfg.n_heads + cfg.n_kv_heads)
-    layer = 2 * (attn + 2 * d + 3 * e * d * f) + 4 * d * e
-    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return cfg.n_layers * layer + 2 * (embed + d)
+    """Bytes of ``cfg``'s LM weights in bf16, the MoE router in float32,
+    every MoE layer with experts of its own."""
+    return hybrid_weight_bytes(cfg, n_moe_layers(cfg))
 
 
 def moe_depth(cfg, free_bytes: int, override: int = 0) -> tuple:
@@ -3753,7 +3800,8 @@ def decode_vs_forward(model, cfg, prompts, n_steps: int) -> dict:
         del caches, ssm_before
     agree = float((full[s - 1:].argmax(-1) == gen[0, :n_steps + 1])
                   .float().mean())
-    return dict(capacity_factor=cfg.capacity_factor, step_rel=step_rel,
+    return dict(capacity_factor=cfg.capacity_factor, batch=prompts.shape[0],
+                step_rel=step_rel,
                 flips=flips, judged=judged, greedy_agreement=agree,
                 finite=all(bool(torch.isfinite(t).all()) for t in steps))
 
@@ -3797,15 +3845,17 @@ def memory_before(name: str) -> dict:
     return res
 
 
-def serve_moe_lm(model, cfg, prompts, decode: int, device) -> dict:
-    """Phases 13 and 16's bf16 checks of a MoE LM ``model``: (a) the main
-    path, a prefill of ``prompts`` and ``decode`` greedy steps, the clock
-    and the counters zeroed before each and read after; (b) one
+def serve_moe_lm(model, cfg, prompts, decode: int, device,
+                 check_batch: int | None = None) -> dict:
+    """Phases 13, 16 and 19's bf16 checks of a MoE LM ``model``: (a) the
+    main path, a prefill of ``prompts`` and ``decode`` greedy steps, the
+    clock and the counters zeroed before each and read after; (b) one
     prefill's routing at ``cfg``'s capacity, read through forward hooks;
     on the card a warm prefill and the device profiles of one prefill and
-    of 8 decode steps; (c) decode against a fresh forward at the
-    check-only capacity factor E / k (capacity = T: no pair can drop in
-    either); the peak memory."""
+    of 8 decode steps; (c) decode of the first ``check_batch`` prompts
+    (default all) against a fresh forward at the check-only capacity
+    factor E / k (capacity = T: no pair can drop in either); the peak
+    memory."""
     import dataclasses
 
     import torch
@@ -3865,7 +3915,8 @@ def serve_moe_lm(model, cfg, prompts, decode: int, device) -> dict:
     check = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                 / cfg.top_k)
     t0 = time.perf_counter()
-    res["bf16_decode"] = decode_vs_forward(model, check, prompts, decode)
+    res["bf16_decode"] = decode_vs_forward(model, check,
+                                           prompts[:check_batch], decode)
     res["bf16_check_s"] = time.perf_counter() - t0
     if on_card:
         res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3875,7 +3926,7 @@ def serve_moe_lm(model, cfg, prompts, decode: int, device) -> dict:
 def phase_moe(cfg, seed: int, device="cuda", batch: int = LM_BATCH,
               prompt: int = LM_PROMPT, decode: int = LM_DECODE,
               check_prompt: int = CHECK_PROMPT,
-              check_decode: int = CHECK_DECODE,
+              check_decode: int = DENSE_CHECK_DECODE,
               f32_layers: int = MOE_F32_LAYERS, cut: str = "") -> dict:
     """Phase 13: serve ``cfg`` (a MoE LM at full width, its depth cut to
     ``cfg.n_layers``) in bf16 from a seeded generator.  (a) the main
@@ -3993,6 +4044,16 @@ def decode_rule_failures(what: str, d: dict) -> list:
     return bad
 
 
+def drop_failures(res: dict) -> list:
+    """Phases 13 and 19's routing rule: some pair of one prefill dropped
+    at the published capacity."""
+    ro = res["routing"]
+    if ro["dropped"]:
+        return []
+    return [f"no pair dropped at capacity_factor {res['capacity_factor']} "
+            f"(capacity {ro['cap']}, fullest expert {ro['fullest']})"]
+
+
 def moe_failures(res: dict) -> list:
     """Phase 13's verdict on ``phase_moe``'s result: every failed check,
     named; empty when the phase passed.  The decode rules: a step at
@@ -4022,11 +4083,7 @@ def moe_failures(res: dict) -> list:
         bad.append(f"decode launched {res['decode_launches']}")
     if not res["finite"]:
         bad.append("non-finite logits")
-    ro = res["routing"]
-    if ro["dropped"] == 0:
-        bad.append(f"no pair dropped at capacity_factor "
-                   f"{res['capacity_factor']} (capacity {ro['cap']}, "
-                   f"fullest expert {ro['fullest']})")
+    bad += drop_failures(res)
     for what, d in (("bf16", res["bf16_decode"]),
                     ("float32", res["f32_decode"])):
         bad += decode_rule_failures(what, d)
@@ -4059,7 +4116,8 @@ def bf16_decode_line(res: dict) -> str:
     flipped = {x["step"] for x in b["flips"]}
     calm = [r for i, r in enumerate(b["step_rel"]) if i not in flipped]
     return (
-        f"{res['arch']}: bf16 decode vs fresh forward at the check-only "
+        f"{res['arch']}: bf16 decode of {b['batch']} prompt(s) vs fresh "
+        f"forward at the check-only "
         f"capacity_factor {b['capacity_factor']} (capacity = T, nothing "
         f"drops): rel err first step {b['step_rel'][0]:.4g} (tolerance "
         f"{BF16_FIRST_STEP_RTOL:.4g} without a flip), steps without a flip "
@@ -4119,7 +4177,8 @@ def moe_lines(res: dict, smi: str) -> list:
         f"rel err {max(f['step_rel']):.3g} (tolerance "
         f"{F32_CARD_CPU_RTOL:.3g}), route flips {len(f['flips'])}; card vs "
         f"CPU at capacity_factor {c['capacity_factor']}, prompt "
-        f"{c['prompt']} + {c['decode']} steps: rel err {c['rel']:.3g} "
+        f"{c['prompt']} + {c['decode']} steps (DENSE_CHECK_DECODE, cut for "
+        f"the script's time): rel err {c['rel']:.3g} "
         f"(tolerance {F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: "
         f"{c['same_tokens']}, {c['calls']} MoE calls route alike: "
         f"{not c['route_differs']} ({c['dropped']} pairs dropped on the "
@@ -4169,43 +4228,58 @@ def n_moe_layers(cfg) -> int:
     return n_groups(cfg) * sum(f == "moe" for _, f in layer_kinds(cfg))
 
 
-def hybrid_weight_bytes(cfg, distinct: int) -> int:
-    """Bytes of ``cfg``'s weights as phase 16 stores them: bf16, the SSM's
-    ``A_log`` / ``D`` / ``dt_bias`` and the routers float32, and expert
-    weights for ``distinct`` MoE layers only (the others share them)."""
+def stored_params(cfg, distinct: int) -> tuple:
+    """``cfg``'s parameters as ``hybrid_model`` stores them, expert
+    weights for ``distinct`` MoE layers only (the others share them):
+    (those in the weights' dtype, those kept float32 — the SSM's
+    ``A_log`` / ``D`` / ``dt_bias`` and the routers).  Any LM family
+    whose layers ``models.blocks.layer_kinds`` names (dense, moe, ssm,
+    hybrid) with RMS norms and a gated MLP or experts."""
     from repro_torch.models.blocks import layer_kinds, n_groups
-    d, e, f, hd = cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.hd()
-    d_in, n, nh = cfg.d_inner(), cfg.ssm_state, cfg.ssm_nheads()
-    mixer = {"attn": 2 * (2 * d * hd * (cfg.n_heads + cfg.n_kv_heads)),
-             "ssm": 2 * (d * (2 * d_in + 2 * n + nh)
-                         + cfg.ssm_conv * (d_in + 2 * n) + d_in
-                         + d_in * d) + 4 * 3 * nh}
-    ffn = {"mlp": 2 * 3 * d * f, "moe": 4 * d * e}
-    period = sum(2 * d + mixer[m] + ffn[k] + 2 * d
-                 for m, k in layer_kinds(cfg))
-    embed = 2 * cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return (n_groups(cfg) * period + embed + 2 * d
-            + distinct * 2 * 3 * e * d * f)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+
+    def mixer(kind):
+        if kind == "attn":
+            return 2 * d * cfg.hd() * (cfg.n_heads + cfg.n_kv_heads), 0
+        d_in, n, nh = cfg.d_inner(), cfg.ssm_state, cfg.ssm_nheads()
+        return (d * (2 * d_in + 2 * n + nh) + cfg.ssm_conv * (d_in + 2 * n)
+                + d_in + d_in * d), 3 * nh
+    ffn = {"mlp": (3 * d * f, 0), "moe": (0, d * e)}
+    low = f32 = 0
+    for m, k in layer_kinds(cfg):
+        a, b = mixer(m)
+        low += 2 * d + a + ffn[k][0]
+        f32 += b + ffn[k][1]
+    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    return (n_groups(cfg) * low + embed + d + distinct * 3 * e * d * f,
+            n_groups(cfg) * f32)
 
 
-def hybrid_distinct_moe(cfg, free_bytes: int, override: int = 0) -> tuple:
-    """Phase 16's count of MoE layers with expert weights of their own, and
-    the reason, as printed: ``override`` (``--hybrid-distinct``) if given,
-    else every MoE layer of the period, one fewer while the weights and
-    HYBRID_TRANSIENT_BYTES exceed ``free_bytes``.  The MoE layers past
+def hybrid_weight_bytes(cfg, distinct: int) -> int:
+    """Bytes of ``cfg``'s weights as phases 16 and 19 store them
+    (``stored_params``): bf16, the float32 ones in float32."""
+    low, f32 = stored_params(cfg, distinct)
+    return 2 * low + 4 * f32
+
+
+def hybrid_distinct_moe(cfg, free_bytes: int, override: int = 0,
+                        transient: int = HYBRID_TRANSIENT_BYTES) -> tuple:
+    """Phases 16 and 19's count of MoE layers with expert weights of their
+    own, and the reason, as printed: ``override`` (``--hybrid-distinct``)
+    if given, else every MoE layer of ``cfg``, one fewer while the
+    weights and ``transient`` exceed ``free_bytes``.  The MoE layers past
     the count serve the last distinct layer's experts."""
     total = n_moe_layers(cfg)
     if override:
         return override, (f"{override} of {total} MoE layers with experts "
                           f"of their own (--hybrid-distinct)")
     n = total
-    while n > 1 and (hybrid_weight_bytes(cfg, n) + HYBRID_TRANSIENT_BYTES
-                     > free_bytes):
+    while n > 1 and hybrid_weight_bytes(cfg, n) + transient > free_bytes:
         n -= 1
     why = (f"{n} of {total} MoE layers with experts of their own: the "
            f"weights are {hybrid_weight_bytes(cfg, total) / 1e9:.1f} GB "
            f"with all {total}, {hybrid_weight_bytes(cfg, n) / 1e9:.1f} GB "
-           f"with {n}, with {HYBRID_TRANSIENT_BYTES / 2 ** 30:.0f} GiB for "
+           f"with {n}, with {transient / 2 ** 30:.0f} GiB for "
            f"activations, of {free_bytes / 2 ** 30:.1f} GiB free")
     if n < total:
         why += (f"; MoE layers {n + 1}..{total} route over MoE layer {n}'s "
@@ -4321,24 +4395,26 @@ def phase_hybrid(cfg, seed: int, distinct: int, device="cuda",
                  batch: int = LM_BATCH, prompt: int = LM_PROMPT,
                  decode: int = LM_DECODE, check_cfg=None,
                  check_prompt: int = CHECK_PROMPT,
-                 check_decode: int = CHECK_DECODE, cut: str = "") -> dict:
-    """Phase 16: serve ``cfg`` (a hybrid LM at full width, one period) in
-    bf16 from a seeded generator, ``distinct`` of its MoE layers with
-    experts of their own (``hybrid_model``).  (a) the main path, prefill
-    and greedy decode, counters zeroed before each and read after; (b)
-    one prefill's routing at the published capacity; (c) bf16 decode
-    against a fresh forward at the check-only capacity factor E / k;
-    (d) ``check_cfg`` (default ``hybrid_check_config``) in float32 on
-    ``device`` and on the CPU at the published capacity: logits, greedy
+                 check_decode: int = DENSE_CHECK_DECODE,
+                 check_batch: int | None = None, cut: str = "") -> dict:
+    """Phase 16 (and 19's body): serve ``cfg`` (a hybrid or MoE LM at
+    full width) in bf16 from a seeded generator, ``distinct`` of its MoE
+    layers with experts of their own (``hybrid_model``).  (a) the main
+    path, prefill and greedy decode, counters zeroed before each and read
+    after; (b) one prefill's routing at the published capacity; (c) bf16
+    decode of the first ``check_batch`` prompts against a fresh forward
+    at the check-only capacity factor E / k; (d) ``check_cfg`` (default
+    ``hybrid_check_config``) in float32 on ``device`` and on the CPU at
+    the published capacity over ``check_decode`` steps: logits, greedy
     tokens and every MoE call's routing.  The verdict is
     ``hybrid_failures``."""
     import numpy as np
     import torch
 
     on_card = torch.device(device).type == "cuda"
-    res = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
-               n_experts=cfg.n_experts, moe_layers=n_moe_layers(cfg),
-               distinct=distinct, cut=cut,
+    res = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+               d_model=cfg.d_model, n_experts=cfg.n_experts,
+               moe_layers=n_moe_layers(cfg), distinct=distinct, cut=cut,
                capacity_factor=cfg.capacity_factor, batch=batch,
                prompt=prompt, decode=decode,
                want=hybrid_launches_want(cfg))
@@ -4354,7 +4430,8 @@ def phase_hybrid(cfg, seed: int, distinct: int, device="cuda",
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (batch, prompt))).to(device)
-    res.update(serve_moe_lm(model, cfg, prompts, decode, device))
+    res.update(serve_moe_lm(model, cfg, prompts, decode, device,
+                            check_batch))
     del model
     gc.collect()
     if on_card:
@@ -4386,24 +4463,20 @@ def phase_hybrid(cfg, seed: int, distinct: int, device="cuda",
     return res
 
 
-def hybrid_failures(res: dict) -> list:
-    """Phase 16's verdict on ``phase_hybrid``'s result: every failed
-    check, named; empty when the phase passed.  Fewer than
-    HYBRID_MIN_DISTINCT MoE layers with experts of their own; a prefill
-    launching other than ``hybrid_launches_want`` says, or any kernel in
-    decode; the bf16 decode rules of phase 13 (``decode_rule_failures``);
-    float32 card and CPU logits beyond F32_CARD_CPU_RTOL, other greedy
-    tokens, or a token routed differently that is not a near-tie (or a
-    keep mask or slots that differ with every token routed alike)."""
+def served_moe_failures(res: dict) -> list:
+    """The checks phases 16 and 19 share on ``phase_hybrid``'s result,
+    each failed one named: more than MOE_START_ALLOCATED allocated when
+    the phase began; a prefill launching other than ``want`` says, or
+    any kernel in decode; non-finite logits; the bf16 decode rules of
+    phase 13 (``decode_rule_failures``); float32 card and CPU logits
+    beyond F32_CARD_CPU_RTOL, other greedy tokens, or a token routed
+    differently that is not a near-tie (or a keep mask or slots that
+    differ with every token routed alike)."""
     bad = []
     if res.get("allocated_before", 0) > MOE_START_ALLOCATED:
         bad.append(f"{res['allocated_before'] / 2 ** 30:.2f} GiB still "
                    f"allocated when the phase began (limit "
                    f"{MOE_START_ALLOCATED / 2 ** 30:.0f} GiB)")
-    if res["distinct"] < HYBRID_MIN_DISTINCT:
-        bad.append(f"{res['distinct']} of {res['moe_layers']} MoE layers "
-                   f"with experts of their own, fewer than "
-                   f"{HYBRID_MIN_DISTINCT}")
     pre = res["prefill_launches"]
     for k, n in res["want"].items():
         if pre.get(k, 0) != n:
@@ -4431,17 +4504,31 @@ def hybrid_failures(res: dict) -> list:
     if c["unexplained"]:
         bad.append(f"float32 card and CPU keep or slot pairs differently "
                    f"with every token routed alike: {c['unexplained'][:8]}")
+    return bad
+
+
+def hybrid_failures(res: dict) -> list:
+    """Phase 16's verdict on ``phase_hybrid``'s result: every failed
+    check, named; empty when the phase passed.  ``served_moe_failures``,
+    and fewer than HYBRID_MIN_DISTINCT MoE layers with experts of their
+    own."""
+    bad = served_moe_failures(res)
+    if res["distinct"] < HYBRID_MIN_DISTINCT:
+        bad.append(f"{res['distinct']} of {res['moe_layers']} MoE layers "
+                   f"with experts of their own, fewer than "
+                   f"{HYBRID_MIN_DISTINCT}")
     return [f"{res['arch']}: {b}" for b in bad]
 
 
 def hybrid_lines(res: dict, smi: str) -> list:
-    """Phase 16's printed lines, the card's name and power limit beside
-    its times."""
+    """Phases 16 and 19's printed lines, the card's name and power limit
+    beside their times."""
     c = res["card_cpu"]
     shares = ", ".join(f"{k} uses {v}'s" for k, v in res["shares"].items())
     return [
-        f"{res['arch']} [hybrid] on {smi}: {res['n_layers']} layers (one "
-        f"period), d {res['d_model']}, {res['n_experts']} experts in each "
+        f"{res['arch']} [{res['family']}] on {smi}: {res['n_layers']} layers"
+        + (" (one period)" if res["family"] == "hybrid" else "")
+        + f", d {res['d_model']}, {res['n_experts']} experts in each "
         f"of {res['moe_layers']} MoE layers; {res['served'] / 1e9:.2f} B "
         f"params served, {res['stored'] / 1e9:.2f} B stored "
         f"({res['stored_bytes'] / 1e9:.1f} GB; experts shared: "
@@ -4458,7 +4545,8 @@ def hybrid_lines(res: dict, smi: str) -> list:
         f"{res['arch']}: float32 check at {c['width']}, {c['layers']} "
         f"layers ({c['gb']:.2f} GB a side), card vs CPU at capacity_factor "
         f"{c['capacity_factor']}, prompt {c['prompt']} + {c['decode']} "
-        f"steps: rel err {c['rel']:.3g} (tolerance "
+        f"steps (DENSE_CHECK_DECODE, cut for the script's time): rel err "
+        f"{c['rel']:.3g} (tolerance "
         f"{F32_CARD_CPU_RTOL:.3g}), greedy tokens identical: "
         f"{c['same_tokens']}, {c['calls']} MoE calls, tokens routed "
         f"differently {len(c['flips'])}"
@@ -4467,6 +4555,163 @@ def hybrid_lines(res: dict, smi: str) -> list:
                   f"near-tie {f['near_tie']})" for f in c["flips"][:8])
         + f", {c['dropped']} pairs dropped on the card "
         f"({res['f32_check_s']:.1f} s)"] + profile_lines(res)
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: kimi-k2-1t-a32b, the MoE family at 384 experts, served on the card
+
+
+KIMI_ARCH = "kimi-k2-1t-a32b"
+# the served depth's cap, for the script's time: the card holds one layer
+# with experts of its own (33.8 GB of bf16 experts; with the untied
+# 163,840-row tables 38.76 GB) and 15-28 more that route over its
+# experts (0.242 GB each: attention, norms, router), but each adds ~12 s
+# of host work to the phase: at 4 layers it took 55.8 s on one H100
+# 80GB HBM3 at 700 W (a fast host), a decode step 336.8 ms (5,712 device
+# kernels a layer, the experts one at a time), (c) 20.1 s; at 2 layers
+# 42.5 s within the whole script
+KIMI_LAYERS = 2
+# beside the weights and the largest MoE call's transient
+# (``moe_call_bytes``): the KV caches, activations and logits of the
+# prefill and of (c)'s forward
+KIMI_OTHER_BYTES = 4 * 2 ** 30
+# (d)'s float32 card-vs-CPU check: published but for the width and depth
+# (384 experts top-8 of d_ff 2048, 8 / 1 heads of 112 — the published
+# 8:1 grouping — the vocabulary, capacity 1.25), one layer at the widest
+# d_model, in steps of KIMI_CHECK_D_STEP, whose CPU decode step reads at
+# most DENSE_CHECK_STEP_BYTES (``f32_step_bytes``: every expert runs);
+# the published layer is ~77 GB in float32
+KIMI_CHECK_HEADS = dict(n_heads=8, n_kv_heads=1)
+KIMI_CHECK_D_STEP = 128
+
+
+def moe_call_bytes(cfg, tokens: int) -> int:
+    """The largest transient of one MoE call over ``tokens`` tokens at
+    ``cfg``'s capacity, bf16: ``models.moe.experts`` holds the dispatch
+    buffer [E·cap + 1, d], the experts' outputs and their concatenation
+    (as large) at once."""
+    from repro_torch.models.moe import capacity
+    return 3 * 2 * (cfg.n_experts * capacity(cfg, tokens) + 1) * cfg.d_model
+
+
+def kimi_transient_bytes(cfg) -> int:
+    """Phase 19's memory beside the weights: the larger MoE call of the
+    main path's prefill (LM_BATCH × LM_PROMPT tokens at the published
+    capacity) and of (c)'s forward over sequence 0 (LM_PROMPT + LM_DECODE
+    tokens at the check-only capacity factor E / k, capacity = T), and
+    KIMI_OTHER_BYTES."""
+    import dataclasses
+    check = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k)
+    return max(moe_call_bytes(cfg, LM_BATCH * LM_PROMPT),
+               moe_call_bytes(check, LM_PROMPT + LM_DECODE)
+               ) + KIMI_OTHER_BYTES
+
+
+def kimi_depth(cfg, free_bytes: int, override: int = 0) -> tuple:
+    """Phase 19's (distinct, layers, reckoning as printed) for ``cfg`` at
+    published width: the MoE layers with experts of their own as
+    ``hybrid_distinct_moe`` reckons them (weights and
+    ``kimi_transient_bytes`` within ``free_bytes``) over KIMI_LAYERS
+    layers, then the most layers, at most KIMI_LAYERS, whose weights with
+    that many distinct fit beside the transient; ``override``
+    (``--lm-layers``) sets the layers."""
+    import dataclasses
+    transient = kimi_transient_bytes(cfg)
+    top = override or KIMI_LAYERS
+    distinct, why = hybrid_distinct_moe(
+        dataclasses.replace(cfg, n_layers=top), free_bytes,
+        transient=transient)
+
+    def need(n):
+        return hybrid_weight_bytes(dataclasses.replace(cfg, n_layers=n),
+                                   distinct) + transient
+    fits = distinct
+    while fits < cfg.n_layers and need(fits + 1) <= free_bytes:
+        fits += 1
+    layers = override or min(KIMI_LAYERS, fits)
+    shared = need(distinct + 1) - need(distinct)
+    why += (f"; a layer routing over another's experts is {shared / 1e9:.3f}"
+            f" GB, so the card holds {fits} of {cfg.n_layers} layers; "
+            + (f"{layers} (--lm-layers)" if override else
+               f"{layers} served (KIMI_LAYERS, cut for the script's time)")
+            + f"; the transient: the largest MoE call "
+            f"{(transient - KIMI_OTHER_BYTES) / 1e9:.2f} GB (3 x the "
+            f"dispatch buffer, (c)'s forward of {LM_PROMPT + LM_DECODE} "
+            f"tokens at capacity_factor {cfg.n_experts // cfg.top_k}) + "
+            f"{KIMI_OTHER_BYTES / 2 ** 30:.0f} GiB")
+    return distinct, layers, why
+
+
+def kimi_check_config(cfg):
+    """(d)'s float32 config: one layer at the widest d_model (a multiple
+    of KIMI_CHECK_D_STEP, at most the published) whose CPU decode step
+    reads at most DENSE_CHECK_STEP_BYTES, KIMI_CHECK_HEADS of the
+    published head_dim, everything else published."""
+    import dataclasses
+    small = dataclasses.replace(cfg, n_layers=1, head_dim=cfg.hd(),
+                                **KIMI_CHECK_HEADS)
+    d = cfg.d_model // KIMI_CHECK_D_STEP * KIMI_CHECK_D_STEP
+    while d > KIMI_CHECK_D_STEP and f32_step_bytes(dataclasses.replace(
+            small, d_model=d), 1) > DENSE_CHECK_STEP_BYTES:
+        d -= KIMI_CHECK_D_STEP
+    return dataclasses.replace(small, d_model=d)
+
+
+def phase_kimi(cfg, seed: int, distinct: int, device="cuda",
+               batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+               decode: int = LM_DECODE, check_cfg=None,
+               check_prompt: int = CHECK_PROMPT,
+               check_decode: int = DENSE_CHECK_DECODE,
+               cut: str = "") -> dict:
+    """Phase 19: ``phase_hybrid`` on kimi-k2 (``cfg``: published width,
+    its depth cut), ``distinct`` layer(s) with experts of their own and
+    the rest routing over the last one's; (c) on sequence 0 alone (at
+    capacity = T a batch of 8 prompts would need a 90 GB dispatch
+    buffer); (d) at ``check_cfg`` (default ``kimi_check_config``).  The
+    card's memory allocated is read before and after.  The verdict is
+    ``kimi_failures``."""
+    before = allocated_now(device)
+    res = phase_hybrid(cfg, seed, distinct, device=device, batch=batch,
+                       prompt=prompt, decode=decode,
+                       check_cfg=check_cfg or kimi_check_config(cfg),
+                       check_prompt=check_prompt, check_decode=check_decode,
+                       check_batch=1, cut=cut)
+    res.update(allocated_before=res.get("allocated_before", before),
+               allocated_after=allocated_now(device))
+    return res
+
+
+def kimi_failures(res: dict) -> list:
+    """Phase 19's verdict on ``phase_kimi``'s result: every failed check,
+    named; empty when the phase passed.  ``served_moe_failures`` (phase
+    13's checks, with phase 16 (d)'s near-tie rule for the float32 card
+    against the CPU), no pair dropped at the published capacity, and
+    more of the card's memory allocated after the model than before."""
+    bad = served_moe_failures(res) + drop_failures(res)
+    grew = res["allocated_after"] - res["allocated_before"]
+    if grew > 0:
+        bad.append(f"{grew} B more allocated after the model than before it")
+    return [f"{res['arch']}: {b}" for b in bad]
+
+
+def kimi_lines(res: dict, smi: str) -> list:
+    """Phase 19's printed lines: ``hybrid_lines``, then the decode step's
+    host cost and the memory around the model."""
+    lines = hybrid_lines(res, smi)
+    pr = res.get("profile_decode8")
+    if pr:
+        per_step = pr["kernels"] / 8
+        lines.append(
+            f"{res['arch']}: a decode step of {res['batch']} tokens runs "
+            f"{per_step:.0f} device kernels ({per_step / res['n_layers']:.0f}"
+            f" a layer), {1e3 * pr['wall_s'] / 8:.3f} ms under the profiler"
+            f", device busy {pr['busy']:.3f}: the host's share "
+            f"{1 - pr['busy']:.3f}")
+    lines.append(f"{res['arch']}: allocated before the model "
+                 f"{res['allocated_before']} B, after {res['allocated_after']}"
+                 f" B")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -4953,14 +5198,21 @@ def phase_train_card_cpu(cfg, seed: int, device="cuda",
     per-step loss and grad norm, as relative differences; for the MoE
     family also step 1's routes on both (``step1_route_flips``).  The
     verdict is ``card_cpu_failures``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.checkpoint import io
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.runtime import init_train_state, make_train_step
 
     tcfg, scfg = train_configs(cfg, batch, seq, steps, "float32")
-    states = {dev: init_train_state(cfg, tcfg, device=dev)
-              for dev in (device, "cpu")}
+    # the two draws side by side, each from a generator of its own: a
+    # CPU generator draws one value after another (mixtral's float32
+    # layer is 1.45 G values)
+    with ThreadPoolExecutor(2) as pool:
+        drawn = {dev: pool.submit(init_train_state, cfg, tcfg, device=dev)
+                 for dev in (device, "cpu")}
+        states = {dev: f.result() for dev, f in drawn.items()}
     init_differing = differing_arrays(io.raw_arrays(states[device].params),
                                       io.raw_arrays(states["cpu"].params))
     flips = None
@@ -5174,11 +5426,7 @@ MESH_MODELS = {MOE_ARCH: dict(steps=4, check_layers=1, check_steps=1,
 
 def moe_train_params(cfg) -> int:
     """``cfg``'s parameter count (router included)."""
-    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
-    attn = d * cfg.hd() * 2 * (cfg.n_heads + cfg.n_kv_heads)
-    layer = attn + 2 * d + 3 * e * d * f + d * e
-    embed = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
-    return cfg.n_layers * layer + embed + d
+    return sum(stored_params(cfg, n_moe_layers(cfg)))
 
 
 def moe_train_depth(cfg, free_bytes: int, override: int = 0) -> tuple:
@@ -5499,6 +5747,40 @@ def hybrid_mesh_reckoning() -> str:
             f"params, at {MOE_TRAIN_BYTES_PER_PARAM} B a param "
             f"{need / 1e9:.1f} GB of training state, more than the card's "
             f"{total / 1e9:.1f} GB: it waits for a second card")
+
+
+# the training state a parameter with the int8 optimizer state
+# (``optim/adamw.py``, state dtype "int8"): a bf16 parameter and its bf16
+# gradient, int8 ``m`` and ``v`` (their scales one a leaf); activations
+# and AdamW's temporaries come on top
+INT8_TRAIN_BYTES_PER_PARAM = 6
+
+
+def int8_train_reckonings(total_bytes: int) -> list:
+    """Why phase 15 trains neither jamba-1.5-large nor kimi-k2 on one
+    card, even with the int8 optimizer state: the smallest model of each
+    that still runs every kind of layer at published width — jamba's
+    period with one MoE layer's experts, the other three sharing them (as
+    phase 16 serves it), and kimi-k2's one layer (phase 19's layer with
+    experts of its own) — its parameters as ``hybrid_model`` stores them
+    (``stored_params``) at INT8_TRAIN_BYTES_PER_PARAM, against
+    ``total_bytes``."""
+    lines = []
+    for cfg, what in ((hybrid_config(), "one period (8 layers) with one MoE "
+                       "layer's experts, the other 3 sharing them"),
+                      (lm_config(KIMI_ARCH, 1), "one layer with its 384 "
+                       "experts and the untied tables")):
+        n = sum(stored_params(cfg, 1))
+        need = n * INT8_TRAIN_BYTES_PER_PARAM
+        lines.append(
+            f"train {cfg.name} on one card with the int8 optimizer state: "
+            f"{'not run; ' if need > total_bytes else ''}{what} is {n:,} "
+            f"params, at {INT8_TRAIN_BYTES_PER_PARAM} B a param (bf16 param "
+            f"and gradient, int8 m and v) {need / 1e9:.1f} GB of training "
+            f"state before any activation, "
+            + ("more than" if need > total_bytes else "within")
+            + f" the card's {total_bytes / 1e9:.1f} GB")
+    return lines
 
 
 # (c) also serves on the world-1 mesh: mamba2-130m, whisper-small and
@@ -6620,6 +6902,23 @@ def main(argv=None) -> int:
     hybrid_bad = hybrid_failures(hybrid)
     for b in hybrid_bad:
         log(f"chip_smoke: phase 16: {b}")
+    # phase 19 — kimi-k2 at published width: one layer's 384 experts, the
+    # layers past it routing over them, as deep as KIMI_LAYERS
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kimi_cfg = lm_config(KIMI_ARCH, 0)
+    distinct, layers, cut = kimi_depth(
+        kimi_cfg, torch.cuda.mem_get_info()[0], args.lm_layers)
+    print(f"{KIMI_ARCH}: {cut}", flush=True)
+    kimi = phase_kimi(at_depth(kimi_cfg, layers), args.seed, distinct,
+                      cut=cut)
+    phases[f"{KIMI_ARCH}_s"] = time.perf_counter() - t0
+    for line in kimi_lines(kimi, smi.splitlines()[0]):
+        print(line, flush=True)
+    kimi_bad = kimi_failures(kimi)
+    for b in kimi_bad:
+        log(f"chip_smoke: phase 19: {b}")
     # phase 11 — training: both LMs, delta checkpoints and recovery, the
     # float32 card against the CPU
     gc.collect()
@@ -6660,6 +6959,10 @@ def main(argv=None) -> int:
                  else None)
         print(mesh_model_line(r, plain, smi.splitlines()[0]), flush=True)
     print(hybrid_mesh_reckoning(), flush=True)
+    train_reckonings = int8_train_reckonings(
+        torch.cuda.get_device_properties(0).total_memory)
+    for line in train_reckonings:
+        print(line, flush=True)
     for r in mesh["serve"].values():
         print(mesh_serve_line(r, smi.splitlines()[0]), flush=True)
     for arch, why in mesh["serve_skipped"].items():
@@ -6706,7 +7009,8 @@ def main(argv=None) -> int:
         runs[f"serve {name}"] = r["launches"]
     for arch, r in (list(lms.items()) + list(dense_lms.items())
                     + list(families.items())
-                    + [(MOE_ARCH, moe), (HYBRID_ARCH, hybrid)]):
+                    + [(MOE_ARCH, moe), (HYBRID_ARCH, hybrid),
+                       (KIMI_ARCH, kimi)]):
         runs[arch] = {k: r["prefill_launches"][k] + r["decode_launches"][k]
                       for k in r["prefill_launches"]}
     for arch in lms:
@@ -6751,21 +7055,23 @@ def main(argv=None) -> int:
                   replication=replication, sharded=sharded,
                   serving=serving, lms=lms, dense_lms=dense_lms,
                   families=families, moe=moe,
-                  hybrid=hybrid,
+                  hybrid=hybrid, kimi=kimi,
                   training=training, family_train=family_train, mesh=mesh,
+                  train_reckonings=train_reckonings,
                   dryrun=dry, args=vars(args))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels, "phases": phases}))
     if (moe_bad or family_bad or train_bad or hybrid_bad or dry_bad
-            or dense_bad):
+            or dense_bad or kimi_bad):
         return fail("; ".join([f"phase 13: {b}" for b in moe_bad]
                               + [f"phase 14: {b}" for b in family_bad]
                               + [f"phase 15: {b}" for b in train_bad]
                               + [f"phase 16: {b}" for b in hybrid_bad]
                               + [f"phase 17: {b}" for b in dry_bad]
-                              + [f"phase 18: {b}" for b in dense_bad]))
+                              + [f"phase 18: {b}" for b in dense_bad]
+                              + [f"phase 19: {b}" for b in kimi_bad]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,10 @@ four families bit-equal to the plain path at world 1, the verdicts), and
 phase 16's (jamba-1.5-large's MoE layers with experts of their own
 reckoned from the free memory, the shared experts, the launch counts,
 routing readout and verdicts rehearsed on the reduced jamba, and
-kimi-k2's head dim 112 in phase 2's attention case).
+kimi-k2's head dim 112 in phase 2's attention case), and phase 19's
+(kimi-k2's depth and float32 check reckoned at published width, the
+shared-expert layers, the verdict and lines, a rehearsal on a narrow
+kimi-k2 with its 384 experts) with phase 15's training reckonings.
 
 Every kernel case of ``chip_smoke.py`` passes through ``_compare``: a
 kernel output that is NaN or infinite where the plain value is finite
@@ -1183,7 +1186,7 @@ def _moe_passing():
         decode_launches={k: 0 for k in launches}, finite=True,
         routing=dict(dropped=4000, cap=5120, fullest=7000),
         bf16_decode=dict(step_rel=[0.01] * 32, flips=[], judged=[],
-                         finite=True),
+                         finite=True, batch=8),
         f32_decode=dict(step_rel=[1e-6] * 32, flips=[], finite=True),
         card_cpu=dict(rel=1e-6, same_tokens=True, route_differs=[]))
 
@@ -1622,11 +1625,13 @@ def test_dense_verdict_names_memory_left_allocated():
         "it"]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "olmo-1b", "glm4-9b",
+                                  "kimi-k2-1t-a32b"])
 def test_f32_step_bytes_are_the_layers_and_the_unembedding(arch):
     """``f32_step_bytes`` counts what a float32 decode step reads: the
     built model's layers and its unembedding table (the tied embedding
-    for gemma-2b and olmo-1b, glm4-9b's own)."""
+    for gemma-2b and olmo-1b, glm4-9b's and kimi-k2's own); a MoE layer
+    its router and every expert."""
     from repro_torch.models import api
     cfg = _reduced(arch)
     model = api.init_params(cfg, torch.Generator().manual_seed(0),
@@ -1920,6 +1925,238 @@ def test_attention_case_at_kimi_k2_head_dim():
     plain = case["plain"]()
     assert torch.equal(case["kernel"](), plain)
     assert float((case["library"]() - plain).abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Phase 19's host side: kimi-k2's depth and float32 check reckoned at
+# published width, the shared-expert layers, its verdict and lines, and a
+# CPU rehearsal on a narrow kimi-k2 with its 384 experts; phase 15's
+# training reckonings
+# ---------------------------------------------------------------------------
+
+
+def _kimi(**over):
+    """kimi-k2 narrow (``reduced``'s widths) with its published 384
+    experts top-8 and capacity factor."""
+    from repro_torch.config import reduced
+    from repro_torch.configs import get_config
+    return reduced(get_config(chip_smoke.KIMI_ARCH),
+                   **dict(dict(n_experts=384, top_k=8, capacity_factor=1.25,
+                               n_layers=3), **over))
+
+
+def test_kimi_depth_reckons_one_distinct_layer_on_an_h100():
+    """At published width one layer with its 384 experts and the untied
+    tables is 38.76 GB of bf16, two 72.83 GB; beside (c)'s forward over
+    2,080 tokens at capacity = T (three 11.45 GB tensors) and
+    KIMI_OTHER_BYTES, 75.6 GiB free hold one layer with experts of its
+    own and not two; the layers past it cost 0.242 GB each, and
+    KIMI_LAYERS caps the depth unless ``--lm-layers`` sets it."""
+    import dataclasses
+    cfg = chip_smoke.lm_config(chip_smoke.KIMI_ARCH, 0)
+    assert (cfg.d_model, cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.hd(),
+            cfg.vocab, cfg.capacity_factor) == (7168, 384, 8, 2048, 112,
+                                                163840, 1.25)
+    one, two = (dataclasses.replace(cfg, n_layers=n) for n in (1, 2))
+    assert round(chip_smoke.hybrid_weight_bytes(one, 1) / 1e9, 2) == 38.76
+    assert round(chip_smoke.hybrid_weight_bytes(two, 2) / 1e9, 2) == 72.83
+    assert chip_smoke.hybrid_weight_bytes(one, 1) == \
+        chip_smoke.moe_weight_bytes(one)
+    check = dataclasses.replace(cfg, capacity_factor=48.0)
+    assert round(chip_smoke.moe_call_bytes(check, 2080) / 3 / 1e9, 2) == \
+        11.45
+    transient = chip_smoke.kimi_transient_bytes(cfg)
+    assert transient == chip_smoke.moe_call_bytes(check, 2080) + \
+        chip_smoke.KIMI_OTHER_BYTES
+    free = int(75.6 * 2 ** 30)
+    assert chip_smoke.hybrid_weight_bytes(one, 1) + transient <= free
+    assert chip_smoke.hybrid_weight_bytes(two, 2) + transient > free
+    distinct, layers, why = chip_smoke.kimi_depth(cfg, free)
+    assert (distinct, layers) == (1, chip_smoke.KIMI_LAYERS) == (1, 2)
+    assert why.startswith("1 of 2 MoE layers with experts of their own")
+    assert "MoE layers 2..2 route over MoE layer 1's 384 experts" in why
+    assert "another's experts is 0.242 GB, so the card holds 16 of 61 " \
+        "layers; 2 served (KIMI_LAYERS" in why
+    assert chip_smoke.kimi_depth(cfg, free, 4)[:2] == (1, 4)
+    assert chip_smoke.kimi_depth(cfg, 60 * 2 ** 30)[:2] == (1, 1)
+
+
+def test_kimi_shared_layers_weigh_as_reckoned():
+    """The model phase 19 builds (``hybrid_model``, one layer with
+    experts of its own) stores what ``hybrid_weight_bytes`` reckons; a
+    layer more adds its attention, norms and router alone, each later
+    layer holding the first layer's expert Parameters with a router of
+    its own."""
+    import dataclasses
+    from repro_torch.models.moe import MoE
+    cfg = _kimi()
+    sizes = {}
+    for n in (2, 3):
+        c = dataclasses.replace(cfg, n_layers=n)
+        model = chip_smoke.hybrid_model(c, 7, 1, torch.bfloat16, "cpu")
+        sh = chip_smoke.expert_sharing(model)
+        assert sh["stored_bytes"] == chip_smoke.hybrid_weight_bytes(c, 1)
+        sizes[n] = sh["stored_bytes"]
+    mods = [m for m in model.modules() if isinstance(m, MoE)]
+    assert all(m.w_up is mods[0].w_up and m.w_down is mods[0].w_down
+               and m.w_gate is mods[0].w_gate for m in mods)
+    assert len({id(m.wg) for m in mods}) == 3
+    layer = model.groups[2]
+    assert sizes[3] - sizes[2] == sum(
+        p.numel() * p.element_size() for n, p in layer.named_parameters()
+        if not n.endswith(("w_up", "w_gate", "w_down")))
+
+
+def test_kimi_check_config_reckons_d_384():
+    """(d)'s float32 check: one layer, the published 384 experts top-8 of
+    d_ff 2048, 8 / 1 heads of 112, vocabulary and capacity, at d 384,
+    whose CPU decode step reads 3.88 GB with every expert (d 512 would
+    read 5.17 GB, past DENSE_CHECK_STEP_BYTES); without the experts'
+    term the dense count would read 0.26 GB."""
+    import dataclasses
+    cfg = chip_smoke.lm_config(chip_smoke.KIMI_ARCH, 0)
+    small = chip_smoke.kimi_check_config(cfg)
+    assert (small.d_model, small.n_layers, small.n_heads, small.n_kv_heads,
+            small.hd(), small.n_experts, small.top_k, small.d_ff,
+            small.vocab, small.capacity_factor) == (
+        384, 1, 8, 1, 112, 384, 8, 2048, 163840, 1.25)
+    step = chip_smoke.f32_step_bytes(small, 1)
+    assert round(step / 1e9, 2) == 3.88
+    assert step <= chip_smoke.DENSE_CHECK_STEP_BYTES
+    wider = dataclasses.replace(small, d_model=512)
+    assert round(chip_smoke.f32_step_bytes(wider, 1) / 1e9, 2) == 5.17
+    dense = dataclasses.replace(small, n_experts=0)
+    assert round(chip_smoke.f32_step_bytes(dense, 1) / 1e9, 2) == 0.26
+
+
+def test_phase_kimi_on_the_cpu():
+    """Phase 19 rehearsed on a narrow kimi-k2 with its 384 experts top-8
+    at capacity factor 1.25, three layers routing over the first one's
+    experts: pairs drop, the bf16 check decodes sequence 0 alone at E / k,
+    the float32 'card' (the CPU here) routes as the CPU, nothing stays
+    allocated; only the launch check fails, since no kernel runs on the
+    CPU."""
+    cfg = _kimi()
+    res = chip_smoke.phase_kimi(cfg, 7, 1, device="cpu", batch=2, prompt=64,
+                                decode=4, check_cfg=cfg, check_prompt=32,
+                                check_decode=4)
+    assert chip_smoke.kimi_failures(res) == [
+        "kimi-k2-1t-a32b: a prefill launched flash_attention 0 times, "
+        "want 3"]
+    assert res["want"] == {"flash_attention": 3, "ssd_scan": 0}
+    assert res["shares"] == {"groups.1.l0.moe": "groups.0.l0.moe",
+                             "groups.2.l0.moe": "groups.0.l0.moe"}
+    assert res["served"] > res["stored"]
+    ro = res["routing"]
+    assert len(ro["per_layer"]) == 3 and ro["dropped"] > 0
+    assert ro["fullest"] > ro["cap"] == 8
+    b = res["bf16_decode"]
+    assert b["batch"] == 1 and b["capacity_factor"] == 48.0
+    assert len(b["step_rel"]) == 4
+    c = res["card_cpu"]
+    assert c["calls"] == 3 * (1 + 4) and c["rel"] == 0.0
+    assert c["flips"] == [] and c["unexplained"] == []
+    assert res["allocated_before"] == res["allocated_after"] == 0
+    # the lines a card run prints, with the card's readings filled in
+    res.update(prefill_s=0.5, prefill_tokens_per_s=32768.0, peak_gib=70.0,
+               weights_gib=36.8, f32_check_s=9.0, profile_prefill=None,
+               profile_decode8=dict(kernels=8 * 3 * 2700, wall_s=0.8,
+                                    device_s=0.2, busy=0.25, top_ms=[]))
+    lines = chip_smoke.kimi_lines(res, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert lines[0].startswith("kimi-k2-1t-a32b [moe] on NVIDIA H100 80GB "
+                               "HBM3, 700.00 W: 3 layers, d 128, 384 experts")
+    assert "bf16 decode of 1 prompt(s)" in lines[3]
+    assert "runs 8100 device kernels (2700 a layer), 100.000 ms under the " \
+        "profiler, device busy 0.250: the host's share 0.750" in lines[-2]
+    assert lines[-1] == ("kimi-k2-1t-a32b: allocated before the model 0 B, "
+                         "after 0 B")
+
+
+def _kimi_passing():
+    """Phase 19's results as a passing run leaves them."""
+    return dict(_hybrid_passing(), arch="kimi-k2-1t-a32b", distinct=1,
+                moe_layers=4, want={"flash_attention": 4, "ssd_scan": 0},
+                prefill_launches={"flash_attention": 4, "ssd_scan": 0},
+                capacity_factor=1.25,
+                routing=dict(dropped=9000, cap=432, fullest=2000),
+                allocated_after=2 ** 20)
+
+
+@pytest.mark.parametrize("change,message", [
+    (lambda r: r.update(allocated_before=3 * 2 ** 30, allocated_after=0),
+     "3.00 GiB still allocated when the phase began"),
+    (lambda r: r["prefill_launches"].update(flash_attention=3),
+     "a prefill launched flash_attention 3 times, want 4"),
+    (lambda r: r["prefill_launches"].update(delta_apply=1),
+     "a prefill launched {'delta_apply': 1}"),
+    (lambda r: r["decode_launches"].update(flash_attention=1),
+     "decode launched"),
+    (lambda r: r.update(finite=False), "non-finite logits"),
+    (lambda r: r["routing"].update(dropped=0),
+     "no pair dropped at capacity_factor 1.25 (capacity 432"),
+    (lambda r: r["bf16_decode"]["step_rel"].__setitem__(3, 0.3),
+     "bf16 decode disagrees with a fresh forward at steps without a "
+     "route flip: (step, rel err) [(3, 0.3)]"),
+    (lambda r: r["card_cpu"].update(rel=2e-4),
+     "float32 card and CPU logits differ by 0.0002"),
+    (lambda r: r["card_cpu"].update(same_tokens=False),
+     "float32 card and CPU greedy tokens differ"),
+    (lambda r: r["card_cpu"]["flips"].append(dict(
+        call=3, layer=1, token=0, gap=0.5, delta=0.01, near_tie=False)),
+     "route tokens differently with no near-tie: (call, layer, token) "
+     "[(3, 1, 0)]"),
+    (lambda r: r["card_cpu"]["unexplained"].append((2, 0)),
+     "keep or slot pairs differently with every token routed alike"),
+    (lambda r: r.update(allocated_after=2 ** 20 + 512),
+     "512 B more allocated after the model than before it"),
+], ids=["memory", "launches", "other-kernel", "decode-launch", "finite",
+        "no-drop", "bf16-step", "card-cpu", "tokens", "no-near-tie",
+        "unexplained", "left-allocated"])
+def test_kimi_verdict_names_each_failed_check(change, message):
+    """``kimi_failures`` passes a passing run, a near-tie route
+    difference between card and CPU and a single distinct MoE layer, and
+    names each failed check alone."""
+    assert chip_smoke.kimi_failures(_kimi_passing()) == []
+    res = _kimi_passing()
+    res["card_cpu"]["flips"].append(dict(call=1, layer=0, token=0, gap=1e-6,
+                                         delta=2e-6, near_tie=True))
+    assert chip_smoke.kimi_failures(res) == []
+    change(res)
+    bad = chip_smoke.kimi_failures(res)
+    assert len(bad) == 1 and bad[0].startswith("kimi-k2-1t-a32b: "), bad
+    assert message in bad[0], bad
+
+
+def test_int8_train_reckonings_count_the_models_as_built():
+    """Phase 15's single-card training reckonings: ``stored_params``
+    equals the parameters of the models as built — jamba's period with
+    one MoE layer's experts, the other three sharing them, and kimi-k2's
+    one layer — and at published width 16.15 G (96.9 GB at 6 B a
+    parameter) and 19.38 G (116.3 GB), past an 80 GB card."""
+    from repro_torch.models import api
+    jamba = _jamba()
+    built = chip_smoke.hybrid_model(jamba, 7, 1, torch.float32, "cpu")
+    assert sum(p.numel() for p in built.parameters()) == sum(
+        chip_smoke.stored_params(jamba, 1))
+    kimi = _kimi(n_layers=1)
+    built = api.init_params(kimi, torch.Generator().manual_seed(0),
+                            torch.float32, "cpu")
+    assert sum(p.numel() for p in built.parameters()) == sum(
+        chip_smoke.stored_params(kimi, 1)) == chip_smoke.moe_train_params(
+        kimi)
+    lines = chip_smoke.int8_train_reckonings(80 * 10 ** 9)
+    assert lines[0].startswith(
+        "train jamba-1.5-large-398b on one card with the int8 optimizer "
+        "state: not run; one period (8 layers) with one MoE layer's "
+        "experts, the other 3 sharing them is 16,153,514,240 params")
+    assert "6 B a param (bf16 param and gradient, int8 m and v) 96.9 GB" \
+        in lines[0]
+    assert "kimi-k2-1t-a32b" in lines[1] and "19,378,623,488 params" in \
+        lines[1] and "116.3 GB" in lines[1]
+    assert all(line.endswith("more than the card's 80.0 GB")
+               for line in lines)
+    assert "within the card's 200.0 GB" in \
+        chip_smoke.int8_train_reckonings(200 * 10 ** 9)[0]
 
 
 # ---------------------------------------------------------------------------

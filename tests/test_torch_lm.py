@@ -27,6 +27,20 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import lm_from_numpy  # noqa: E402
 from repro_torch.models import api, moe  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The reduced models' ops are too small to gain from intra-op
+    threads, and under ``pytest -n`` a worker's threads spin against the
+    other workers': kimi-k2's 384 experts, one small product after
+    another, took 368 s under ``pytest -n 6`` on eight threads a worker
+    against 11 s alone.  The port runs this file on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, S, N_DEC = 2, 32, 4
 N_PRE = S - N_DEC
 TOL = 1e-4
@@ -129,12 +143,18 @@ def test_matches_jax_pallas_path(setups, arch):
 # gives every model 4 query heads of 32): gemma-2b's MQA at head_dim 256
 # (GeGLU, tied table), olmo-1b's MHA (the non-parametric LayerNorm),
 # glm4-9b's GQA 32 / 2 as 8 / 2 (untied); gemma-2b's also through the
-# JAX package's Pallas attention in interpret mode
+# JAX package's Pallas attention in interpret mode; kimi-k2's published
+# expert layout (384 experts top-8) with its 8:1 grouping at head_dim 112
+# as 8 / 1, through both attentions
+KIMI_PUBLISHED = dict(n_heads=8, n_kv_heads=1, head_dim=112, n_experts=384,
+                      top_k=8)
 PUBLISHED_HEADS = [
     ("gemma-2b", "xla", dict(n_heads=8, n_kv_heads=1, head_dim=256)),
     ("olmo-1b", "xla", dict(n_heads=4, n_kv_heads=4)),
     ("glm4-9b", "xla", dict(n_heads=8, n_kv_heads=2)),
     ("gemma-2b", "pallas", dict(n_heads=8, n_kv_heads=1, head_dim=256)),
+    ("kimi-k2-1t-a32b", "xla", KIMI_PUBLISHED),
+    ("kimi-k2-1t-a32b", "pallas", KIMI_PUBLISHED),
 ]
 
 
